@@ -4,17 +4,23 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-1. build   the closest-hit kernel from drt_tpu_torch/csrc with nvcc;
-2. kernel  vs its plain PyTorch twin on dog_mid90k (82,566 faces) at
-           1280x960: camera rays (coherent) and the bounce-2 rays of the
-           same view (incoherent), plus a 4,096-ray sample of each against
-           the brute-force oracle; tri_id may differ on at most 2 shared-edge
-           ties per 1,024 rays that either side hits; t within rtol 1e-5 /
-           atol 1e-4, except on at most 2 per 1,024 hits, which stay within
-           1e-2: float32 cancellation in t*det = o.n - v0.n when the shift
-           (the mean ray origin, as in the JAX package) lies far from the
-           mesh, as it does when most lanes are parked. The kernel and its
-           twin round alike, so they should agree bit for bit (printed);
+1. build   both kernels (closest hit, candidate prepass) from
+           drt_tpu_torch/csrc with nvcc, one compile per source in
+           parallel; prints each kernel's registers, shared memory and
+           spills and fails on a spill to local memory;
+2. kernel  the closest-hit kernel vs its plain PyTorch version on
+           dog_mid90k (82,566 faces) at 1280x960: camera rays (coherent)
+           and the bounce-2 rays of the same view (incoherent), plus a
+           65,536-ray sample of each against the brute-force oracle; tri_id
+           may differ on at most 2 shared-edge ties per 1,024 rays that
+           either side hits; t within rtol 1e-5 / atol 1e-4, except on at
+           most 2 per 1,024 hits, which stay within 1e-2: float32
+           cancellation in t*det = o.n - v0.n when the shift (the mean ray
+           origin, as in the JAX package) lies far from the mesh, as it does
+           when most lanes are parked. The kernel and its plain version
+           round alike and must agree bit for bit. On each incoherent query
+           the prepass kernel must also give the candidate lists and counts
+           of its plain version `_candidates` exactly;
 3. small   the full loss and gradient on a small icosphere (float64), on
            the card against the CPU: valid rays within the tie tolerance
            with each device's own oracle, and, with the card's hits
@@ -24,15 +30,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    queries the four kinds of query one train step makes on dog_mid45k,
            recorded from the main path's own loss functions on a capture
            view (bounce 1, bounce 2, exit, and one silhouette view's edge-
-           offset rays, which are incoherent and not normalized): the
-           kernel against its plain twin as in phase 2, and the silhouette
-           query against the brute-force oracle on all its rays;
+           offset rays, which are incoherent and not normalized): both
+           kernels against their plain versions as in phase 2, and the
+           silhouette query against the brute-force oracle on all its rays;
 5. train   3 reference-parity steps (sgd, precond none, HyperParams()
            weights, float32) from dog_mid45k: one ray view and 8 silhouette
            views per step, 11 oracle queries per step, each through the
-           kernel (the launch counters are reset just before and read just
-           after).
-Then it prints the timings, a JSON line with the kernel's numbers, the
+           closest-hit kernel and the 10 incoherent ones through the prepass
+           kernel too (the launch counters are reset just before and read
+           just after).
+Then it prints the timings, a JSON line with both kernels' numbers, the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.
 
@@ -43,6 +50,7 @@ reports/tuning_meshes/) and a CUDA GPU; it imports nothing of JAX.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -53,6 +61,7 @@ MESH_DIR = os.path.join(HERE, "reports", "tuning_meshes")
 FP32_PEAK = 67e12                 # H100 SXM FP32 non-tensor FLOP/s
 HBM_RATE = 3.35e12                # H100 SXM HBM3 bytes/s
 TIE_PER_1024 = 2
+BRUTE_SAMPLE = 65536
 
 
 def fail(msg):
@@ -102,7 +111,9 @@ def slab_pairs(inp, t_hit):
     AABB the ray's own slab test enters: all of them, and those it enters
     no later than its closest hit t_hit [Np] (inf on a miss). The second is
     the least work of the function: a chunk entered before the hit may hold
-    a nearer one and must be tested, one entered after it cannot."""
+    a nearer one and must be tested, one entered after it cannot. Also the
+    (tile, chunk) pairs in which some ray of the tile makes a pair of the
+    second kind: the fewest chunks the tile's block must fetch."""
     import torch
     T, NC = inp.cand.shape
     RT = inp.phi.shape[1] // T
@@ -113,7 +124,7 @@ def slab_pairs(inp, t_hit):
     iv = inp.inv.reshape(3, T, RT)
     th = t_hit.reshape(T, RT, 1)
     g = max(1, 2 ** 25 // (RT * NC))
-    n_all = n_cut = 0
+    n_all = n_cut = n_tile = 0
     for s in range(0, T, g):
         t_entry = t_exit = None
         for ax in range(3):
@@ -125,8 +136,10 @@ def slab_pairs(inp, t_hit):
             t_exit = x if t_exit is None else torch.minimum(t_exit, x)
         hit = (t_entry <= t_exit) & (t_exit > 0) & listed[s:s + g, None]
         n_all += int(hit.sum())
-        n_cut += int((hit & (t_entry <= th[s:s + g])).sum())
-    return n_all, n_cut
+        cut = hit & (t_entry <= th[s:s + g])
+        n_cut += int(cut.sum())
+        n_tile += int(cut.any(dim=1).sum())
+    return n_all, n_cut, n_tile
 
 
 def kernel_bound(inp, C, t_hit):
@@ -139,7 +152,7 @@ def kernel_bound(inp, C, t_hit):
     peak (which counts an FMA as two)."""
     import torch
     count = inp.count.long()
-    pairs_all, pairs = slab_pairs(inp, t_hit)
+    pairs_all, pairs, tile_pairs = slab_pairs(inp, t_hit)
     visits = pairs * C
     ops = visits * 34 * 2
     used = count[:, None] > torch.arange(inp.cand.shape[1],
@@ -150,15 +163,73 @@ def kernel_bound(inp, C, t_hit):
               + count.numel() * 4 + inp.phi.shape[1] * 8)
     t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", visits, pairs_all * C, nbytes)
+            else "bytes", visits, pairs_all * C, nbytes, t_ops, tile_pairs)
+
+
+def prepass_bound(n_rays, n_tiles, n_chunks, n_valid):
+    """Least time for one launch of the prepass kernel: every ray against
+    every valid chunk, 6 subtractions, 6 multiplies and 10 min/max a pair
+    (unfused, at half the FP32 FLOP/s peak), against the bytes: origins and
+    inverse directions and the boxes read once, T x NC scores written."""
+    ops = n_rays * n_valid * 22 * 2
+    nbytes = n_rays * 6 * 4 + n_chunks * 25 + n_tiles * n_chunks * 4
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
+
+
+def check_prepass(name, o, geom, inp):
+    """The prepass kernel against its plain version on one incoherent
+    query's own inputs: scores, counts and the listed part of every
+    candidate list equal; then both times and the sort's."""
+    import torch
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    T, NC = inp.cand.shape
+    _, _, cv = CK._chunk_aabbs(*geom, o.float().mean(dim=0), CK.TRI_CHUNK)
+    org = inp.phi[6:9]
+    args = (org, inp.inv, inp.lo, inp.hi, cv, T)
+    score_k = CK.candidate_scores_cuda(*args)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    score_p = CK.candidate_scores_plain(*args)
+    torch.cuda.synchronize()
+    ms_p = (time.time() - t0) * 1e3
+    cand_k, count_k = CK._sorted_candidates(score_k)
+    RT = org.shape[1] // T
+    cand_p, count_p = CK._candidates(
+        org.reshape(3, T, RT).permute(1, 0, 2),
+        inp.phi[0:3].reshape(3, T, RT).permute(1, 0, 2), inp.lo, inp.hi, cv)
+    listed = (torch.arange(NC, device=org.device) < count_p[:, None])
+    finite = torch.isfinite(score_p)
+    err = (float((score_k[finite] - score_p[finite]).abs().max())
+           if finite.any() else 0.0)
+    same = bool((score_k == score_p).all() and torch.equal(count_k, count_p)
+                and torch.equal(cand_k[listed], cand_p[listed])
+                and torch.equal(cand_k, inp.cand)
+                and torch.equal(count_k, inp.count))
+    print(f"{name} prepass kernel vs plain: scores, counts and lists "
+          f"equal: {same} (max |dscore| {err:g})")
+    if not same:
+        fail(f"{name}: the prepass kernel differs from _candidates")
+    ms_k = cuda_ms(lambda: CK.candidate_scores_cuda(*args), 20)
+    ms_s = cuda_ms(lambda: CK._sorted_candidates(score_k), 5)
+    bound, bound_by = prepass_bound(org.shape[1], T, NC, int(cv.sum()))
+    print(f"{name} prepass: {T} tiles of {RT} x {NC} chunks "
+          f"({int(cv.sum())} valid), kernel {ms_k:.3f} ms, plain "
+          f"{ms_p:.3f} ms, sort and count {ms_s:.3f} ms, bound "
+          f"{bound:.3f} ms ({bound_by})")
+    return dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound, bound_by=bound_by,
+                err=err, sort_ms=ms_s)
 
 
 def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
                 brute_all=False):
-    """One oracle query: the kernel against its plain twin on the card and
-    against the brute-force oracle (a 4,096-ray sample, or all rays), then
-    the kernel's, the plain twin's and the whole query's times and the
-    bound. plain_reps=0 times the plain twin by its one checking run."""
+    """One oracle query: the closest-hit kernel against its plain version
+    on the card (bit for bit) and against the brute-force oracle (a
+    65,536-ray sample, or all rays), then the kernel's, the plain version's
+    and the whole query's times and the bound; on an incoherent query also
+    the prepass kernel against its plain version. plain_reps=0 times the
+    plain version by its one checking run."""
     import torch
     from drt_tpu_torch.intersect import cuda_kernel as CK
     from drt_tpu_torch.intersect.brute import intersect_brute
@@ -174,11 +245,13 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
     err = compare_hits(f"{name} kernel vs plain", t_p, id_p, t_k, id_k)
     same_bits = bool(torch.equal(id_k, id_p) and torch.equal(t_k, t_p))
     print(f"{name} kernel vs plain bit for bit: {same_bits}")
-    if brute_all:
+    if not same_bits:
+        fail(f"{name}: kernel and plain version differ")
+    if brute_all or N <= BRUTE_SAMPLE:
         idx, what = torch.arange(N, device=o.device), "all rays"
     else:
-        idx = torch.randperm(N, generator=gen)[:4096].to(o.device)
-        what = "4096 sample"
+        idx = torch.randperm(N, generator=gen)[:BRUTE_SAMPLE].to(o.device)
+        what = f"{BRUTE_SAMPLE} sample"
     hb = intersect_brute(o[idx], d[idx], *geom)
     compare_hits(f"{name} kernel vs brute ({what})", hb.t, hb.tri_id,
                  t_k[idx], id_k[idx])
@@ -187,9 +260,20 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
         ms_p = cuda_ms(lambda: CK.closest_hit_plain(inp), plain_reps)
     ms_q = cuda_ms(lambda: CK.intersect_cuda(o, d, *geom,
                                              coherent=coherent), 5)
-    bound, bound_by, visits, visits_uncut, nbytes = kernel_bound(
-        inp, CK.TRI_CHUNK, t_full)
+    bound, bound_by, visits, visits_uncut, nbytes, t_ops, tile_pairs = \
+        kernel_bound(inp, CK.TRI_CHUNK, t_full)
     cnt = inp.count.float()
+    T = inp.count.shape[0]
+    chunk_bytes = CK.N_COEF * CK.TRI_CHUNK * 4
+    listed = int(inp.count.sum())
+    per_tile = inp.phi.shape[1] // T // CK.BLOCK_RAYS
+    print(f"{name}: coefficient traffic of {T} tiles of "
+          f"{inp.phi.shape[1] // T} rays, {per_tile} blocks each: at least "
+          f"{tile_pairs} (tile, chunk) visits x {chunk_bytes} B = "
+          f"{tile_pairs * chunk_bytes / 1e6:.1f} MB, at most {listed} listed"
+          f" x {per_tile} blocks = "
+          f"{listed * per_tile * chunk_bytes / 1e6:.1f} MB, beside an "
+          f"operations bound of {t_ops:.3f} ms")
     print(f"{name}: {N} rays, candidates/tile mean {float(cnt.mean()):.1f} "
           f"max {int(cnt.max())}, kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms,"
           f" query (prepass + kernel) {ms_q:.3f} ms, bound {bound:.3f} ms "
@@ -197,8 +281,11 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
           f" {visits_uncut} entered at all, {nbytes} bytes), "
           f"{N / ms_k * 1e3 / 1e6:.1f} Mrays/s kernel, "
           f"{N / ms_q * 1e3 / 1e6:.1f} Mrays/s query")
-    return dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound, bound_by=bound_by,
-                err=err, query_ms=ms_q)
+    res = dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound, bound_by=bound_by,
+               err=err, query_ms=ms_q)
+    if not coherent:
+        res["prepass"] = check_prepass(name, o, geom, inp)
+    return res
 
 
 class QueryRecorder:
@@ -332,9 +419,23 @@ def main():
     CK.build(force=True)
     CK._load()
     print(f"build: {time.time() - t0:.2f} s (nvcc {' '.join(CK.NVCC_FLAGS)})")
+    entry, n_entries = "?", 0
     for line in CK.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, n_entries = m.group(1), n_entries + 1
         if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}")
+            print(f"ptxas {entry}: {line.strip()}")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and (int(m.group(1)) or int(m.group(2))):
+            fail(f"{entry} spills to local memory: {line.strip()}")
+    if n_entries < 2:
+        fail(f"ptxas reported {n_entries} kernels, expected 2:\n"
+             f"{CK.build_log}")
+    print(f"ray tiles: coherent {CK.RAY_TILE_COHERENT}, incoherent "
+          f"{CK.RAY_TILE_INCOHERENT}; closest-hit blocks of "
+          f"{CK.BLOCK_RAYS} rays")
 
     # -- 2. kernel vs plain twin on dog_mid90k at 1280x960 ------------------
     v90, f90 = load_ply(os.path.join(MESH_DIR, "dog_mid90k.ply"))
@@ -407,11 +508,13 @@ def main():
     ray_gen = cap.ray_view_generator(seed=hp.seed)
     silh_gen = cap.silh_view_generator(seed=hp.seed + 1000)
     per_step = 3 + 8
+    per_step_prepass = 2 + 8          # the incoherent ones
     times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
     CK.counters.reset()                        # main path starts here
     for it in range(3):
         calls0, launches0 = CK.counters.calls, CK.counters.launches
+        cand0 = CK.counters.candidates_launches
         ray_idx = next(ray_gen)
         silh_idx = [next(silh_gen) for _ in range(8)]
         torch.cuda.synchronize()
@@ -423,18 +526,22 @@ def main():
         losses.append(float(loss))
         d_calls = CK.counters.calls - calls0
         d_launch = CK.counters.launches - launches0
+        d_cand = CK.counters.candidates_launches - cand0
         print(f"step {it}: {times[-1]:.1f} ms, loss {losses[-1]:.6g} "
               f"(ray {float(aux['ray']):.6g} vh {float(aux['vh']):.6g} "
               f"sm {float(aux['sm']):.6g}), valid rays "
               f"{int(aux['valid_rays'])}, max grad "
               f"{float(aux['max_grad']):.3g}, queries {d_calls}, "
-              f"launches {d_launch}")
-        if d_calls != per_step or d_launch < per_step:
-            fail(f"step {it}: {d_calls} queries / {d_launch} launches, "
-                 f"expected {per_step}")
+              f"closest-hit launches {d_launch}, prepass launches {d_cand}")
+        if (d_calls != per_step or d_launch != per_step
+                or d_cand != per_step_prepass):
+            fail(f"step {it}: {d_calls} queries / {d_launch} closest-hit / "
+                 f"{d_cand} prepass launches, expected {per_step} / "
+                 f"{per_step} / {per_step_prepass}")
         if not math.isfinite(losses[-1]):
             fail(f"step {it}: loss is not finite")
     launches = CK.counters.launches              # main path ends here
+    cand_launches = CK.counters.candidates_launches
     verts = final(state, ms45)
     moved = float((verts - ms45.vertices).abs().max())
     if not torch.isfinite(verts).all() or moved <= 0:
@@ -446,20 +553,38 @@ def main():
           f"warm-up), {n_rays / step_ms * 1e3 / 1e6:.2f} Mrays/s "
           f"(ray view), max vertex move {moved:.4g}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"launches {launches}")
+          f"launches {launches} closest-hit, {cand_launches} prepass")
 
     cam_r = results["camera"]
+    pre = {k: r["prepass"] for k, r in results.items() if "prepass" in r}
+    pre_r = pre["dog_mid45k bounce2"]
     kernels = [{
         "name": "closest_hit",
         "route": "cuda",
         "source": "drt_tpu_torch/csrc/closest_hit.cu",
         "replaces": "drt_tpu/intersect/pallas_kernel.py:118",
         "launches": launches,
+        "launches_per_step": per_step,
+        "shape": "camera rays 1280x960 on dog_mid90k",
         "max_abs_err": max(r["err"] for r in results.values()),
         "ms": cam_r["ms"],
         "plain_ms": cam_r["plain_ms"],
         "bound_ms": cam_r["bound_ms"],
         "bound_by": cam_r["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "candidates",
+        "route": "cuda",
+        "source": "drt_tpu_torch/csrc/candidates.cu",
+        "replaces": "drt_tpu/intersect/pallas_kernel.py:359",
+        "launches": cand_launches,
+        "launches_per_step": per_step_prepass,
+        "shape": "bounce-2 rays 1280x960 on dog_mid45k",
+        "max_abs_err": max(r["err"] for r in pre.values()),
+        "ms": pre_r["ms"],
+        "plain_ms": pre_r["plain_ms"],
+        "bound_ms": pre_r["bound_ms"],
+        "bound_by": pre_r["bound_by"],
         "library_ms": None,
     }]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

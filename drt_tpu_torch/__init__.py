@@ -1,11 +1,12 @@
 """drt_tpu_torch — the PyTorch/CUDA port of drt_tpu.
 
 Same layout and function names as `drt_tpu`, so each module's counterpart
-is found by path. Plain tensor code is PyTorch autograd; the one hand-written
-kernel is the closest-hit oracle (`intersect/cuda_kernel.py`,
-`csrc/closest_hit.cu`). Entry points that create tensors (`build_mesh_state`,
+is found by path. Plain tensor code is PyTorch autograd; the hand-written
+kernels are the closest-hit oracle's (`intersect/cuda_kernel.py`:
+`csrc/closest_hit.cu` and the candidate prepass `csrc/candidates.cu`).
+Entry points that create tensors (`build_mesh_state`,
 `stack_views`, `synthesize_capture`) default to `device="cuda"`; the tests
-pass `device="cpu"`, where every kernel wrapper runs its plain twin.
+pass `device="cpu"`, where every kernel wrapper runs its plain version.
 
 Layer map:
     geometry/   differentiable optics and mesh metrics

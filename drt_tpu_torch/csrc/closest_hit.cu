@@ -3,152 +3,327 @@
 // Replaces both bodies of the TPU kernel in drt_tpu/intersect/pallas_kernel.py:
 // `_kernel` (VMEM-resident coefficients) and `_kernel_stream` (coefficients
 // streamed from HBM). The resident/streaming split was a VMEM limit; here
-// every chunk's coefficients are staged into shared memory on demand, so one
+// every chunk's coefficients are copied into shared memory on demand, so one
 // kernel serves every mesh size.
 //
-// Grid: one block per ray tile of blockDim.x rays, one thread per ray. The
-// block walks its tile's nearest-first candidate chunk list (built by the
-// torch prepass, intersect/cuda_kernel.py). Per candidate chunk:
-//   1. each thread slab-tests its ray against the chunk AABB, cut off at its
-//      running best t;
-//   2. if any ray of the block overlaps, the block stages the chunk's 19
-//      nonzero Plücker coefficient rows (det: 3, u*det: 6, v*det: 6,
-//      t*det: 4; the dense layout is [10, 4C]) into shared memory;
-//   3. every thread of the block (not only the overlapping ones: `_kernel`
-//      gates the whole tile on any overlap, so a grazing ray whose slab test
-//      rounds to a miss still takes the chunk's hits) runs Möller–Trumbore
-//      for the chunk's C triangles in FP32 against its ray features
-//      [d, o x d, o, 1], with the division-free sign-aware hit test of
-//      `_kernel` (t_min = 0), and keeps the running minimum: lowest triangle
-//      row within a chunk, strict `<` across chunks (the TPU kernel's tie
-//      rule).
+// What it computes: per ray the closest hit (t, tri_id) over its tile's
+// nearest-first candidate chunk list (built by the prepass,
+// intersect/cuda_kernel.py); t = inf, tri_id = -1 on a miss. Möller–Trumbore
+// as FP32 Plücker products against the ray features [d, o x d, o, 1], the
+// division-free sign-aware hit test of `_kernel` (eps 1e-5 on u and v,
+// t_min = 0), lowest triangle row on equal t within a chunk, strict `<`
+// across chunks.
+//
+// Where it departs from `_kernel`, on purpose: work is gated per ray. In
+// `_kernel` a chunk updates every ray of the tile once any one ray's slab
+// test enters the chunk's box; here a chunk updates a ray only if that ray's
+// own slab test enters it (cut at the ray's running best t). A ray whose own
+// box test rounds to a miss therefore no longer takes a grazing hit inside
+// that box. The tile-wide gate made 92% of a camera view's rays (those that
+// miss the mesh) compute every chunk their tile lists; the per-ray gate is
+// the only way to do no more than the function needs. The brute-force
+// oracle is the ground truth for both, and the plain version
+// (`closest_hit_plain`) gates per ray too, so kernel and plain version agree
+// bit for bit.
+//
+// Design. Grid: one block per blockDim.x consecutive rays of a ray tile; a
+// tile (the unit of the prepass's candidate lists) is one or more blocks.
+// Small blocks put more of them in flight: only the tiles near the mesh
+// have work, and theirs is a serial walk. The hits do not depend on the
+// tile or the block size, since every gate is the ray's own.
+//   * The block walks its tile's candidate list. For each listed chunk every
+//     thread slab-tests its own ray (lane = ray) one chunk ahead; one
+//     `__syncthreads_or` per listed chunk both votes on "does any ray enter
+//     the next chunk" and closes the reads of the buffer that the next copy
+//     overwrites. The vote is taken with the running best as it stands before
+//     the current chunk: a superset of the rays that enter after it, since
+//     best t only falls. The exact gate is re-applied when the chunk's turn
+//     comes.
+//   * If the vote passes, one thread starts a bulk asynchronous copy
+//     (`cp.async.bulk`, completion on an `mbarrier`) of the next chunk's 19
+//     coefficient rows (9,728 contiguous bytes in the [NC,19,C] layout) into
+//     the other of two shared-memory buffers, so the copy runs under this
+//     chunk's arithmetic. The coefficients of a chunk are shared by all the
+//     rays of the block.
+//   * Arithmetic: `__ballot_sync` gives a warp the rays that enter the chunk;
+//     a warp with an empty ballot does no triangle work. Otherwise lanes take
+//     triangles: lane l loads the coefficients of rows l, l+32, l+64, l+96
+//     into registers once (conflict-free), and the warp loops over the set
+//     bits of the ballot: the ray's 9 features are read as a shared-memory
+//     broadcast, each lane tests its 4 triangles, and two
+//     `__reduce_min_sync` take the lexicographic minimum of (t, row): t >= +0
+//     or inf, so its bit pattern orders as an unsigned integer; the second
+//     reduction takes the lowest row among the lanes whose t equals the
+//     minimum (the tie rule). The ray's own lane then updates its best with
+//     strict `<`.
+//   * The candidate ids and boxes of the next 32..64 list entries are staged
+//     in shared memory by a few threads, so the per-chunk loop reads no
+//     global memory on its critical path.
 //
 // What bounds it: FP32 arithmetic on the CUDA cores (no tensor cores: TF32
 // would round the products to ~10 mantissa bits and classify small triangles
-// as misses). Each visited (ray, triangle) pair costs 19 multiplies and 15
-// adds, each rounded on its own (an FMA would round differently from the
-// plain twin), plus the test; coefficients are read once per visiting
-// block, from L2 after the first.
-// The design keeps the arithmetic on registers and broadcasts each
-// coefficient from shared memory to the whole block (one address per warp
-// load, no bank conflicts).
+// as misses). Each (ray, triangle) pair of a chunk the ray enters costs 19
+// multiplies and 15 adds, each rounded on its own in a fixed order
+// (`__fmul_rn`/`__fadd_rn`: an FMA would round differently from the plain
+// version), plus the test.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC (no --use_fast_math: the hit test relies on IEEE
-//        division and rounding).
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no --use_fast_math:
+// the hit test relies on IEEE division and rounding).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #define TRI_CHUNK 128
 #define N_COEF 19
+#define CHUNK_BYTES (N_COEF * TRI_CHUNK * 4)
+#define MAX_RAY_TILE 256
+#define TRI_PER_LANE (TRI_CHUNK / 32)
+#define LIST_SLOTS 64           // staged list entries (two halves of 32)
+#define INF_BITS 0x7f800000u
+#define FULL_MASK 0xffffffffu
+#define SIGN_BIT 0x80000000u
 
-// sum_k x[k] * sc[k0 + k][j], left to right, each product and each sum
+// sum_k x[k] * cf[k0 + k][m], left to right, each product and each sum
 // rounded on its own (`__fmul_rn`/`__fadd_rn` keep nvcc from contracting
 // them into FMAs).
 template <int N>
 __device__ __forceinline__ float dot_rn(const float* x,
-                                        const float (*sc)[TRI_CHUNK],
-                                        int k0, int j) {
-    float acc = __fmul_rn(x[0], sc[k0][j]);
+                                        const float (*cf)[TRI_PER_LANE],
+                                        int k0, int m) {
+    float acc = __fmul_rn(x[0], cf[k0][m]);
     #pragma unroll
     for (int k = 1; k < N; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(x[k], sc[k0 + k][j]));
+        acc = __fadd_rn(acc, __fmul_rn(x[k], cf[k0 + k][m]));
     return acc;
 }
 
-__global__ void closest_hit_kernel(
+__device__ __forceinline__ float flip_sign(float x, unsigned sign_bit) {
+    return __uint_as_float(__float_as_uint(x) ^ sign_bit);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// One thread: arm `bar` for CHUNK_BYTES and start the bulk copy.
+__device__ __forceinline__ void copy_chunk_async(float* dst, const float* src,
+                                                 unsigned long long* bar) {
+    const unsigned b = smem_addr(bar);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(b), "r"(CHUNK_BYTES) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(smem_addr(dst)), "l"(__cvta_generic_to_global(src)),
+           "r"(CHUNK_BYTES), "r"(b) : "memory");
+}
+
+// Spin until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void wait_barrier(unsigned long long* bar,
+                                             unsigned parity) {
+    const unsigned b = smem_addr(bar);
+    unsigned done;
+    do {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(b), "r"(parity) : "memory");
+    } while (!done);
+}
+
+__global__ void __launch_bounds__(MAX_RAY_TILE, 2) closest_hit_kernel(
     const float* __restrict__ phi,     // [9, Np]: d (3), o x d (3), o (3)
     const float* __restrict__ inv,     // [3, Np]: 1 / d, guarded
-    const float* __restrict__ coef,    // [NC, 10, 4*TRI_CHUNK]
+    const float* __restrict__ coef,    // [NC, 19, TRI_CHUNK]
     const float* __restrict__ lo,      // [NC, 3] chunk AABB
     const float* __restrict__ hi,      // [NC, 3]
     const int* __restrict__ cand,      // [T, NC] nearest-first chunk ids
     const int* __restrict__ count,     // [T] candidates per tile
-    int np_, int nc,
+    int np_, int nc, int ray_tile,     // ray_tile % blockDim.x == 0
     float* __restrict__ t_out,         // [Np], inf on miss
     int* __restrict__ id_out)          // [Np], -1 on miss
 {
-    __shared__ float s_coef[N_COEF][TRI_CHUNK];
+    __shared__ __align__(128) float s_coef[2][N_COEF][TRI_CHUNK];
+    __shared__ __align__(8) unsigned long long s_bar[2];
+    __shared__ int s_chunk[LIST_SLOTS];
+    __shared__ float s_box[LIST_SLOTS][6];
+    extern __shared__ float4 s_feat[];          // [blockDim.x][3]
 
-    const int tile = blockIdx.x;
-    const size_t r = (size_t)tile * blockDim.x + threadIdx.x;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const size_t r = (size_t)blockIdx.x * blockDim.x + tid;
+    const int tile = (int)(r / ray_tile);       // one for the whole block
     const size_t np = (size_t)np_;
 
-    const float d0 = phi[0 * np + r], d1 = phi[1 * np + r], d2 = phi[2 * np + r];
-    const float w0 = phi[3 * np + r], w1 = phi[4 * np + r], w2 = phi[5 * np + r];
+    const int n_cand = count[tile];
+    if (n_cand == 0) {                 // the whole block leaves together
+        t_out[r] = CUDART_INF_F;
+        id_out[r] = -1;
+        return;
+    }
+    const int* tile_cand = cand + (size_t)tile * nc;
+
     const float o0 = phi[6 * np + r], o1 = phi[7 * np + r], o2 = phi[8 * np + r];
     const float i0 = inv[0 * np + r], i1 = inv[1 * np + r], i2 = inv[2 * np + r];
-    const float feat[10] = {d0, d1, d2, w0, w1, w2, o0, o1, o2, 1.f};
+    s_feat[tid * 3 + 0] = make_float4(phi[0 * np + r], phi[1 * np + r],
+                                      phi[2 * np + r], phi[3 * np + r]);
+    s_feat[tid * 3 + 1] = make_float4(phi[4 * np + r], phi[5 * np + r], o0, o1);
+    s_feat[tid * 3 + 2] = make_float4(o2, 0.f, 0.f, 0.f);
+
+    // Stage list entries [first, first + n) into their slots (entry & 63).
+    auto stage_list = [&](int first, int n) {
+        for (int j = tid; j < n; j += blockDim.x) {
+            const int e = first + j;
+            if (e < n_cand) {
+                const int c = tile_cand[e];
+                const int s = e & (LIST_SLOTS - 1);
+                s_chunk[s] = c;
+                #pragma unroll
+                for (int a = 0; a < 3; ++a) {
+                    s_box[s][a] = lo[3 * (size_t)c + a];
+                    s_box[s][3 + a] = hi[3 * (size_t)c + a];
+                }
+            }
+        }
+    };
+    stage_list(0, LIST_SLOTS);
+    if (tid == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                     :: "r"(smem_addr(&s_bar[0])) : "memory");
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                     :: "r"(smem_addr(&s_bar[1])) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
 
     float best_t = CUDART_INF_F;
     int best_id = -1;
 
-    const int n_cand = count[tile];
-    const int* tile_cand = cand + (size_t)tile * nc;
-    for (int i = 0; i < n_cand; ++i) {
-        const int c = tile_cand[i];
-
-        // Per-ray slab test, tightened by the running best.
-        const float* l = lo + 3 * (size_t)c;
-        const float* h = hi + 3 * (size_t)c;
-        float a1 = __fmul_rn(l[0] - o0, i0), a2 = __fmul_rn(h[0] - o0, i0);
-        float b1 = __fmul_rn(l[1] - o1, i1), b2 = __fmul_rn(h[1] - o1, i1);
-        float c1 = __fmul_rn(l[2] - o2, i2), c2 = __fmul_rn(h[2] - o2, i2);
-        const float t_entry = fmaxf(fmaxf(fminf(a1, a2), fminf(b1, b2)),
-                                    fminf(c1, c2));
+    // The ray's own slab test of list entry e: `ok` (enters the box at all)
+    // and the entry t, which is cut against the running best when used.
+    auto slab = [&](int e, bool& ok, float& t_entry) {
+        const float* bx = s_box[e & (LIST_SLOTS - 1)];
+        const float a1 = __fmul_rn(__fsub_rn(bx[0], o0), i0);
+        const float a2 = __fmul_rn(__fsub_rn(bx[3], o0), i0);
+        const float b1 = __fmul_rn(__fsub_rn(bx[1], o1), i1);
+        const float b2 = __fmul_rn(__fsub_rn(bx[4], o1), i1);
+        const float c1 = __fmul_rn(__fsub_rn(bx[2], o2), i2);
+        const float c2 = __fmul_rn(__fsub_rn(bx[5], o2), i2);
+        t_entry = fmaxf(fmaxf(fminf(a1, a2), fminf(b1, b2)), fminf(c1, c2));
         const float t_exit = fminf(fminf(fmaxf(a1, a2), fmaxf(b1, b2)),
                                    fmaxf(c1, c2));
-        const bool overlap = (t_entry <= t_exit) && (t_exit > 0.f)
-                             && (t_entry < best_t);
+        ok = (t_entry <= t_exit) && (t_exit > 0.f);
+    };
 
-        // Also the barrier that ends the previous chunk's reads of s_coef.
-        if (!__syncthreads_or(overlap)) continue;
+    bool ok_cur, ok_nxt = false;
+    float te_cur, te_nxt = 0.f;
+    slab(0, ok_cur, te_cur);
+    // Uniform over the block: the copy of the current entry was started.
+    bool copied_cur = __syncthreads_or(ok_cur && te_cur < best_t);
+    if (copied_cur && tid == 0)
+        copy_chunk_async(&s_coef[0][0][0],
+                         coef + (size_t)s_chunk[0] * (N_COEF * TRI_CHUNK),
+                         &s_bar[0]);
+    unsigned parity = 0;               // bit b: the phase buffer b waits for
 
-        // Stage the chunk's nonzero coefficient rows:
-        //   k 0..2   -> row k,      column block 0 (det)
-        //   k 3..8   -> row k-3,    column block 1 (u*det)
-        //   k 9..14  -> row k-9,    column block 2 (v*det)
-        //   k 15..18 -> row k-9,    column block 3 (t*det, rows 6..9)
-        const float* cc = coef + (size_t)c * 10 * 4 * TRI_CHUNK;
-        for (int e = threadIdx.x; e < N_COEF * TRI_CHUNK; e += blockDim.x) {
-            const int k = e / TRI_CHUNK, j = e % TRI_CHUNK;
-            int row, blk;
-            if (k < 3)       { row = k;     blk = 0; }
-            else if (k < 9)  { row = k - 3; blk = 1; }
-            else if (k < 15) { row = k - 9; blk = 2; }
-            else             { row = k - 9; blk = 3; }
-            s_coef[k][j] = cc[row * 4 * TRI_CHUNK + blk * TRI_CHUNK + j];
+    for (int i = 0; i < n_cand; ++i) {
+        const int buf = i & 1;
+        bool vote = false;
+        if (i + 1 < n_cand) {
+            slab(i + 1, ok_nxt, te_nxt);
+            vote = ok_nxt && te_nxt < best_t;
         }
-        __syncthreads();
+        // Every thread has finished entry i - 1, which read buffer buf ^ 1.
+        const bool copied_nxt = __syncthreads_or(vote);
+        // Entries [i + 32, i + 64) go into the slots of [i - 32, i), which
+        // nobody reads after this barrier; they are first read 31 entries
+        // (and as many barriers) on.
+        if ((i & 31) == 0 && i > 0) stage_list(i + 32, 32);
+        if (copied_nxt && tid == 0)
+            copy_chunk_async(
+                &s_coef[buf ^ 1][0][0],
+                coef + (size_t)s_chunk[(i + 1) & (LIST_SLOTS - 1)]
+                       * (N_COEF * TRI_CHUNK),
+                &s_bar[buf ^ 1]);
 
-        float chunk_t = CUDART_INF_F;
-        int chunk_row = TRI_CHUNK;
-        #pragma unroll 4
-        for (int j = 0; j < TRI_CHUNK; ++j) {
-            // Rounded in the order of the plain twin's elementwise sums:
-            // kernel and twin agree bit for bit.
-            const float det = dot_rn<3>(feat, s_coef, 0, j);
-            const float ud = dot_rn<6>(feat, s_coef, 3, j);
-            const float vd = dot_rn<6>(feat, s_coef, 9, j);
-            const float td = dot_rn<4>(feat + 6, s_coef, 15, j);
-            // Division-free sign-aware test (pallas_kernel.py `_kernel`).
-            const float absdet = fabsf(det);
-            const float s = det > 0.f ? 1.f : (det < 0.f ? -1.f : 0.f);
-            const float eps = __fmul_rn(1e-5f, absdet);
-            const bool ok = (absdet > 1e-16f)
-                && (__fmul_rn(ud, s) >= -eps) && (__fmul_rn(vd, s) >= -eps)
-                && (__fmul_rn(__fadd_rn(ud, vd), s) <= __fadd_rn(absdet, eps))
-                && (__fmul_rn(td, s) > 0.f);
-            if (ok) {
-                const float t = __fdiv_rn(td, det);
-                if (t < chunk_t) { chunk_t = t; chunk_row = j; }
+        if (copied_cur) {
+            const bool enters = ok_cur && te_cur < best_t;
+            const unsigned rays = __ballot_sync(FULL_MASK, enters);
+            // Warp 0 always waits: its thread 0 re-arms this barrier two
+            // entries on and must have seen this phase complete.
+            if (rays != 0u || warp == 0)
+                wait_barrier(&s_bar[buf], (parity >> buf) & 1u);
+            parity ^= 1u << buf;
+            if (rays != 0u) {
+                const int c = s_chunk[i & (LIST_SLOTS - 1)];
+                float cf[N_COEF][TRI_PER_LANE];
+                #pragma unroll
+                for (int k = 0; k < N_COEF; ++k)
+                    #pragma unroll
+                    for (int m = 0; m < TRI_PER_LANE; ++m)
+                        cf[k][m] = s_coef[buf][k][lane + 32 * m];
+
+                unsigned todo = rays;
+                while (todo) {
+                    const int src = __ffs(todo) - 1;
+                    todo &= todo - 1;
+                    const float4* f = &s_feat[(warp * 32 + src) * 3];
+                    const float4 f0 = f[0], f1 = f[1];
+                    const float feat[10] = {f0.x, f0.y, f0.z, f0.w, f1.x,
+                                            f1.y, f1.z, f1.w, f[2].x, 1.f};
+                    float lane_t = CUDART_INF_F;
+                    unsigned lane_row = 0;
+                    #pragma unroll
+                    for (int m = 0; m < TRI_PER_LANE; ++m) {
+                        // Rounded in the order of the plain version's
+                        // elementwise sums: both agree bit for bit.
+                        const float det = dot_rn<3>(feat, cf, 0, m);
+                        const float ud = dot_rn<6>(feat, cf, 3, m);
+                        const float vd = dot_rn<6>(feat, cf, 9, m);
+                        const float td = dot_rn<4>(feat + 6, cf, 15, m);
+                        // Division-free sign-aware test (`_kernel`):
+                        // x * sign(det) is x with det's sign bit flipped
+                        // in (det = 0 fails the first clause anyway).
+                        const float absdet = fabsf(det);
+                        const unsigned sgn = __float_as_uint(det) & SIGN_BIT;
+                        const float eps = __fmul_rn(1e-5f, absdet);
+                        const bool hit = (absdet > 1e-16f)
+                            && (flip_sign(ud, sgn) >= -eps)
+                            && (flip_sign(vd, sgn) >= -eps)
+                            && (flip_sign(__fadd_rn(ud, vd), sgn)
+                                <= __fadd_rn(absdet, eps))
+                            && (flip_sign(td, sgn) > 0.f);
+                        if (hit) {
+                            // td and det have one sign: t >= +0, never -0.
+                            const float t = __fdiv_rn(td, det);
+                            if (t < lane_t) {   // rows rise with m
+                                lane_t = t;
+                                lane_row = lane + 32 * m;
+                            }
+                        }
+                    }
+                    // Lexicographic minimum of (t, row) over the warp.
+                    const unsigned t_bits = __float_as_uint(lane_t);
+                    const unsigned min_bits = __reduce_min_sync(FULL_MASK,
+                                                                t_bits);
+                    if (min_bits != INF_BITS) {          // warp-uniform
+                        const unsigned row = __reduce_min_sync(
+                            FULL_MASK,
+                            t_bits == min_bits ? lane_row : FULL_MASK);
+                        const float t = __uint_as_float(min_bits);
+                        if (lane == src && t < best_t) {
+                            best_t = t;
+                            best_id = c * TRI_CHUNK + (int)row;
+                        }
+                    }
+                }
             }
         }
-        if (chunk_t < best_t) {
-            best_t = chunk_t;
-            best_id = c * TRI_CHUNK + chunk_row;
-        }
+        ok_cur = ok_nxt;
+        te_cur = te_nxt;
+        copied_cur = copied_nxt;
     }
     t_out[r] = best_t;
     id_out[r] = best_id;
@@ -158,6 +333,8 @@ extern "C" {
 
 int closest_hit_tri_chunk() { return TRI_CHUNK; }
 
+int closest_hit_max_ray_tile() { return MAX_RAY_TILE; }
+
 const char* closest_hit_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
@@ -165,11 +342,18 @@ const char* closest_hit_error_string(int err) {
 // Launches on `stream` and returns cudaGetLastError(); does not synchronise.
 int closest_hit_launch(const float* phi, const float* inv, const float* coef,
                        const float* lo, const float* hi, const int* cand,
-                       const int* count, int n_tiles, int ray_tile, int nc,
-                       float* t_out, int* id_out, void* stream) {
+                       const int* count, int n_tiles, int ray_tile,
+                       int block_rays, int nc, float* t_out, int* id_out,
+                       void* stream) {
+    if (block_rays <= 0 || block_rays > MAX_RAY_TILE || block_rays % 32
+            || ray_tile % block_rays)
+        return (int)cudaErrorInvalidValue;
     if (n_tiles > 0) {
-        closest_hit_kernel<<<n_tiles, ray_tile, 0, (cudaStream_t)stream>>>(
-            phi, inv, coef, lo, hi, cand, count, n_tiles * ray_tile, nc,
+        const int np = n_tiles * ray_tile;
+        const size_t feat_bytes = (size_t)block_rays * 3 * sizeof(float4);
+        closest_hit_kernel<<<np / block_rays, block_rays, feat_bytes,
+                             (cudaStream_t)stream>>>(
+            phi, inv, coef, lo, hi, cand, count, np, nc, ray_tile,
             t_out, id_out);
     }
     return (int)cudaGetLastError();

@@ -5,8 +5,8 @@ Backends:
 - "brute": blocked all-pairs Möller–Trumbore in torch; exact, the ground
   truth on the CPU.
 - "cuda":  the chunk-culled closest-hit kernel (intersect/cuda_kernel.py).
-  On a CUDA tensor it launches the hand-written kernel; on a CPU tensor its
-  plain PyTorch twin runs the same algorithm.
+  On CUDA tensors it launches the hand-written kernels; on CPU tensors
+  their plain PyTorch versions run the same algorithm.
 - "auto":  "cuda".
 
 Every backend takes an explicit keyword `coherent=`: True for camera-pixel

@@ -1,29 +1,46 @@
-"""Chunk-culled closest-hit oracle: torch stages + the hand-written CUDA
-kernel (port of drt_tpu/intersect/pallas_kernel.py, with the stages it
+"""Chunk-culled closest-hit oracle: torch stages + two hand-written CUDA
+kernels (port of drt_tpu/intersect/pallas_kernel.py, with the stages it
 takes from drt_tpu/intersect/culled.py).
 
-Stages, all plain torch except the last:
+Stages:
 1. shift the scene by the mean ray origin (small coordinates keep the
    Plücker products precise for small triangles);
-2. `_coef_packed`: the [NC,10,4C] Plücker coefficient tensor of C=128
-   Morton-consecutive triangles per chunk (`_triangle_coefficients`);
+2. `_coef_packed`: the [NC,19,C] Plücker coefficient tensor of C=128
+   Morton-consecutive triangles per chunk (`_triangle_coefficients`): the
+   19 nonzero coefficients of a triangle, one chunk's rows contiguous so
+   the kernel takes them in one bulk copy (the JAX package's dense
+   [NC,10,4C] keeps zero blocks for the TPU's matrix unit);
 3. `_chunk_aabbs`: per-chunk AABBs from the current vertices, padded chunks
    marked invalid so they are never candidates;
-4. the candidate prepass, per tile of RAY_TILE rays: a nearest-first list
-   of chunks some ray of the tile may hit. `_candidates` slab-tests every
-   (ray, chunk) pair exactly; `_candidates_tile` bounds a whole tile by
-   interval arithmetic (a superset, cheap for coherent camera rays);
+4. the candidate prepass, per tile of rays (`RAY_TILE_COHERENT` or
+   `RAY_TILE_INCOHERENT`): a nearest-first list of chunks some ray of the
+   tile may hit. Incoherent queries slab-test every (ray, chunk) pair
+   exactly: `candidate_scores`, the kernel csrc/candidates.cu on CUDA
+   tensors and its plain version `candidate_scores_plain` on CPU tensors,
+   then a stable sort (`_candidates` is the plain version with its sort).
+   Coherent queries bound a whole tile by interval arithmetic
+   (`_candidates_tile`: a superset, cheap for camera rays);
 5. `closest_hit`: the kernel (csrc/closest_hit.cu) on CUDA tensors, its
-   plain twin `closest_hit_plain` on CPU tensors. No fallback: a CUDA
-   tensor launches the kernel or raises.
+   plain version `closest_hit_plain` on CPU tensors.
+No fallback anywhere: a CUDA tensor launches the kernel or raises.
 
-The kernel is built with nvcc at first use into build/ beside the package
-and bound through ctypes (a plain C interface builds in seconds).
+Work is gated per ray: a chunk updates a ray only if the ray's own slab
+test enters the chunk's box before its running best t. The JAX package's
+`_kernel` lets a chunk update every ray of a tile once any one of its rays
+overlaps; the port departs from it here (csrc/closest_hit.cu says why),
+kernel and plain version alike, and both are held to the brute oracle.
+
+The kernels are built with nvcc at first use into build/ beside the package
+(one object per source in csrc/, compiled in parallel, linked into one
+shared library) and bound through ctypes (a plain C interface builds in
+seconds).
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
+import math
 import os
 import shutil
 import subprocess
@@ -35,32 +52,42 @@ import torch
 from drt_tpu_torch.intersect.api import Hits
 
 _UV_EPS = 1e-5
-RAY_TILE = 256
+# Rays per tile (one candidate list, one block of the prepass kernel), by the
+# kind of query, and rays per block of the closest-hit kernel (a tile is a
+# whole number of blocks).
+RAY_TILE_COHERENT = 256
+RAY_TILE_INCOHERENT = 128
+BLOCK_RAYS = 64
+MAX_RAY_TILE = 256     # fixed in csrc/*.cu (`__launch_bounds__`)
 TRI_CHUNK = 128        # fixed in csrc/closest_hit.cu
-# Elements of one [tiles, RT, NC] prepass temporary (and of one
-# [tiles, RT, 4C] plain-twin temporary): the prepass runs over groups of
-# tiles so a full view on a large mesh never materializes all at once.
+N_COEF = 19
+# Elements of one [tiles, RT, NC] temporary of the plain prepass (and of the
+# four [tiles, RT, C] products of the plain closest hit): the plain versions
+# run over groups of tiles so a full view on a large mesh never
+# materializes all at once.
 _GROUP_ELEMS = 2 ** 25
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "closest_hit.cu")
+_SOURCE_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                           "drt_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class LaunchCounter:
-    """Counts oracle queries (`calls`) and kernel launches (`launches`). A
-    launch is counted only where the CUDA kernel is launched."""
+    """Counts oracle queries (`calls`) and the launches of the closest-hit
+    kernel (`launches`) and of the candidate-prepass kernel
+    (`candidates_launches`). A launch is counted only where the CUDA kernel
+    is launched."""
 
     def __init__(self):
-        self.calls = 0
-        self.launches = 0
+        self.reset()
 
     def reset(self):
         self.calls = 0
         self.launches = 0
+        self.candidates_launches = 0
 
 
 counters = LaunchCounter()
@@ -72,27 +99,50 @@ build_log = ""
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the closest-hit kernel is built "
-                           "from csrc/closest_hit.cu at first use")
+        raise RuntimeError("nvcc not found: the kernels are built from "
+                           "csrc/*.cu at first use")
     return path
 
 
 def build(force: bool = False) -> str:
-    """Compile csrc/closest_hit.cu into a shared library (if missing or
-    older than the source) and return its path."""
+    """Compile every csrc/*.cu (one nvcc each, all started together) and
+    link the objects into one shared library, if it is missing or older
+    than any source; return its path. `build_log` keeps what ptxas said."""
     global build_log
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    out = os.path.join(_BUILD_DIR, "libclosest_hit.so")
-    if (not force and os.path.exists(out)
-            and os.path.getmtime(out) >= os.path.getmtime(_SOURCE)):
+    out = os.path.join(_BUILD_DIR, "libdrt_kernels.so")
+    sources = sorted(glob.glob(os.path.join(_SOURCE_DIR, "*.cu")))
+    if not sources:
+        raise RuntimeError(f"no kernel sources in {_SOURCE_DIR}")
+    if (not force and os.path.exists(out) and os.path.getmtime(out)
+            >= max(os.path.getmtime(s) for s in sources)):
         return out
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [os.path.join(_BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    try:
+        for s, p in zip(sources, procs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n"
+                                   f"{build_log}")
+        tmp = f"{out}.{tag}.tmp"
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return out
 
 
@@ -102,15 +152,20 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.closest_hit_launch.argtypes = [vp] * 7 + [ci] * 3 + [vp] * 3
+            lib.closest_hit_launch.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 3
             lib.closest_hit_launch.restype = ci
-            lib.closest_hit_tri_chunk.argtypes = []
-            lib.closest_hit_tri_chunk.restype = ci
+            lib.candidates_launch.argtypes = [vp] * 5 + [ci] * 3 + [vp] * 2
+            lib.candidates_launch.restype = ci
             lib.closest_hit_error_string.argtypes = [ci]
             lib.closest_hit_error_string.restype = ctypes.c_char_p
-            if lib.closest_hit_tri_chunk() != TRI_CHUNK:
-                raise RuntimeError("closest_hit.cu TRI_CHUNK differs from "
-                                   "cuda_kernel.TRI_CHUNK")
+            for name, want in (("closest_hit_tri_chunk", TRI_CHUNK),
+                               ("closest_hit_max_ray_tile", MAX_RAY_TILE),
+                               ("candidates_max_ray_tile", MAX_RAY_TILE)):
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = [], ci
+                if fn() != want:
+                    raise RuntimeError(f"csrc: {name}() is {fn()}, "
+                                       f"cuda_kernel.py expects {want}")
             _lib = lib
     return _lib
 
@@ -149,13 +204,24 @@ def _triangle_coefficients(vertices, faces, face_valid, shift):
                        torch.zeros_like(coef))
 
 
+# (feature row, column) in `_triangle_coefficients` of the 19 nonzero
+# Plücker coefficients, in the order the kernel and its plain version sum
+# them: det (3 terms), u*det (6), v*det (6), t*det (4). The JAX package's
+# dense [NC,10,4C] tensor holds coefficient k of triangle j of a chunk at
+# [row, col * C + j].
+COEF_ROWS = (0, 1, 2, 0, 1, 2, 3, 4, 5, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9)
+COEF_COLS = (0, 0, 0, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 2, 3, 3, 3, 3)
+_SUMS = ((0, 3), (3, 9), (9, 15), (15, 19))      # det, u*det, v*det, t*det
+
+
 def _coef_packed(vertices, faces, face_valid, shift, tri_chunk):
-    """[NC,10,4C] coefficients: columns grouped det|ud|vd|td blocks of C."""
+    """[NC,19,C] coefficients: row k is coefficient k (COEF_ROWS/COEF_COLS)
+    of the chunk's C triangles; a chunk is 19*C contiguous floats."""
     coef = _pad_axis0(_triangle_coefficients(vertices, faces, face_valid,
                                              shift), tri_chunk)
     NC = coef.shape[0] // tri_chunk
-    c4 = coef.reshape(NC, tri_chunk, 10, 4).permute(0, 2, 3, 1)
-    return c4.reshape(NC, 10, 4 * tri_chunk).contiguous(), NC
+    c19 = coef[:, list(COEF_ROWS), list(COEF_COLS)]             # [Fp,19]
+    return c19.reshape(NC, tri_chunk, N_COEF).permute(0, 2, 1).contiguous(), NC
 
 
 def _chunk_aabbs(vertices, faces, face_valid, shift, tri_chunk):
@@ -214,41 +280,120 @@ def _candidates_tile(ot, dt, lo_c, hi_c, chunk_valid):
     return _sorted_candidates(score)
 
 
-def _candidates(ot, dt, lo_c, hi_c, chunk_valid):
-    """Exact per-ray prepass: a chunk is a tile's candidate if some ray of
-    the tile overlaps its AABB; ordered by the nearest entry over those
-    rays. Groups of tiles bound the [tiles, RT, NC] temporaries (the JAX
-    package maps over groups the same way). ot/dt: [T,3,RT]. Returns
-    (cand [T,NC] i32, count [T] i32)."""
-    T, _, RT = ot.shape
-    NC = lo_c.shape[0]
-    inv = _safe_inv(dt)
+def _check(name, x, shape, dtype, dev):
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, expected {dev}")
+    if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
+        raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_tiling(Np, T):
+    if T <= 0 or Np % T:
+        raise ValueError(f"{Np} rays do not split into {T} tiles")
+    ray_tile = Np // T
+    if not 32 <= ray_tile <= MAX_RAY_TILE or ray_tile % 32:
+        raise ValueError(f"ray tile {ray_tile}: must be a multiple of 32 "
+                         f"in [32, {MAX_RAY_TILE}]")
+    return ray_tile
+
+
+def _check_prepass_inputs(org, inv, lo, hi, chunk_valid, n_tiles):
+    dev = org.device
+    Np = org.shape[-1]
+    NC = lo.shape[0]
+    for name, x, shape, dtype in (
+            ("org", org, (3, Np), torch.float32),
+            ("inv", inv, (3, Np), torch.float32),
+            ("lo", lo, (NC, 3), torch.float32),
+            ("hi", hi, (NC, 3), torch.float32),
+            ("chunk_valid", chunk_valid, (NC,), torch.bool)):
+        _check(name, x, shape, dtype, dev)
+    return Np, NC, _check_tiling(Np, n_tiles)
+
+
+@torch.no_grad()
+def candidate_scores_plain(org, inv, lo, hi, chunk_valid, n_tiles):
+    """Plain version of csrc/candidates.cu: for every (tile, chunk) the
+    nearest slab entry max(t_entry, 0) over the tile's rays that overlap
+    the chunk's AABB, inf where none does or the chunk is padding. Groups of
+    tiles bound the [tiles, RT, NC] temporaries (the JAX package maps over
+    groups the same way). org/inv: [3,Np] shifted origins and guarded
+    inverse directions, Np = n_tiles * RT. Returns score [n_tiles,NC] f32."""
+    _, NC, RT = _check_prepass_inputs(org, inv, lo, hi, chunk_valid, n_tiles)
+    o3, i3 = org.reshape(3, n_tiles, RT), inv.reshape(3, n_tiles, RT)
     g = max(1, _GROUP_ELEMS // (RT * NC))
-    cand, count = [], []
-    for s in range(0, T, g):
-        o, iv = ot[s:s + g], inv[s:s + g]                    # [G,3,RT]
+    scores = []
+    for s in range(0, n_tiles, g):
         t_entry = t_exit = None
         for ax in range(3):
-            oa, ia = o[:, ax, :, None], iv[:, ax, :, None]   # [G,RT,1]
-            t1 = (lo_c[:, ax] - oa) * ia                     # [G,RT,NC]
-            t2 = (hi_c[:, ax] - oa) * ia
+            oa, ia = o3[ax, s:s + g, :, None], i3[ax, s:s + g, :, None]
+            t1 = (lo[:, ax] - oa) * ia                       # [G,RT,NC]
+            t2 = (hi[:, ax] - oa) * ia
             e, x = torch.minimum(t1, t2), torch.maximum(t1, t2)
             t_entry = e if t_entry is None else torch.maximum(t_entry, e)
             t_exit = x if t_exit is None else torch.minimum(t_exit, x)
         overlap = (t_entry <= t_exit) & (t_exit > 0.0) & chunk_valid
         score = torch.where(overlap, t_entry.clamp_min(0.0),
                             torch.full_like(t_entry, float("inf")))
-        c, n = _sorted_candidates(score.amin(dim=1))         # [G,NC]
-        cand.append(c)
-        count.append(n)
-    return torch.cat(cand).contiguous(), torch.cat(count).contiguous()
+        scores.append(score.amin(dim=1))                     # [G,NC]
+    return torch.cat(scores)
+
+
+def candidate_scores_cuda(org, inv, lo, hi, chunk_valid, n_tiles):
+    """Launch csrc/candidates.cu on the current stream; inputs and result
+    as in `candidate_scores_plain`."""
+    _, NC, ray_tile = _check_prepass_inputs(org, inv, lo, hi, chunk_valid,
+                                            n_tiles)
+    if org.device.type != "cuda":
+        raise ValueError("candidate_scores_cuda needs CUDA tensors")
+    lib = _load()
+    with torch.cuda.device(org.device):
+        score = torch.empty(n_tiles, NC, dtype=torch.float32,
+                            device=org.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.candidates_launch(
+            org.data_ptr(), inv.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            chunk_valid.data_ptr(), n_tiles, ray_tile, NC, score.data_ptr(),
+            stream)
+    if err != 0:
+        msg = lib.closest_hit_error_string(err).decode()
+        raise RuntimeError(f"candidates launch failed: {msg} ({err})")
+    counters.candidates_launches += 1
+    return score
+
+
+def candidate_scores(org, inv, lo, hi, chunk_valid, n_tiles):
+    """The prepass kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    dev = org.device.type
+    if dev == "cuda":
+        return candidate_scores_cuda(org, inv, lo, hi, chunk_valid, n_tiles)
+    if dev == "cpu":
+        return candidate_scores_plain(org, inv, lo, hi, chunk_valid, n_tiles)
+    raise ValueError(f"candidate_scores: unsupported device {org.device}")
+
+
+def _candidates(ot, dt, lo_c, hi_c, chunk_valid):
+    """Exact per-ray prepass in plain torch: a chunk is a tile's candidate
+    if some ray of the tile overlaps its AABB; ordered by the nearest entry
+    over those rays. ot/dt: [T,3,RT]. Returns (cand [T,NC] i32,
+    count [T] i32)."""
+    T = ot.shape[0]
+    org = ot.permute(1, 0, 2).reshape(3, -1).contiguous()
+    inv = _safe_inv(dt).permute(1, 0, 2).reshape(3, -1).contiguous()
+    return _sorted_candidates(
+        candidate_scores_plain(org, inv, lo_c, hi_c, chunk_valid, T))
 
 
 class KernelInputs(NamedTuple):
-    """Everything the kernel (and its plain twin) reads. Np = T * RT."""
+    """Everything the closest-hit kernel (and its plain version) reads.
+    Np = T * RT."""
     phi: torch.Tensor     # [9,Np] f32: d, o x d, o (shifted origins)
     inv: torch.Tensor     # [3,Np] f32: guarded 1/d
-    coef: torch.Tensor    # [NC,10,4C] f32
+    coef: torch.Tensor    # [NC,19,C] f32
     lo: torch.Tensor      # [NC,3] f32
     hi: torch.Tensor      # [NC,3] f32
     cand: torch.Tensor    # [T,NC] i32, nearest first
@@ -259,8 +404,9 @@ class KernelInputs(NamedTuple):
 def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
                    coherent: bool) -> KernelInputs:
     """Stages 1-4. Coherent queries take the tile prepass; incoherent ones
-    the exact per-ray prepass, since their tile frustums straddle direction
-    signs and blow up to near-full lists."""
+    the exact per-ray prepass (the kernel on CUDA tensors), since their tile
+    frustums straddle direction signs and blow up to near-full lists. Makes
+    no host synchronisation."""
     F = faces.shape[0]
     if face_valid is None:
         face_valid = torch.ones(F, dtype=torch.bool, device=faces.device)
@@ -272,22 +418,26 @@ def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
     coef, _ = _coef_packed(vertices, faces, face_valid, shift, TRI_CHUNK)
     lo, hi, chunk_valid = _chunk_aabbs(vertices, faces, face_valid, shift,
                                        TRI_CHUNK)
-    o = _pad_axis0(o, RAY_TILE)
-    d = _pad_axis0(d, RAY_TILE, 1.0)
-    T = o.shape[0] // RAY_TILE
+    ray_tile = RAY_TILE_COHERENT if coherent else RAY_TILE_INCOHERENT
+    o = _pad_axis0(o, ray_tile)
+    d = _pad_axis0(d, ray_tile, 1.0)
+    T = o.shape[0] // ray_tile
 
-    inv = _safe_inv(d)
+    inv = _safe_inv(d).t().contiguous()                      # [3,Np]
     w = torch.linalg.cross(o, d, dim=-1)
     phi = torch.cat([d, w, o], dim=1).t().contiguous()       # [9,Np]
-    ot = o.reshape(T, RAY_TILE, 3).permute(0, 2, 1)
-    dt = d.reshape(T, RAY_TILE, 3).permute(0, 2, 1)
-    prepass = _candidates_tile if coherent else _candidates
-    cand, count = prepass(ot, dt, lo, hi, chunk_valid)
-    return KernelInputs(phi, inv.t().contiguous(), coef, lo, hi, cand,
-                        count)
+    if coherent:
+        cand, count = _candidates_tile(
+            phi[6:9].reshape(3, T, ray_tile).permute(1, 0, 2),
+            phi[0:3].reshape(3, T, ray_tile).permute(1, 0, 2),
+            lo, hi, chunk_valid)
+    else:
+        cand, count = _sorted_candidates(
+            candidate_scores(phi[6:9], inv, lo, hi, chunk_valid, T))
+    return KernelInputs(phi, inv, coef, lo, hi, cand, count)
 
 
-# --- the kernel and its plain twin -----------------------------------------
+# --- the closest-hit kernel and its plain version ---------------------------
 
 def _check_inputs(inp: KernelInputs):
     dev = inp.phi.device
@@ -296,26 +446,13 @@ def _check_inputs(inp: KernelInputs):
     T = inp.count.shape[0]
     expect = {
         "phi": ((9, Np), torch.float32), "inv": ((3, Np), torch.float32),
-        "coef": ((NC, 10, 4 * TRI_CHUNK), torch.float32),
+        "coef": ((NC, N_COEF, TRI_CHUNK), torch.float32),
         "lo": ((NC, 3), torch.float32), "hi": ((NC, 3), torch.float32),
         "cand": ((T, NC), torch.int32), "count": ((T,), torch.int32),
     }
     for name, (shape, dtype) in expect.items():
-        x = getattr(inp, name)
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, phi on {dev}")
-        if tuple(x.shape) != shape or x.dtype != dtype:
-            raise ValueError(f"{name}: expected {shape} {dtype}, got "
-                             f"{tuple(x.shape)} {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if T == 0 or Np % T:
-        raise ValueError(f"{Np} rays do not split into {T} tiles")
-    ray_tile = Np // T
-    if not 32 <= ray_tile <= 1024 or ray_tile % 32:
-        raise ValueError(f"ray tile {ray_tile}: must be a multiple of 32 "
-                         "in [32, 1024]")
-    return Np, NC, T, ray_tile
+        _check(name, getattr(inp, name), shape, dtype, dev)
+    return Np, NC, T, _check_tiling(Np, T)
 
 
 def closest_hit_cuda(inp: KernelInputs):
@@ -332,7 +469,8 @@ def closest_hit_cuda(inp: KernelInputs):
         err = lib.closest_hit_launch(
             inp.phi.data_ptr(), inp.inv.data_ptr(), inp.coef.data_ptr(),
             inp.lo.data_ptr(), inp.hi.data_ptr(), inp.cand.data_ptr(),
-            inp.count.data_ptr(), T, ray_tile, NC,
+            inp.count.data_ptr(), T, ray_tile,
+            math.gcd(ray_tile, BLOCK_RAYS), NC,
             t_out.data_ptr(), id_out.data_ptr(), stream)
     if err != 0:
         msg = lib.closest_hit_error_string(err).decode()
@@ -341,26 +479,16 @@ def closest_hit_cuda(inp: KernelInputs):
     return t_out, id_out
 
 
-# (feature row, column block) of the 19 nonzero Plücker coefficients of
-# det, u*det, v*det and t*det, in the order csrc/closest_hit.cu sums them.
-_TERMS = (((0, 0), (1, 0), (2, 0)),
-          ((0, 1), (1, 1), (2, 1), (3, 1), (4, 1), (5, 1)),
-          ((0, 2), (1, 2), (2, 2), (3, 2), (4, 2), (5, 2)),
-          ((6, 3), (7, 3), (8, 3), (9, 3)))
-
-
 def _products(feat, coef):
     """det, u*det, v*det, t*det [G,RT,C] of ray features feat [G,RT,10]
-    against chunk coefficients coef [G,10,4C]: each product and each sum
+    against chunk coefficients coef [G,19,C]: each product and each sum
     rounded on its own, left to right, as the kernel does, so the two agree
     bit for bit."""
-    C = TRI_CHUNK
     out = []
-    for terms in _TERMS:
+    for k0, k1 in _SUMS:
         acc = None
-        for row, blk in terms:
-            cols = coef[:, None, row, blk * C:(blk + 1) * C]    # [G,1,C]
-            p = feat[:, :, row, None] * cols
+        for k in range(k0, k1):
+            p = feat[:, :, COEF_ROWS[k], None] * coef[:, None, k, :]
             acc = p if acc is None else acc + p
         out.append(acc)
     return out
@@ -369,10 +497,11 @@ def _products(feat, coef):
 @torch.no_grad()
 def closest_hit_plain(inp: KernelInputs):
     """The kernel's algorithm in plain torch: the same visit order, the
-    same tile-wide slab gate (a chunk updates every ray of the tile once any
-    of its rays overlaps the AABB, as in `_kernel`), the same f32 Plücker
-    products rounded in the same order, hit test and tie rule. Runs on any
-    device; the wrapper takes it for CPU tensors."""
+    same per-ray slab gate (a chunk updates a ray only if the ray's own
+    slab test enters its AABB before the ray's running best), the same f32
+    Plücker products rounded in the same order, hit test and tie rule
+    (lowest row on equal t within a chunk, strict `<` across chunks). Runs
+    on any device; the wrapper takes it for CPU tensors."""
     Np, NC, T, RT = _check_inputs(inp)
     C = TRI_CHUNK
     dev = inp.phi.device
@@ -395,8 +524,8 @@ def closest_hit_plain(inp: KernelInputs):
             t2 = (inp.hi[c][:, :, None] - o3[s:s + g]) * inv3[s:s + g]
             t_entry = torch.minimum(t1, t2).amax(dim=1)        # [G,RT]
             t_exit = torch.maximum(t1, t2).amin(dim=1)
-            overlap = ((t_entry <= t_exit) & (t_exit > 0.0) & (t_entry < bt)
-                       & active[:, None]).any(dim=1, keepdim=True)   # [G,1]
+            enters = ((t_entry <= t_exit) & (t_exit > 0.0) & (t_entry < bt)
+                      & active[:, None])                       # [G,RT]
             det, ud, vd, td = _products(feat[s:s + g], inp.coef[c])
             sgn = torch.sign(det)
             absdet = torch.abs(det)
@@ -410,14 +539,14 @@ def closest_hit_plain(inp: KernelInputs):
                 torch.full_like(det, float("inf")))
             cmin = t_all.amin(dim=-1)
             amin = torch.where(t_all <= cmin[..., None], rows, C).amin(-1)
-            better = overlap & (cmin < bt)
+            better = enters & (cmin < bt)
             bi.copy_(torch.where(better, c[:, None].int() * C + amin, bi))
             bt.copy_(torch.where(better, cmin, bt))
     return best_t.reshape(-1), best_id.reshape(-1)
 
 
 def closest_hit(inp: KernelInputs):
-    """The kernel on CUDA tensors, the plain twin on CPU tensors."""
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
     dev = inp.phi.device.type
     if dev == "cuda":
         return closest_hit_cuda(inp)

@@ -7,9 +7,10 @@ Same configuration as chip_smoke.py's train phase (synthetic capture of
 dog_mid90k at 1280x960, reference-parity steps from dog_mid45k,
 HyperParams() weights, float32), with fewer capture views. Each oracle
 query is timed on the host clock between two synchronizations and split
-into its torch stages (prepare_inputs: shift, coefficients, AABBs,
-candidate prepass) and the kernel; the rest of the step is the
-differentiable trace, the losses, backward and the update. The
+into its stages (prepare_inputs: shift, coefficients, AABBs and the
+candidate prepass, of which the incoherent queries' prepass kernel and its
+sort are also timed apart) and the closest-hit kernel; the rest of the step
+is the differentiable trace, the losses, backward and the update. The
 synchronizations cost a little overlap; the step is also timed without
 them. Finally torch.profiler lists the device kernels by total time.
 """
@@ -17,6 +18,7 @@ them. Finally torch.profiler lists the device kernels by total time.
 import argparse
 import os
 import statistics
+import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -44,6 +46,10 @@ def main():
                                         make_train_step)
 
     dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip())
     hp = HyperParams()
     res = (960, 1280)
     mdir = os.path.join(HERE, "reports", "tuning_meshes")
@@ -59,16 +65,35 @@ def main():
     silh = [i % args.views for i in range(8)]
 
     acc = defaultdict(float)
+    kind_now = [""]
+
+    def synced(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[f"{kind_now[0]} {name} ms"] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    scores_fn, sort_fn = CK.candidate_scores, CK._sorted_candidates
 
     def timed_oracle(origins, dirs, vertices, faces, face_valid=None, *,
                      coherent):
         kind = ("silhouette" if origins.shape[0] != res[0] * res[1]
                 else "coherent" if coherent else "incoherent")
+        kind_now[0] = kind
+        CK.candidate_scores = synced("prepare: prepass kernel", scores_fn)
+        CK._sorted_candidates = synced("prepare: sort and count", sort_fn)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        inp = CK.prepare_inputs(origins.detach(), dirs.detach(),
-                                vertices.detach(), faces, face_valid,
-                                coherent=coherent)
+        try:
+            inp = CK.prepare_inputs(origins.detach(), dirs.detach(),
+                                    vertices.detach(), faces, face_valid,
+                                    coherent=coherent)
+        finally:
+            CK.candidate_scores, CK._sorted_candidates = scores_fn, sort_fn
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         t, ids = CK.closest_hit(inp)
@@ -102,7 +127,8 @@ def main():
     oracle = 0.0
     for k in sorted(acc):
         print(f"  {k} per step: {acc[k] / n:.2f}")
-        oracle += acc[k] / n
+        if "prepare:" not in k:
+            oracle += acc[k] / n
     print(f"  oracle total per step: {oracle:.1f}; rest of the step: "
           f"{statistics.mean(split) - oracle:.1f}")
 

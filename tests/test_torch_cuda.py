@@ -1,15 +1,18 @@
-"""The closest-hit CUDA kernel against its plain twin, on the card. Marked
-`cuda`: it skips where torch sees no GPU. Run on a GPU machine with
-`python -m pytest tests/test_torch_cuda.py -m cuda` (add `--noconftest`
-where JAX is not installed). Kernel and twin round every product and sum
-alike, so their hits must agree bit for bit."""
+"""The two CUDA kernels of the oracle against their plain versions, on the
+card. Marked `cuda`: it skips where torch sees no GPU. Run on a GPU machine
+with `python -m pytest tests/test_torch_cuda.py -m cuda` (add
+`--noconftest` where JAX is not installed). The closest-hit kernel and its
+plain version round every product and sum alike, so their hits must agree
+bit for bit; the prepass kernel must give `_candidates`' lists exactly."""
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
 import drt_tpu_torch.intersect.cuda_kernel as CK
-from drt_tpu_torch.mesh import build_mesh_state
+from drt_tpu_torch.mesh import build_mesh_state, load_ply
 # pytest puts tests/ on sys.path; `tests.meshes` could resolve to another
 # installed package named `tests` on a GPU machine.
 from meshes import make_icosphere
@@ -55,6 +58,109 @@ def test_kernel_matches_plain_twin(dev, inside):
     assert torch.equal(t_k, t_p)
 
 
+@pytest.fixture(scope="module")
+def dog20k(dev):
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "reports", "tuning_meshes",
+        "dog_mid20k.ply")
+    return build_mesh_state(*load_ply(path), device=dev)
+
+
+def _dog_rays(ms, n, seed, inside, dev):
+    """Rays toward (or from inside) the mesh's bounding box; the inside
+    rays keep unnormalised directions, every 7th ray is parked far away."""
+    rng = np.random.default_rng(seed)
+    v = ms.vertices[ms.vert_valid].cpu().numpy()
+    c, ext = v.mean(0), np.ptp(v, axis=0).max()
+    if inside:
+        o = c + rng.uniform(-0.2, 0.2, (n, 3)) * ext
+        d = rng.normal(size=(n, 3)) * rng.uniform(0.1, 30, (n, 1))
+        o[::7] = c + 1e4
+    else:
+        u = rng.normal(size=(n, 3))
+        o = c + 3 * ext * u / np.linalg.norm(u, axis=1, keepdims=True)
+        d = c + rng.uniform(-0.4, 0.4, (n, 3)) * ext - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.tensor(o, dtype=torch.float32, device=dev),
+            torch.tensor(d, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("inside", [False, True])
+def test_kernel_matches_plain_on_dog(dev, dog20k, inside):
+    ms = dog20k
+    o, d = _dog_rays(ms, 20000, 11, inside, dev)
+    inp = CK.prepare_inputs(o, d, ms.vertices, ms.faces, ms.face_valid,
+                            coherent=not inside)
+    t_k, id_k = CK.closest_hit(inp)
+    torch.cuda.synchronize()
+    t_p, id_p = CK.closest_hit_plain(inp)
+    assert int((id_k >= 0).sum()) > 2000
+    assert torch.equal(id_k, id_p)
+    assert torch.equal(t_k, t_p)
+
+
+@pytest.mark.parametrize("ray_tile", [64, 128, 256])
+def test_prepass_kernel_matches_candidates(dev, dog20k, ray_tile):
+    ms = dog20k
+    o, d = _dog_rays(ms, 64 * 256, 12, True, dev)
+    shift = o.mean(dim=0)
+    lo, hi, cv = CK._chunk_aabbs(ms.vertices, ms.faces, ms.face_valid,
+                                 shift, CK.TRI_CHUNK)
+    T = o.shape[0] // ray_tile
+    org = (o - shift).t().contiguous()
+    inv = CK._safe_inv(d).t().contiguous()
+    before = CK.counters.candidates_launches
+    score = CK.candidate_scores(org, inv, lo, hi, cv, T)
+    torch.cuda.synchronize()
+    assert CK.counters.candidates_launches == before + 1
+    cand_k, count_k = CK._sorted_candidates(score)
+    cand_p, count_p = CK._candidates(
+        org.reshape(3, T, ray_tile).permute(1, 0, 2),
+        d.t().reshape(3, T, ray_tile).permute(1, 0, 2), lo, hi, cv)
+    assert int(count_p.max()) > 10 and not bool(cv.all())
+    assert torch.equal(count_k, count_p)
+    listed = torch.arange(lo.shape[0], device=dev) < count_p[:, None]
+    assert torch.equal(cand_k[listed], cand_p[listed])
+
+
+def test_tie_rule_on_the_card(dev):
+    """Rows 38, 69 and 102 of chunk 0 and row 1 of chunk 1 hold one triangle
+    (t equal to the bit), rows 33 and 64 the halves of a farther coplanar
+    quad whose shared diagonal ray 2 crosses. In both ties the lowest row
+    sits in a higher lane than another tied row (row = lane + 32 m): the
+    warp's (t, row) minimum must be lexicographic, not the first lane's,
+    and strict `<` across chunks keeps the first chunk."""
+    near = [[-1.0, -1, 2], [3, -1, 2], [-1, 3, 2]]
+    quad = [[-1.0, -1, 4], [1, -1, 4], [1, 1, 4], [-1, 1, 4]]
+    # off to the side, hit by no ray: they pull both chunks' boxes toward the
+    # rays, chunk 0's nearer, so chunk 1 is entered, and entered second
+    side = [[2.0, 2, z] for z in (0.5, 1.0)]
+    side = [[[x, y, z], [x + 1, y, z], [x, y + 1, z]] for x, y, z in side]
+    verts = torch.tensor(near + quad + side[0] + side[1],
+                         dtype=torch.float32, device=dev)
+    faces = torch.zeros(256, 3, dtype=torch.long, device=dev)
+    valid = torch.zeros(256, dtype=torch.bool, device=dev)
+    for row, tri in ((38, [0, 1, 2]), (69, [0, 1, 2]), (102, [0, 1, 2]),
+                     (128 + 1, [0, 1, 2]), (33, [3, 4, 5]),
+                     (64, [3, 5, 6]), (10, [7, 8, 9]),
+                     (128 + 7, [10, 11, 12])):
+        faces[row] = torch.tensor(tri, device=dev)
+        valid[row] = True
+    o = torch.zeros(64, 3, device=dev)
+    d = torch.tensor([[0.0, 0.0, 1.0]], device=dev).repeat(64, 1)
+    o[2] = torch.tensor([-0.5, -0.5, 3.0], device=dev)
+    for order in ([33, 64], [64, 33]):
+        fc = faces.clone()
+        fc[[33, 64]] = faces[order]
+        inp = CK.prepare_inputs(o, d, verts, fc, valid, coherent=False)
+        t_k, id_k = CK.closest_hit(inp)
+        torch.cuda.synchronize()
+        t_p, id_p = CK.closest_hit_plain(inp)
+        assert torch.equal(id_k, id_p) and torch.equal(t_k, t_p)
+        assert id_k[:3].tolist() == [38, 38, 33]
+        assert t_k[:3].tolist() == [2.0, 2.0, 1.0]
+
+
 def test_kernel_wrapper_raises_on_bad_input(dev):
     v, f = make_icosphere(subdivisions=2, radius=50.0)
     ms = build_mesh_state(v, f, device=dev)
@@ -65,3 +171,11 @@ def test_kernel_wrapper_raises_on_bad_input(dev):
         CK.closest_hit_cuda(inp._replace(count=inp.count.cpu()))
     with pytest.raises(ValueError):
         CK.closest_hit_cuda(inp._replace(coef=inp.coef.double()))
+    T = inp.count.shape[0]
+    cv = torch.ones(inp.lo.shape[0], dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        CK.candidate_scores_cuda(inp.phi[6:9].cpu(), inp.inv, inp.lo,
+                                 inp.hi, cv, T)
+    with pytest.raises(ValueError):
+        CK.candidate_scores_cuda(inp.phi[6:9], inp.inv, inp.lo, inp.hi,
+                                 cv.int(), T)
