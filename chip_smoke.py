@@ -11,14 +11,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. kernel  the closest-hit kernel vs its plain PyTorch version on
            dog_mid90k (82,566 faces) at 1280x960: camera rays (coherent)
            and the bounce-2 rays of the same view (incoherent), plus a
-           65,536-ray sample of each against the brute-force oracle; tri_id
-           may differ on at most 2 shared-edge ties per 1,024 rays that
-           either side hits; t within rtol 1e-5 / atol 1e-4, except on at
-           most 2 per 1,024 hits, which stay within 1e-2: float32
-           cancellation in t*det = o.n - v0.n when the shift (the mean ray
-           origin, as in the JAX package) lies far from the mesh, as it does
-           when most lanes are parked. The kernel and its plain version
-           round alike and must agree bit for bit. On each incoherent query
+           sample of each (65,536 rays and up to 8,192 of the rays that
+           hit) against the brute-force oracle. tri_id may differ on at most
+           2 per 1,024 rays that either side hits, and on 4 times as many
+           where the two sides name different triangles at one t; t within
+           rtol 1e-5 / atol 1e-4 plus the hit's float32 conditioning
+           (t_conditioning: 4 roundings of the coordinates' size over the
+           cosine between ray and normal, in the kernel's shifted frame and
+           in the brute oracle's), except on at most 2 per 1,024 hits, which
+           stay within 1e-2 of that. The conditioning matters where the
+           shift (the mean ray origin, as in the JAX package) lies far from
+           the mesh, as it does when most lanes are parked: an exit query's
+           t is then off by up to 3e-3 on grazing hits. The kernel and its
+           plain version round alike and must agree bit for bit. On each incoherent query
            the prepass kernel must also give the candidate lists and counts
            of its plain version `_candidates` exactly;
 3. small   the full loss and gradient on a small icosphere (float64), on
@@ -38,13 +43,50 @@ Phases, each of which fails the run (non-zero exit, no result line):
            views per step, 11 oracle queries per step, each through the
            closest-hit kernel and the 10 incoherent ones through the prepass
            kernel too (the launch counters are reset just before and read
-           just after).
+           just after);
+6. steps   from dog_mid45k, 2 steps each of adam + none, uadam + h1 and
+           sgd + sobolev: finite loss and vertices, and the launch counts
+           reckoned from the weights (a zero weight skips its term, so h1's
+           two evaluations of the loss, one with the ray weight alone and
+           one with the regularizers alone, make the 11 queries of one);
+7. chunked one sgd + none step with ray_chunk=2**18 against the unchunked
+           step from the same state, twice. First as the step runs it, each
+           query shifting the scene by its own mean ray origin: a chunk's
+           rays then meet coefficients rounded about another point than the
+           whole view's, some rays on a shared edge take the other triangle
+           (counted and printed), and the bound is loss rtol 1e-5 and
+           gradient 1e-2 of its largest entry, the allowance
+           tests/test_chunked.py gives the JAX package. Then with one shift
+           handed to every query, which leaves the chunking alone: no ray
+           may change its triangle, and the gradient must hold to 1e-4 of
+           its largest entry (float32 sums in another order; the float64 CPU
+           tests hold the port to 1e-10). The checkpointed chunks rerun
+           their oracle queries in the backward, and the counts say so;
+           peak memory of both;
+8. routes  the bounce-2 and exit queries of phase 4 through
+           incoherent="resort" (Morton sort + tile prepass) against "ray"
+           (the prepass kernel): tri_id and t equal bit for bit, ms of
+           both; and the `culled` backend against the kernel on 65,536-ray
+           samples within phase 2's tie allowance;
+9. lod     `optimize`, the LOD loop, on the phase-4 capture from
+           dog_mid20k: 3 passes of 10 steps, remeshed by the isotropic
+           remesher from edge length 2.5 to 1.5, checkpoints into a
+           temporary directory; 3 loadable watertight checkpoints whose
+           face counts differ, no remesh failure, finite losses, 11
+           closest-hit launches a step and the prepass launches of the
+           route `get_intersect_fn` takes for each pass's mesh, by the
+           remesher's native core; each pass's checkpoint, a remeshed mesh
+           at that pass's chunk count (128, 256, 512) and silhouette budget,
+           goes through the checks of phase 4's queries (both kernels
+           against their plain versions, the brute-force oracle); then
+           `resume=True` with one pass more runs exactly that pass.
 Then it prints the timings, a JSON line with both kernels' numbers, the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.
 
-It needs the repository around it (drt_tpu_torch/ and
-reports/tuning_meshes/) and a CUDA GPU; it imports nothing of JAX.
+It needs the repository around it (drt_tpu_torch/, native/remesh.cpp and
+reports/tuning_meshes/), a CUDA GPU, nvcc and g++; it imports nothing of
+JAX.
 """
 
 import json
@@ -54,6 +96,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -84,25 +127,75 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare_hits(name, ref_t, ref_id, t, ids):
+def t_conditioning(o, d, geom, ids):
+    """How far float32 can carry t = (v0 - o).n / d.n of each ray's hit
+    triangle `ids` [n] (0 where a ray has none): 4 roundings of the
+    magnitudes that meet in the numerator, over the cosine between ray and
+    normal, once in the kernel's frame (the scene shifted by the mean ray
+    origin, which parked lanes pull far from the mesh) and once in the
+    brute-force oracle's (world coordinates). A grazing hit of a ray that
+    starts far from the shift is ill-conditioned in both."""
+    import torch
+    vertices, faces, _ = geom
+    tri = vertices[faces[ids.clamp(min=0).long()]].double()      # [n,3,3]
+    o, d = o.double(), d.double()
+    shift = o.float().mean(dim=0).double()
+    n = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    d_len = d.norm(dim=-1)
+    dn = (d * n).sum(-1)
+    cos = (dn / (n.norm(dim=-1) * d_len)).abs().clamp(min=1e-12)
+    reach = (((tri[:, 0] - o) * n).sum(-1) / dn).abs() * d_len
+    size = ((o - shift).abs().amax(-1) + (tri - shift).abs().amax((-1, -2))
+            + o.abs().amax(-1) + tri.abs().amax((-1, -2)) + 2 * reach)
+    return (4 * 2.0 ** -24 * size / cos).float()
+
+
+def compare_hits(name, ref_t, ref_id, t, ids, cond=None):
     """Tie tolerance on tri_id (counted against the rays either side hits,
     so dropped hits cannot hide among misses), rtol/atol on t; returns max
-    |dt| on rays with the same id."""
+    |dt| on rays with the same id. `cond` [n] (t_conditioning) widens each
+    ray's tolerance on t by what float32 can resolve of that hit, and sets
+    apart the rays on which the two sides name different triangles at one t
+    within that tolerance: up to 4 times the tie allowance of them."""
     n = ref_id.numel()
-    bad = int((ref_id != ids).sum())
+    differ = ref_id != ids
     n_hit = int(((ref_id >= 0) | (ids >= 0)).sum())
-    if bad > max(1, TIE_PER_1024 * n_hit // 1024):
-        fail(f"{name}: {bad} tri_ids differ, {n_hit} rays hit")
+    allowed = max(1, TIE_PER_1024 * n_hit // 1024)
+    ties = 0
+    if cond is not None:
+        # two triangles at one t, as far as float32 tells: neither side is
+        # wrong, and an exit query has about 2 such per 1,024 hits
+        near = (differ & (ref_id >= 0) & (ids >= 0)
+                & ((t - ref_t).abs() <= 1e-4 + 1e-5 * ref_t.abs() + cond))
+        ties = int(near.sum())
+        differ = differ & ~near
+    bad = int(differ.sum())
+    if bad > allowed or ties > 4 * allowed:
+        fail(f"{name}: {bad} tri_ids differ and {ties} more at one t, "
+             f"{n_hit} rays hit")
     same = (ref_id == ids) & (ids >= 0)
     dt = (t[same] - ref_t[same]).abs()
-    loose = int((dt > 1e-4 + 1e-5 * ref_t[same].abs()).sum())
+    tol = 1e-4 + 1e-5 * ref_t[same].abs()
+    what, over = "rtol 1e-5 / atol 1e-4", dt
+    if cond is not None and same.any():
+        wide = dt > tol
+        what += (f" + float32 conditioning ({int(wide.sum())} beyond "
+                 "rtol/atol alone")
+        if wide.any():
+            what += (", the worst of them at "
+                     f"{float((dt / cond[same])[wide].max()) * 4:.2f} of the "
+                     "4 roundings allowed")
+        what += ")"
+        tol = tol + cond[same]
+        over = dt - cond[same]
+    loose = int((dt > tol).sum())
     err = float(dt.max()) if same.any() else 0.0
-    if loose > max(1, TIE_PER_1024 * int(same.sum()) // 1024) or err > 1e-2:
-        fail(f"{name}: {loose} t beyond rtol 1e-5 / atol 1e-4, max |dt| "
-             f"{err:g}")
+    worst = float(over.max()) if same.any() else 0.0
+    if loose > max(1, TIE_PER_1024 * int(same.sum()) // 1024) or worst > 1e-2:
+        fail(f"{name}: {loose} t beyond {what}, max |dt| {err:g}")
     print(f"{name}: {n} rays, {int(same.sum())} hits, {bad} tri_id "
-          f"mismatches, {loose} t beyond rtol 1e-5 / atol 1e-4, max |dt| "
-          f"{err:g}")
+          f"mismatches and {ties} more at one t, {loose} t beyond {what}, "
+          f"max |dt| {err:g}")
     return err
 
 
@@ -250,11 +343,17 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
     if brute_all or N <= BRUTE_SAMPLE:
         idx, what = torch.arange(N, device=o.device), "all rays"
     else:
+        # a uniform sample, and up to 8,192 of the rays the kernel hits: an
+        # exit query hits with one ray in a thousand
         idx = torch.randperm(N, generator=gen)[:BRUTE_SAMPLE].to(o.device)
-        what = f"{BRUTE_SAMPLE} sample"
+        hit_idx = torch.nonzero(id_k >= 0)[:, 0]
+        pick = torch.randperm(hit_idx.numel(), generator=gen)[:8192]
+        idx = torch.cat([idx, hit_idx[pick.to(o.device)]]).unique()
+        what = f"{BRUTE_SAMPLE} sample and {pick.numel()} of the hits"
     hb = intersect_brute(o[idx], d[idx], *geom)
     compare_hits(f"{name} kernel vs brute ({what})", hb.t, hb.tri_id,
-                 t_k[idx], id_k[idx])
+                 t_k[idx], id_k[idx],
+                 cond=t_conditioning(o[idx], d[idx], geom, id_k[idx]))
     ms_k = cuda_ms(lambda: CK.closest_hit_cuda(inp), 20)
     if plain_reps:
         ms_p = cuda_ms(lambda: CK.closest_hit_plain(inp), plain_reps)
@@ -290,22 +389,63 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
 
 class QueryRecorder:
     """An oracle for the loss functions that records each query's inputs
-    and hits and answers it through the "cuda" backend."""
+    and hits and answers it through `fn` (the "cuda" backend if None);
+    keep_rays=False records the hits alone."""
 
-    def __init__(self):
+    def __init__(self, fn=None, keep_rays=True):
         from drt_tpu_torch.intersect.api import get_intersect_fn
-        self.fn = get_intersect_fn("cuda")
+        self.fn = fn or get_intersect_fn("cuda")
+        self.keep_rays = keep_rays
         self.queries = []
         self.hits = []
 
     def __call__(self, origins, dirs, vertices, faces, face_valid=None, *,
                  coherent):
-        self.queries.append((origins.detach().clone(), dirs.detach().clone(),
-                             coherent))
+        if self.keep_rays:
+            self.queries.append((origins.detach().clone(),
+                                 dirs.detach().clone(), coherent))
         hits = self.fn(origins, dirs, vertices, faces, face_valid,
                        coherent=coherent)
         self.hits.append(hits)
         return hits
+
+
+def one_shift_oracle(shift):
+    """The "cuda" backend with every query's scene shifted by the same
+    `shift` [3] instead of by the query's own mean ray origin, so a ray meets
+    the same rounded coefficients whatever batch it arrives in."""
+    from drt_tpu_torch.intersect.cuda_kernel import intersect_cuda
+
+    def fn(origins, dirs, vertices, faces, face_valid=None, *, coherent):
+        return intersect_cuda(origins.detach(), dirs.detach(),
+                              vertices.detach(), faces, face_valid,
+                              coherent=coherent, shift=shift)
+    return fn
+
+
+QUERY_NAMES = ("bounce1", "bounce2", "exit", "silhouette")
+
+
+def check_step_queries(label, mesh, view, budget, res, hp, gen):
+    """The four kinds of query a train step makes on `mesh` (the ray loss's
+    three and one silhouette view's at `budget` samples), each through
+    check_query: both kernels against their plain versions at this mesh's
+    own chunk count. Returns ({name: result}, the recorded queries)."""
+    import torch
+    from drt_tpu_torch.optimize.losses import ray_loss, silhouette_loss
+    rec = QueryRecorder()
+    with torch.no_grad():
+        ray_loss(mesh, view, rec, hp.ior, hp.ext_ior)
+        silhouette_loss(mesh, view, rec, budget, *res)
+    if [q[2] for q in rec.queries] != [True, False, False, False]:
+        fail(f"{label}: unexpected queries {[q[2] for q in rec.queries]}")
+    geom = (mesh.vertices, mesh.faces, mesh.face_valid)
+    out = {}
+    for qname, (o, d, coherent) in zip(QUERY_NAMES, rec.queries):
+        out[f"{label} {qname}"] = check_query(
+            f"{label} {qname}", o, d, geom, coherent, gen,
+            brute_all=qname == "silhouette")
+    return out, rec.queries
 
 
 def replay(recorded, device):
@@ -320,6 +460,49 @@ def replay(recorded, device):
                  f"{origins.shape[0]}")
         return Hits(h.t.to(device), h.tri_id.to(device))
     return fn
+
+
+def queries_per_step(weights, n_silh=8, ray_chunks=1):
+    """(closest-hit launches, prepass launches) of one train step, from
+    which terms a zero weight skips: the ray loss makes 3 queries (bounce 1
+    coherent, bounce 2 and exit incoherent) for each chunk of rays, and a
+    chunked loss reruns them in the backward; each silhouette view makes one
+    incoherent query. h1's two loss evaluations split these between them."""
+    rerun = 2 if ray_chunks > 1 else 1
+    ray = 3 * ray_chunks * rerun if weights.ray_w else 0
+    ray_inc = 2 * ray_chunks * rerun if weights.ray_w else 0
+    silh = n_silh if weights.vh_w else 0
+    return ray + silh, ray_inc + silh
+
+
+def run_steps(name, step, state, lr, mesh, cap, seed, n, expect):
+    """n steps through `step`; the launch counts of each against `expect`
+    (closest-hit, prepass). Returns (state, losses, ms of the last step)."""
+    import torch
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    ray_gen = cap.ray_view_generator(seed=seed)
+    silh_gen = cap.silh_view_generator(seed=seed + 1000)
+    losses, ms = [], 0.0
+    for it in range(n):
+        CK.counters.reset()
+        ray_idx = next(ray_gen)
+        silh_idx = [next(silh_gen) for _ in range(8)]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, loss, aux = step(state, lr, mesh, cap.views, ray_idx,
+                                silh_idx)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        losses.append(float(loss))
+        got = (CK.counters.launches, CK.counters.candidates_launches)
+        print(f"{name} step {it}: {ms:.1f} ms, loss {losses[-1]:.6g}, max "
+              f"grad {float(aux['max_grad']):.3g}, launches {got[0]} "
+              f"closest-hit, {got[1]} prepass")
+        if got != tuple(expect):
+            fail(f"{name} step {it}: launches {got}, expected {expect}")
+        if not math.isfinite(losses[-1]):
+            fail(f"{name} step {it}: loss is not finite")
+    return state, losses, ms
 
 
 def small_reference_check(dev):
@@ -399,15 +582,17 @@ def main():
         from drt_tpu_torch.intersect import cuda_kernel as CK
         from drt_tpu_torch.intersect.api import get_intersect_fn
         from drt_tpu_torch.mesh import build_mesh_state, load_ply
+        from drt_tpu_torch.intersect.api import _auto_incoherent
         from drt_tpu_torch.optimize import (LossWeights,
                                             default_silhouette_budget,
-                                            make_train_step)
-        from drt_tpu_torch.optimize.losses import ray_loss, silhouette_loss
+                                            make_train_step, optimize)
+        from drt_tpu_torch.remesh import hausdorff_distance
+        from drt_tpu_torch.utils.metrics import MetricsLogger
         from drt_tpu_torch.render.camera import CameraM, generate_rays
         from drt_tpu_torch.render.trace import _bounce
     except ImportError as e:
         fail(f"the drt_tpu_torch package is not beside chip_smoke.py ({e})")
-    for m in ("dog_mid45k.ply", "dog_mid90k.ply"):
+    for m in ("dog_mid20k.ply", "dog_mid45k.ply", "dog_mid90k.ply"):
         if not os.path.exists(os.path.join(MESH_DIR, m)):
             fail(f"missing {os.path.join(MESH_DIR, m)}")
     dev = torch.device("cuda", 0)
@@ -486,19 +671,11 @@ def main():
     weights = LossWeights(ray_w=hp.ray_w, vh_w=hp.vh_w, sm_w=hp.sm_w,
                           ior=hp.ior, ext_ior=hp.ext_ior)
     budget = default_silhouette_budget(ms45.num_edges)
-    rec = QueryRecorder()
-    with torch.no_grad():
-        ray_loss(ms45, cap.views.take(0), rec, hp.ior, hp.ext_ior)
-        silhouette_loss(ms45, cap.views.take(0), rec, budget, *RES)
-    if [q[2] for q in rec.queries] != [True, False, False, False]:
-        fail(f"unexpected main-path queries {[q[2] for q in rec.queries]}")
     geom45 = (ms45.vertices, ms45.faces, ms45.face_valid)
-    for qname, (o, d, coherent) in zip(
-            ("bounce1", "bounce2", "exit", "silhouette"), rec.queries):
-        r = check_query(f"dog_mid45k {qname}", o, d, geom45, coherent, gen,
-                        brute_all=qname == "silhouette")
-        results[f"dog_mid45k {qname}"] = r
-    del rec
+    checked, queries45 = check_step_queries("dog_mid45k", ms45,
+                                            cap.views.take(0), budget, RES,
+                                            hp, gen)
+    results.update(checked)
 
     # -- 5. train from dog_mid45k -------------------------------------------
     init, step, final = make_train_step(get_intersect_fn("auto"), weights,
@@ -555,6 +732,246 @@ def main():
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"launches {launches} closest-hit, {cand_launches} prepass")
 
+    # -- 6. the other optimizers and preconditioners -------------------------
+    per_step_all = queries_per_step(weights)
+    if per_step_all != (per_step, per_step_prepass):
+        fail(f"reckoned {per_step_all} launches a step, phase 5 saw "
+             f"{(per_step, per_step_prepass)}")
+    step_ms_by = {}
+    for optimizer, precond in (("adam", "none"), ("uadam", "h1"),
+                               ("sgd", "sobolev")):
+        init_o, step_o, final_o = make_train_step(
+            get_intersect_fn("auto"), weights, *RES, budget,
+            momentum=hp.momentum, optimizer=optimizer, precond=precond,
+            precond_lambda=hp.precond_lambda, cg_iters=hp.cg_iters,
+            grad_clamp=hp.grad_clamp)
+        name = f"{optimizer} + {precond}"
+        st, _, ms = run_steps(name, step_o, init_o(ms45), 0.01, ms45, cap,
+                              hp.seed, 2, per_step_all)
+        verts_o = final_o(st, ms45)
+        moved_o = float((verts_o - ms45.vertices).abs().max())
+        if not torch.isfinite(verts_o).all() or moved_o <= 0:
+            fail(f"{name}: vertices did not move or are not finite "
+                 f"(max move {moved_o})")
+        step_ms_by[name] = ms
+        print(f"steps: {name}: second step {ms:.1f} ms, max vertex move "
+              f"{moved_o:.4g}")
+        del st, verts_o
+
+    # -- 7. a chunked step against the unchunked one --------------------------
+    chunk = 2 ** 18
+    n_chunks = -(-n_rays // chunk)
+    expect_c = queries_per_step(weights, ray_chunks=n_chunks)
+    one_shift = ms45.vertices[:ms45.num_vertices].float().mean(dim=0)
+
+    def one_step(label, rc, oracle, expect):
+        """One sgd + none step from rest, without the clamp, so the state's
+        momentum after it is the raw gradient. It runs twice from the same
+        state, since the first call of torch.utils.checkpoint in a process
+        takes seconds: the first run records the hits, the second is the
+        one timed. Returns (loss, gradient, ms, peak GiB, tri_id [N] of the
+        ray loss's three forward queries, the chunks' joined in ray order)."""
+        rec = QueryRecorder(oracle, keep_rays=False)
+        for fn_c in (rec, oracle):
+            init_c, step_c, _ = make_train_step(
+                fn_c, weights, *RES, budget, momentum=hp.momentum,
+                grad_clamp=0.0, ray_chunk=rc)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            st, ls, ms = run_steps(label, step_c, init_c(ms45), hp.start_lr,
+                                   ms45, cap, hp.seed, 1, expect)
+        k = n_chunks if rc else 1
+        ids = [torch.cat([rec.hits[3 * i + q].tri_id for i in range(k)])
+               [:n_rays] for q in range(3)]
+        return (ls[0], st["m"], ms,
+                torch.cuda.max_memory_allocated() / 2 ** 30, ids)
+
+    def flipped(ids_a, ids_b):
+        return [int((a != b).sum()) for a, b in zip(ids_a, ids_b)]
+
+    # As the step runs it: each query shifts the scene by its own mean ray
+    # origin, so a chunk's rays meet coefficients rounded about another
+    # point than the whole view's, and a ray on a shared edge may take the
+    # other triangle.
+    auto_fn = get_intersect_fn("auto")
+    l_u, g_u, ms_u, mem_u, ids_u = one_step("unchunked", 0, auto_fn,
+                                            per_step_all)
+    l_c, g_c, ms_c, mem_c, ids_c = one_step("chunked", chunk, auto_fn,
+                                            expect_c)
+    dg, g_max = float((g_c - g_u).abs().max()), float(g_u.abs().max())
+    flips = flipped(ids_u, ids_c)
+    print(f"chunked: {n_chunks} chunks of {chunk} rays: loss {l_c:.8g} "
+          f"against {l_u:.8g} unchunked, max |dgrad| {dg:.3g} (max |grad| "
+          f"{g_max:.3g}), step {ms_c:.1f} ms against {ms_u:.1f} ms, peak "
+          f"memory {mem_c:.2f} GiB against {mem_u:.2f} GiB; rays whose "
+          f"tri_id differs (bounce1, bounce2, exit): {flips} of {n_rays}")
+    if abs(l_c - l_u) > 1e-5 * abs(l_u) or dg > 1e-2 * g_max:
+        fail("chunked: loss or gradient differs from the unchunked step")
+    # The chunking alone: with one shift for every query each ray gets the
+    # same hit in both steps, and what is left is float32 sums in another
+    # order.
+    shift_fn = one_shift_oracle(one_shift)
+    l_u1, g_u1, _, _, ids_u1 = one_step("unchunked, one shift", 0, shift_fn,
+                                        per_step_all)
+    l_c1, g_c1, _, _, ids_c1 = one_step("chunked, one shift", chunk,
+                                        shift_fn, expect_c)
+    dg1, g_max1 = float((g_c1 - g_u1).abs().max()), float(g_u1.abs().max())
+    flips1 = flipped(ids_u1, ids_c1)
+    print(f"chunked, one shift for every query: loss {l_c1:.8g} against "
+          f"{l_u1:.8g} unchunked, max |dgrad| {dg1:.3g} (max |grad| "
+          f"{g_max1:.3g}), rays whose tri_id differs {flips1}; the shift "
+          f"alone, unchunked: max |dgrad| "
+          f"{float((g_u1 - g_u).abs().max()):.3g}, rays whose tri_id "
+          f"differs {flipped(ids_u, ids_u1)}")
+    if any(flips1):
+        fail("chunked: with one shift a chunk's rays hit other triangles "
+             "than the whole view's")
+    if abs(l_c1 - l_u1) > 1e-5 * abs(l_u1) or dg1 > 1e-4 * g_max1:
+        fail("chunked: with one shift, loss or gradient differs from the "
+             "unchunked step")
+    del g_u, g_c, g_u1, g_c1, ids_u, ids_c, ids_u1, ids_c1
+
+    # -- 8. the other oracle routes --------------------------------------------
+    fn_ray = get_intersect_fn("cuda", incoherent="ray")
+    fn_resort = get_intersect_fn("cuda", incoherent="resort")
+    fn_culled = get_intersect_fn("culled")
+    route_ms = {}
+    for qname, (o, d, coherent) in zip(("bounce1", "bounce2", "exit"),
+                                       queries45):
+        if coherent:
+            continue
+        CK.counters.reset()
+        h_ray = fn_ray(o, d, *geom45, coherent=False)
+        seen_ray = (CK.counters.launches, CK.counters.candidates_launches)
+        h_res = fn_resort(o, d, *geom45, coherent=False)
+        seen = (CK.counters.launches, CK.counters.candidates_launches)
+        same = bool(torch.equal(h_ray.tri_id, h_res.tri_id)
+                    and torch.equal(h_ray.t, h_res.t))
+        ms_ray = cuda_ms(lambda: fn_ray(o, d, *geom45, coherent=False), 10)
+        ms_res = cuda_ms(lambda: fn_resort(o, d, *geom45, coherent=False),
+                         10)
+        route_ms[qname] = (ms_ray, ms_res)
+        print(f"routes: dog_mid45k {qname}: resort against ray bit for "
+              f"bit: {same} ({int(h_ray.hit.sum())} hits); ray {ms_ray:.3f} "
+              f"ms, resort {ms_res:.3f} ms a query")
+        if not same:
+            fail(f"routes: {qname}: the resorted route differs from the "
+                 "per-ray route")
+        if seen_ray != (1, 1) or seen != (2, 1):
+            fail(f"routes: {qname}: launches {seen_ray} then {seen}, "
+                 "expected (1, 1) then (2, 1)")
+    for qname, (o, d, coherent) in zip(("bounce1", "bounce2"), queries45):
+        idx = torch.randperm(o.shape[0], generator=gen)[:BRUTE_SAMPLE].to(
+            dev)
+        os_, ds_ = o[idx].contiguous(), d[idx].contiguous()
+        h_k = fn_ray(os_, ds_, *geom45, coherent=coherent)
+        t0 = time.time()
+        h_c = fn_culled(os_, ds_, *geom45, coherent=coherent)
+        torch.cuda.synchronize()
+        compare_hits(f"routes: dog_mid45k {qname} culled vs kernel "
+                     f"({BRUTE_SAMPLE} sample, {time.time() - t0:.2f} s)",
+                     h_k.t, h_k.tri_id, h_c.t, h_c.tri_id)
+    del queries45
+
+    # -- 9. a whole LOD run through `optimize` ---------------------------------
+    v20, f20 = load_ply(os.path.join(MESH_DIR, "dog_mid20k.ply"))
+    hp_lod = HyperParams(name="dog", num_passes=3, iters=10, start_len=2.5,
+                         end_len=1.5, num_view=8)
+    t0 = time.time()
+    h_init = hausdorff_distance(v20, f20, v90, f90)
+    hausdorff_s = time.time() - t0
+    lod_launches = lod_cand = 0
+    with tempfile.TemporaryDirectory() as ck_dir:
+        info, lines, logger = {}, [], MetricsLogger()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        CK.counters.reset()                    # main path starts here
+        t0 = time.time()
+        out = optimize(hp_lod, cap, v20, f20, remesh_fn="isotropic",
+                       checkpoint_dir=ck_dir, log_fn=lines.append,
+                       log_every=5, metrics=logger, run_info=info,
+                       device=dev)
+        torch.cuda.synchronize()
+        lod_s = time.time() - t0
+        lod_launches = CK.counters.launches    # main path ends here
+        lod_cand = CK.counters.candidates_launches
+        lod_peak = torch.cuda.max_memory_allocated()
+        for ln in lines:
+            print(f"lod: {ln}")
+        cks = sorted(os.listdir(ck_dir))
+        if cks != [f"dog_pass{i:02d}.ply" for i in range(3)]:
+            fail(f"lod: checkpoints {cks}")
+        faces_by_pass, expect_cand = [], 0
+        for i, name in enumerate(cks):
+            ms_ck = build_mesh_state(*load_ply(os.path.join(ck_dir, name)),
+                                     device=dev)      # raises if not closed
+            faces_by_pass.append(ms_ck.num_faces)
+            route = _auto_incoherent(ms_ck.faces.shape[0])
+            expect_cand += hp_lod.iters * (per_step_prepass
+                                           if route == "ray" else 0)
+            p = info["passes"][i]
+            print(f"lod: pass {i}: {ms_ck.num_faces} faces (padded "
+                  f"{ms_ck.faces.shape[0]}, {ms_ck.faces.shape[0] // C} "
+                  f"chunks, incoherent route {route}), silhouette budget "
+                  f"{p['budget']}, remesh {p['remesh_s']:.2f} s, "
+                  f"{hp_lod.iters} steps {p['steps_s']:.2f} s")
+            if p["faces"] != ms_ck.num_faces:
+                fail(f"lod: pass {i} ran on {p['faces']} faces, its "
+                     f"checkpoint has {ms_ck.num_faces}")
+            # both kernels against their plain versions at this pass's own
+            # chunk count and silhouette budget, on the remeshed mesh
+            checked, _ = check_step_queries(
+                f"lod pass {i} ({ms_ck.faces.shape[0] // C} chunks)", ms_ck,
+                cap.views.take(0), p["budget"], RES, hp_lod, gen)
+            results.update(checked)
+            del ms_ck
+        if len(set(faces_by_pass)) != len(faces_by_pass):
+            fail(f"lod: face counts {faces_by_pass} do not differ")
+        if info["remesh_failures"] or info["remesh_attempts"] != 3:
+            fail(f"lod: remesh health {info}")
+        if info["remesher"] != "native":
+            fail(f"lod: the {info['remesher']} remesher ran, not the native "
+                 "core (is g++ there?)")
+        logged = [r for r in logger.history if "iter" in r]
+        if len(logged) != 6 or not all(math.isfinite(r["loss"])
+                                       for r in logged):
+            fail(f"lod: logged losses {[r.get('loss') for r in logged]}")
+        n_steps = hp_lod.num_passes * hp_lod.iters
+        if (lod_launches != n_steps * per_step or lod_cand != expect_cand):
+            fail(f"lod: {lod_launches} closest-hit / {lod_cand} prepass "
+                 f"launches in {n_steps} steps, expected "
+                 f"{n_steps * per_step} / {expect_cand}")
+        v_out, f_out = out.host_arrays()
+        if not np.isfinite(v_out).all() or len(f_out) != faces_by_pass[-1]:
+            fail("lod: the final mesh is not finite or not the last pass's")
+        h_out = hausdorff_distance(v_out, f_out, v90, f90)
+        print(f"lod: {hp_lod.num_passes} passes x {hp_lod.iters} steps in "
+              f"{lod_s:.2f} s ({info['remesher']} remesher), remesh "
+              f"{sum(p['remesh_s'] for p in info['passes']):.2f} s, steps "
+              f"{sum(p['steps_s'] for p in info['passes']):.2f} s, peak "
+              f"memory {lod_peak / 2**30:.2f} GiB, "
+              f"launches {lod_launches} closest-hit, {lod_cand} prepass; "
+              f"Hausdorff mean against dog_mid90k: init {h_init.mean:.4f}, "
+              f"result {h_out.mean:.4f} (max {h_init.max:.3f} -> "
+              f"{h_out.max:.3f}; one evaluation {hausdorff_s:.1f} s)")
+        # resume: one pass more, and only that pass
+        info2 = {}
+        t0 = time.time()
+        out2 = optimize(hp_lod.replace(num_passes=4), cap, v20, f20,
+                        remesh_fn="isotropic", checkpoint_dir=ck_dir,
+                        log_fn=lambda s: None, resume=True, run_info=info2,
+                        device=dev)
+        torch.cuda.synchronize()
+        if ([p["pass"] for p in info2["passes"]] != [3]
+                or "dog_pass03.ply" not in os.listdir(ck_dir)
+                or not torch.isfinite(out2.vertices).all()):
+            fail(f"lod: resume ran passes {info2['passes']}")
+        print(f"lod: resume ran pass 3 alone: {out2.num_faces} faces, "
+              f"{time.time() - t0:.2f} s")
+    launches_train, cand_train = launches, cand_launches
+    launches += lod_launches
+    cand_launches += lod_cand
+
     cam_r = results["camera"]
     pre = {k: r["prepass"] for k, r in results.items() if "prepass" in r}
     pre_r = pre["dog_mid45k bounce2"]
@@ -564,6 +981,8 @@ def main():
         "source": "drt_tpu_torch/csrc/closest_hit.cu",
         "replaces": "drt_tpu/intersect/pallas_kernel.py:118",
         "launches": launches,
+        "launches_train": launches_train,
+        "launches_lod": lod_launches,
         "launches_per_step": per_step,
         "shape": "camera rays 1280x960 on dog_mid90k",
         "max_abs_err": max(r["err"] for r in results.values()),
@@ -578,6 +997,8 @@ def main():
         "source": "drt_tpu_torch/csrc/candidates.cu",
         "replaces": "drt_tpu/intersect/pallas_kernel.py:359",
         "launches": cand_launches,
+        "launches_train": cand_train,
+        "launches_lod": lod_cand,
         "launches_per_step": per_step_prepass,
         "shape": "bounce-2 rays 1280x960 on dog_mid45k",
         "max_abs_err": max(r["err"] for r in pre.values()),

@@ -11,10 +11,16 @@ pass `device="cpu"`, where every kernel wrapper runs its plain version.
 Layer map:
     geometry/   differentiable optics and mesh metrics
     mesh/       PLY IO, topology extraction, padded mesh state
-    intersect/  the non-differentiable hit oracle (brute / cuda)
-    render/     2-bounce refraction trace, silhouette edge sampling, cameras
+    intersect/  the non-differentiable hit oracle (brute / culled / cuda,
+                and the Morton re-sort route for incoherent queries)
+    render/     2-bounce refraction trace, silhouette edge sampling, cameras,
+                ray chunking
     data/       view containers and the synthetic capture generator
-    optimize/   losses and the reference-parity train step
+    optimize/   losses, schedules, preconditioners, the train step and the
+                LOD loop (`optimize`)
+    remesh/     host-side isotropic remeshing (numpy + the C++ core in
+                native/) and Hausdorff evaluation
+    utils/      metrics logger and profiler helper
 """
 
 import torch

@@ -4,7 +4,8 @@
 drt_tpu's MeshState and ViewBatch (as numpy arrays, plus the three static
 counts of the mesh) and build the port's, so both packages start from
 identical state. Integer topology becomes int64 (torch's index type);
-floating fields keep their dtype.
+floating fields keep their dtype. `train_state_from_arrays` does the same
+for the optimizer state of `make_train_step`.
 """
 
 from __future__ import annotations
@@ -40,3 +41,15 @@ def view_batch_from_arrays(d: dict, device) -> ViewBatch:
     return ViewBatch(**{k: _tensor(d[k], device,
                                    torch.bool if k == "valid" else None)
                         for k in ViewBatch._fields})
+
+
+_STATE_FLOAT = ("params", "m", "v", "v_per", "init_v")
+
+
+def train_state_from_arrays(d: dict, device) -> dict:
+    """d: {field: numpy array} for every field of drt_tpu's train-step state
+    (params, m, v, v_per, count, init_v, silh_max)."""
+    st = {k: _tensor(d[k], device) for k in _STATE_FLOAT}
+    st["count"] = _tensor(d["count"], device, torch.int32)
+    st["silh_max"] = _tensor(d["silh_max"], device, torch.int64)
+    return st

@@ -8,6 +8,8 @@ each pixel sees through the glass, and the hit mask for the silhouette.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -80,10 +82,26 @@ def synthesize_capture(
     elevation_deg: float = 10.0,
     backend: str = "auto",
     num_view_used: int = 72,
+    cache_path: str | None = None,
     device="cuda",
 ) -> CaptureData:
     """Render a synthetic capture of `gt` (float32, on `device`) in the
-    per-view structure the h5 loader produces."""
+    per-view structure the h5 loader produces.
+
+    cache_path: optional .npz path, loaded if it exists and written after
+    synthesis otherwise, with the JAX package's keys, so a capture cached by
+    one package loads in the other."""
+    if cache_path and os.path.exists(cache_path):
+        z = np.load(cache_path)
+        views = [dict(screen_pixel=z[f"sp{i}"], valid=z[f"va{i}"],
+                      mask=z[f"mk{i}"], origin=z[f"or{i}"],
+                      ray_dir=z[f"rd{i}"], R=z[f"R{i}"], K=z[f"K{i}"])
+                 for i in range(int(z["num_views"]))]
+        return CaptureData(name=name, resy=int(z["resy"]),
+                           resx=int(z["resx"]),
+                           num_views=int(z["num_views"]),
+                           views=stack_views(views, device=device),
+                           num_view_used=num_view_used)
     ms = build_mesh_state(gt_vertices, gt_faces, device=device)
     fn = get_intersect_fn(backend)
     K = intrinsics(resy, resx, fov_deg)
@@ -115,10 +133,20 @@ def synthesize_capture(
             valid=valid.cpu().numpy(),
             mask=process_mask((mask_img > 0.5).cpu().numpy()
                               .astype(np.uint8)),
-            origin=origin[:1].cpu().numpy(),
+            origin=origin[:1].cpu().numpy(),   # pinhole: one per view
             ray_dir=ray_dir.cpu().numpy(),
             R=R, K=K,
         ))
+    if cache_path:
+        os.makedirs(os.path.dirname(os.path.abspath(cache_path)),
+                    exist_ok=True)
+        payload = {"num_views": num_views, "resy": resy, "resx": resx}
+        for i, vw in enumerate(views):
+            payload.update({f"sp{i}": vw["screen_pixel"], f"va{i}": vw["valid"],
+                            f"mk{i}": vw["mask"], f"or{i}": vw["origin"],
+                            f"rd{i}": vw["ray_dir"], f"R{i}": vw["R"],
+                            f"K{i}": vw["K"]})
+        np.savez_compressed(cache_path, **payload)
     return CaptureData(name=name, resy=resy, resx=resx, num_views=num_views,
                        views=stack_views(views, device=device),
                        num_view_used=num_view_used)

@@ -402,16 +402,19 @@ class KernelInputs(NamedTuple):
 
 @torch.no_grad()
 def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
-                   coherent: bool) -> KernelInputs:
+                   coherent: bool, shift=None) -> KernelInputs:
     """Stages 1-4. Coherent queries take the tile prepass; incoherent ones
     the exact per-ray prepass (the kernel on CUDA tensors), since their tile
     frustums straddle direction signs and blow up to near-full lists. Makes
-    no host synchronisation."""
+    no host synchronisation. `shift` [3] replaces the mean ray origin: the
+    resorted route passes the unsorted query's, since a mean summed in
+    another order differs in its last bits and t would follow."""
     F = faces.shape[0]
     if face_valid is None:
         face_valid = torch.ones(F, dtype=torch.bool, device=faces.device)
     o = origins.float()
-    shift = o.mean(dim=0)
+    if shift is None:
+        shift = o.mean(dim=0)
     o = o - shift
     d = dirs.float()
 
@@ -556,11 +559,11 @@ def closest_hit(inp: KernelInputs):
 
 
 def intersect_cuda(origins, dirs, vertices, faces, face_valid=None, *,
-                   coherent: bool) -> Hits:
+                   coherent: bool, shift=None) -> Hits:
     """Closest hit for each ray. Misses: t=inf, tri_id=-1."""
     counters.calls += 1
     N = origins.shape[0]
     inp = prepare_inputs(origins, dirs, vertices, faces, face_valid,
-                         coherent=coherent)
+                         coherent=coherent, shift=shift)
     t, ids = closest_hit(inp)
     return Hits(t[:N], ids[:N])

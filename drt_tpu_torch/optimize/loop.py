@@ -1,20 +1,42 @@
-"""The reference-parity train step (port of drt_tpu/optimize/loop.py).
+"""The train step and the LOD optimization loop (port of
+drt_tpu/optimize/loop.py).
 
-One step: vertices = init + p, vertex normals (MeshState.with_vertices),
-total_loss, backward to the [V,3] displacement gradient, the reference's
-limit hook (NaN -> 0, clamp +-1, optim.py:155-162) and the Nesterov-momentum
-SGD update (optim.py:169). Only optimizer="sgd" with precond="none" is
-ported; the LOD driver (`optimize`) is not.
+Capability of the reference's `optimize` (optim.py:145-219): `num_passes`
+passes of [remesh to the scheduled edge length, re-init a zero displacement
+parameter, run `iters` steps on the weighted loss], with reciprocal
+schedules for remesh length and learning rate, and the gradient limit hook
+(NaN -> 0, clamp +-1, optim.py:155-162).
+
+One step: vertices from the parameters, vertex normals
+(MeshState.with_vertices), total_loss, backward to the [V,3] gradient, the
+preconditioner, the limit hook and the optimizer update. The state is a
+dict of device tensors and a step reads nothing back to the host; `optimize`
+reads once a pass (the running silhouette-edge maximum) and on logged
+iterations. Per-pass state is checkpointed as a PLY mesh, which gives the
+restart-from-pass capability the reference lacks. Remeshing is an injectable
+callable (the in-process isotropic remesher of drt_tpu_torch.remesh stands
+in for the reference's meshlabserver subprocess).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import os
+import re
+import time
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from drt_tpu_torch.mesh.state import MeshState
+from drt_tpu_torch.config import HyperParams
+from drt_tpu_torch.data.views import CaptureData
+from drt_tpu_torch.intersect.api import get_intersect_fn
+from drt_tpu_torch.mesh.ply import load_ply, save_ply
+from drt_tpu_torch.mesh.state import MeshState, build_mesh_state
+from drt_tpu_torch.mesh.topology import build_topology, morton_order_faces
 from drt_tpu_torch.optimize.losses import LossWeights, total_loss
+from drt_tpu_torch.optimize.precondition import sobolev_apply, sobolev_solve
+from drt_tpu_torch.optimize.schedules import interp_reciprocal
 
 
 def limit_grad(g: torch.Tensor, max_abs: float = 1.0) -> torch.Tensor:
@@ -36,45 +58,380 @@ def default_silhouette_budget(num_edges: int) -> int:
 def make_train_step(intersect_fn: Callable, weights: LossWeights,
                     resy: int, resx: int, silhouette_budget: int,
                     momentum: float = 0.95, optimizer: str = "sgd",
-                    precond: str = "none", grad_clamp: float = 1.0):
+                    precond: str = "none", precond_lambda: float = 29.0,
+                    cg_iters: int = 64, grad_clamp: float = 1.0,
+                    ray_chunk: int = -1):
     """Build (init_state, step, final_vertices) for one LOD pass.
 
     step(state, lr, mesh, views, ray_view_idx, silh_view_idx)
     -> (new_state, loss, aux). The state is a dict of tensors; step returns
-    a new dict and leaves its argument unchanged."""
-    if optimizer != "sgd" or precond != "none":
-        raise NotImplementedError(
-            f"optimizer={optimizer!r} precond={precond!r}: only the "
-            "reference-parity sgd + none step is ported")
+    a new dict and leaves its argument unchanged. `lr` is a float or a 0-d
+    tensor.
+
+    optimizer: 'sgd' is Nesterov-momentum SGD, the reference's exact
+      dynamics (optim.py:169) with the limit hook; 'adam' is Adam; 'uadam'
+      is Adam with a uniform (scalar, max-over-coordinates) second moment,
+      the variant of Nicolet et al. 2021 that avoids per-coordinate step
+      distortion.
+    precond: 'none' optimizes a per-vertex displacement p, vertices =
+      init + p (reference parity); 'sobolev' optimizes u with vertices =
+      (I + lam L)^{-1} u (optimize/precondition.py); 'h1' is an evidence-
+      equalized H1 gradient flow: the ray-loss gradient is divided by each
+      vertex's ray-evidence count, combined with the regularizer gradient,
+      then smoothed by (I + lam L)^{-1} so low-frequency shape modes move
+      at full scale.
+
+    The reference's +-1 clamp (grad_clamp) is applied in the parity
+    configuration (sgd + none) and, after equalization and smoothing, in
+    'h1' under every optimizer: there it is a trust region on an already
+    well-scaled direction (one near-degenerate-triangle ray can spike the
+    gradient by ~1e7, and uadam's max-based second moment never forgets
+    it). Under the Sobolev reparameterization the u-space gradient scale is
+    different and clamping would bring back the saturation the
+    preconditioner removes.
+    """
+    if optimizer not in ("sgd", "adam", "uadam"):
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    if precond not in ("none", "sobolev", "h1"):
+        raise ValueError(f"unknown precond {precond!r}")
+    if precond == "h1" and not weights.ray_w:
+        raise ValueError("precond='h1' requires a nonzero ray_w")
+
+    clamp = grad_clamp if (precond == "h1" or (optimizer == "sgd"
+                                               and precond == "none")) else 0.0
 
     def init_state(mesh: MeshState):
         init_v = mesh.vertices.detach()
+        if precond == "sobolev":
+            params = sobolev_apply(init_v, mesh.neighbors,
+                                   mesh.neighbor_valid, precond_lambda)
+        else:
+            params = torch.zeros_like(init_v)
         zeros = torch.zeros_like(init_v)
-        return {"params": zeros, "m": zeros, "init_v": init_v,
-                "silh_max": torch.zeros((), dtype=torch.int64,
-                                        device=init_v.device)}
+        dev = init_v.device
+        return {"params": params, "m": zeros,
+                "v": torch.zeros((), dtype=init_v.dtype, device=dev),
+                "v_per": zeros,
+                "count": torch.zeros((), dtype=torch.int32, device=dev),
+                "init_v": init_v,
+                # Running max of per-view silhouette-edge counts over every
+                # iteration, so `optimize`'s budget guard sees all of them
+                # with one host read a pass.
+                "silh_max": torch.zeros((), dtype=torch.int64, device=dev)}
+
+    def loss_and_grad(state, mesh, views, ray_view_idx, silh_view_idx, w,
+                      collect_evidence=False):
+        """total_loss under weights w and its gradient in the parameters;
+        aux comes back detached so it does not keep the graph alive."""
+        p = state["params"].detach().requires_grad_(True)
+        if precond == "sobolev":
+            vert = sobolev_solve(p, mesh.neighbors, mesh.neighbor_valid,
+                                 precond_lambda, maxiter=cg_iters)
+        else:
+            vert = state["init_v"] + p
+        loss, aux = total_loss(mesh.with_vertices(vert), views,
+                               ray_view_idx, silh_view_idx, intersect_fn, w,
+                               resy, resx, silhouette_budget,
+                               collect_evidence=collect_evidence,
+                               ray_chunk=ray_chunk)
+        if loss.requires_grad:
+            (g,) = torch.autograd.grad(loss, p)
+        else:                      # every weight of w is zero
+            g = torch.zeros_like(p)
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, g
 
     def step(state, lr, mesh: MeshState, views, ray_view_idx,
              silh_view_idx):
-        p = state["params"].detach().requires_grad_(True)
-        m = mesh.with_vertices(state["init_v"] + p)
-        loss, aux = total_loss(m, views, ray_view_idx, silh_view_idx,
-                               intersect_fn, weights, resy, resx,
-                               silhouette_budget)
-        (g,) = torch.autograd.grad(loss, p)
-        # detached so the returned aux does not keep the graph alive
-        aux = {k: v.detach() for k, v in aux.items()}
-        g = limit_grad(g, grad_clamp)
+        if precond == "h1":
+            # Split gradients: the ray term (evidence-preconditioned)
+            # against the regularizers (vh + sm). A zero weight skips its
+            # term, so the two passes make the oracle queries of one.
+            l_ray, aux, g_ray = loss_and_grad(
+                state, mesh, views, ray_view_idx, silh_view_idx,
+                weights._replace(vh_w=0.0, sm_w=0.0), collect_evidence=True)
+            l_reg, aux_reg, g_reg = loss_and_grad(
+                state, mesh, views, ray_view_idx, silh_view_idx,
+                weights._replace(ray_w=0.0))
+            ev = aux.pop("vertex_evidence")     # float32 counts
+            aux.update({k: aux_reg[k] for k in ("vh", "sm", "silh_edge_max")})
+            # Equalize: vertices with little refraction evidence get the
+            # same step scale as high-evidence ones; c_bar keeps the global
+            # ray/regularizer balance of the reference's weighted sum. The
+            # scale stays in float32 whatever the gradient's dtype, as in
+            # the JAX package.
+            c_bar = ev.sum() / torch.clamp((ev > 0).sum().to(ev.dtype),
+                                           min=1.0)
+            # no evidence at all (every ray lost) -> drop the ray term
+            scale = torch.where(
+                c_bar > 0.0,
+                c_bar / (ev + 0.25 * torch.clamp(c_bar, min=1e-9)),
+                torch.zeros_like(ev))
+            g = g_ray * scale[:, None] + g_reg
+            # H1 smoothing: descent direction in the Sobolev metric.
+            g = sobolev_solve(g, mesh.neighbors, mesh.neighbor_valid,
+                              precond_lambda, maxiter=cg_iters)
+            loss = l_ray + l_reg
+            aux["evidence_mean"] = c_bar
+        else:
+            loss, aux, g = loss_and_grad(state, mesh, views, ray_view_idx,
+                                         silh_view_idx, weights)
+        g = limit_grad(g, clamp)
         aux["max_grad"] = g.abs().max()
-        mom = momentum * state["m"] + g
-        params = p.detach() - lr * (g + momentum * mom)
-        new = {**state, "params": params, "m": mom,
-               "silh_max": torch.maximum(
-                   state["silh_max"],
-                   aux["silh_edge_max"].to(state["silh_max"].device))}
-        return new, loss.detach(), aux
+
+        params, mom = state["params"], state["m"]
+        if optimizer == "sgd":
+            mom = momentum * mom + g
+            params = params - lr * (g + momentum * mom)
+            new = {**state, "params": params, "m": mom}
+        else:
+            b1, b2, eps = 0.9, 0.999, 1e-8
+            count = state["count"] + 1
+            t = count.to(g.dtype)
+            mom = b1 * mom + (1 - b1) * g
+            m_hat = mom / (1 - b1 ** t)
+            if optimizer == "uadam":
+                v2 = b2 * state["v"] + (1 - b2) * (g * g).max()
+                new_v, new_vper = v2, state["v_per"]
+            else:  # adam
+                v2 = b2 * state["v_per"] + (1 - b2) * (g * g)
+                new_v, new_vper = state["v"], v2
+            denom = torch.sqrt(v2 / (1 - b2 ** t)) + eps
+            params = params - lr * m_hat / denom
+            new = {**state, "params": params, "m": mom, "v": new_v,
+                   "v_per": new_vper, "count": count}
+        new["silh_max"] = torch.maximum(
+            state["silh_max"],
+            aux["silh_edge_max"].to(state["silh_max"].device))
+        return new, loss, aux
 
     def final_vertices(state, mesh: MeshState):
+        if precond == "sobolev":
+            return sobolev_solve(state["params"], mesh.neighbors,
+                                 mesh.neighbor_valid, precond_lambda,
+                                 maxiter=4 * cg_iters, tol=1e-8)
         return state["init_v"] + state["params"]
 
     return init_state, step, final_vertices
+
+
+def find_resume_pass(checkpoint_dir: str, name: str):
+    """Latest per-pass checkpoint (pass index, path) or None."""
+    if not checkpoint_dir or not os.path.isdir(checkpoint_dir):
+        return None
+    best = None
+    for fname in os.listdir(checkpoint_dir):
+        m = re.fullmatch(rf"{re.escape(name)}_pass(\d+)\.ply", fname)
+        if m:
+            i = int(m.group(1))
+            if best is None or i > best[0]:
+                best = (i, os.path.join(checkpoint_dir, fname))
+    return best
+
+
+def optimize(
+    hp: HyperParams,
+    data: CaptureData,
+    init_vertices: np.ndarray,
+    init_faces: np.ndarray,
+    remesh_fn: Optional[Callable] = None,
+    checkpoint_dir: Optional[str] = None,
+    log_fn: Callable = print,
+    log_every: int = 100,
+    metrics=None,
+    resume: bool = False,
+    run_info: Optional[dict] = None,
+    device="cuda",
+) -> MeshState:
+    """Run the full LOD optimization on `device`; returns the final
+    MeshState. `data` must hold its views on the same device; there is no
+    fallback to the CPU when `device` names a card and none is present.
+
+    remesh_fn(vertices, faces, target_len) -> (vertices, faces). Pass the
+    string "isotropic" for the built-in in-process remesher, or None to skip
+    remeshing (the reference remeshes every pass, optim.py:195).
+
+    run_info, if given, is filled with remesh-health counters
+    (remesh_attempts / remesh_retries / remesh_failures): the reference's
+    meshlabserver either succeeds every pass or kills the run (optim.py:51);
+    the retry guard here converts failure into a fixed-topology pass, so
+    failures are counted loudly. The same counters go to the metrics JSONL.
+    run_info also gets "remesher" ("native" or "numpy" for the built-in
+    remesher) and "passes": per pass its index, face count, silhouette
+    budget, and the seconds spent remeshing and stepping.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("optimize(device='cuda'): torch sees no CUDA "
+                           "device; pass device='cpu' to run on the CPU")
+    if data.views.ray_dir.device.type != device.type:
+        raise ValueError(f"the capture's views are on "
+                         f"{data.views.ray_dir.device}, optimize runs on "
+                         f"{device}")
+    dtype = getattr(torch, hp.dtype)
+    if run_info is None:
+        run_info = {}
+    if remesh_fn == "isotropic":
+        from drt_tpu_torch.remesh.isotropic import isotropic_remesh
+        from drt_tpu_torch.remesh.native import load_native
+        remesh_fn = isotropic_remesh
+        run_info["remesher"] = ("native" if load_native() is not None
+                                else "numpy")
+        log_fn(f"remesher: isotropic, {run_info['remesher']} core")
+    intersect_fn = get_intersect_fn(hp.backend)
+    weights = LossWeights(ray_w=hp.ray_w, vh_w=hp.vh_w, sm_w=hp.sm_w,
+                          ior=hp.ior, ext_ior=hp.ext_ior,
+                          bilinear_mask=hp.bilinear_mask, huber=hp.huber)
+
+    if isinstance(metrics, str):
+        from drt_tpu_torch.utils.metrics import MetricsLogger
+        metrics = MetricsLogger(metrics)
+
+    v_np, f_np = np.asarray(init_vertices), np.asarray(init_faces)
+    # no_coarsen clamp target: the ORIGINAL init's mean edge length, computed
+    # before any resume load so fresh and resumed runs use the same clamp.
+    # Directed-edge mean == undirected mean on a closed mesh.
+    tri = v_np[f_np]
+    init_len = float(np.mean(np.linalg.norm(
+        tri - np.roll(tri, -1, axis=1), axis=2)))
+    start_pass = 0
+    if resume and checkpoint_dir:
+        found = find_resume_pass(checkpoint_dir, hp.name)
+        if found is not None:
+            start_pass = found[0] + 1
+            v_np, f_np = load_ply(found[1])
+            log_fn(f"resuming from pass {found[0]} checkpoint {found[1]}")
+    mesh = build_mesh_state(v_np, f_np, dtype=dtype, device=device)
+
+    steps = {}   # silhouette budget -> (init_state, step, final_vertices)
+    budget_floor = 0   # grown when a pass observes more silhouette edges
+    remesh_health = {"remesh_attempts": 0, "remesh_retries": 0,
+                     "remesh_failures": 0}
+    run_info.update(remesh_health)
+    run_info["passes"] = []
+    t_start = time.time()
+
+    # Coarsening policy while the scheduled target is coarser than the
+    # init's own mean edge length (config.py coarsen_policy):
+    # "schedule" = reference parity, "clamp" = never above init_len,
+    # "skip" = no remesh at all until the schedule drops below init_len.
+    policy = "clamp" if hp.no_coarsen else hp.coarsen_policy
+    if policy == "auto":
+        policy = "skip" if data.resy < 480 else "schedule"
+        log_fn(f"coarsen_policy auto -> {policy} (resy {data.resy})")
+    if policy not in ("schedule", "clamp", "skip"):
+        raise ValueError(f"unknown coarsen_policy {policy!r}")
+
+    for i_pass in range(start_pass, hp.num_passes):
+        t_pass = time.time()
+        remesh_len = interp_reciprocal(hp.start_len, hp.end_len, i_pass,
+                                       hp.num_passes)
+        skip_remesh = policy == "skip" and remesh_len > init_len
+        if policy == "clamp":
+            remesh_len = min(remesh_len, init_len)
+        if hp.lr_schedule == "len":
+            lr = hp.start_lr * remesh_len / hp.start_len
+        else:
+            lr = interp_reciprocal(hp.start_lr, hp.lr_decay * hp.start_lr,
+                                   i_pass, hp.num_passes)
+        log_fn(f"pass {i_pass}: remesh_len {remesh_len:g} lr {lr:g}"
+               + (" (remesh skipped: coarser than init)" if skip_remesh
+                  else ""))
+
+        if remesh_fn is not None and not skip_remesh:
+            v_np, f_np = mesh.host_arrays()
+            # Optimizer-roughened geometry can occasionally drive a collapse
+            # cascade that breaks watertightness. Retry slightly finer, then
+            # keep the current mesh rather than dying mid-run.
+            for attempt, target in enumerate((remesh_len, 0.8 * remesh_len,
+                                              None)):
+                if target is None:
+                    remesh_health["remesh_failures"] += 1
+                    log_fn(f"  WARNING: remesh failed at pass {i_pass}; "
+                           "keeping the current mesh this pass")
+                    break
+                remesh_health["remesh_attempts"] += 1
+                if attempt:
+                    remesh_health["remesh_retries"] += 1
+                try:
+                    v2, f2 = remesh_fn(v_np, f_np, target)
+                    f2 = morton_order_faces(v2, np.asarray(f2))
+                    topo = build_topology(f2, len(v2))
+                    if not topo.is_watertight:
+                        raise ValueError("mesh is not watertight")
+                except (ValueError, RuntimeError) as e:
+                    log_fn(f"  remesh to {target:g} failed ({e}); retrying")
+                    continue
+                # The upload stands outside the try: an error of the device
+                # is no remesh failure and must end the run.
+                mesh = build_mesh_state(v2, f2, dtype=dtype, device=device,
+                                        topology=topo)
+                break
+            run_info.update(remesh_health)
+            if metrics is not None:
+                metrics.log({"pass": i_pass, "event": "remesh",
+                             **remesh_health})
+        t_remeshed = time.time()
+
+        budget = max(hp.silhouette_budget
+                     or default_silhouette_budget(mesh.num_edges),
+                     budget_floor)
+        if budget not in steps:
+            steps[budget] = make_train_step(
+                intersect_fn, weights, data.resy, data.resx, budget,
+                momentum=hp.momentum, optimizer=hp.optimizer,
+                precond=hp.precond, precond_lambda=hp.precond_lambda,
+                cg_iters=hp.cg_iters, grad_clamp=hp.grad_clamp,
+                ray_chunk=hp.diff_ray_chunk)
+        init_state, step, final_vertices = steps[budget]
+
+        # Fresh optimizer state each pass (optim.py:164-171).
+        state = init_state(mesh)
+        ray_gen = data.ray_view_generator(seed=hp.seed + i_pass)
+        silh_gen = data.silh_view_generator(seed=hp.seed + 1000 + i_pass)
+
+        rvpi = max(1, hp.ray_views_per_iter)
+        for it in range(hp.iters):
+            ray_idx = [next(ray_gen) for _ in range(rvpi)]
+            # 8 silhouette views per step (optim.py:72).
+            silh_idx = [next(silh_gen) for _ in range(8)]
+            state, loss, aux = step(state, lr, mesh, data.views, ray_idx,
+                                    silh_idx)
+            if it % log_every == 0:
+                log_fn(f"  iter {it}: loss={float(loss):g} "
+                       f"ray={float(aux['ray']):g} vh={float(aux['vh']):g} "
+                       f"sm={float(aux['sm']):g} "
+                       f"maxgrad={float(aux['max_grad']):g}")
+                if metrics is not None:
+                    metrics.log({"pass": i_pass, "iter": it,
+                                 "loss": loss, **aux})
+
+        # Silhouette budget guard: if ANY iteration's views had more
+        # silhouette edges than the static budget, samples were truncated;
+        # warn loudly and grow the budget for subsequent passes (next power
+        # of two). The running max lives in the step state, so every
+        # iteration is observed; this is the pass's one host read.
+        silh_seen = int(state["silh_max"])
+        if silh_seen > budget:
+            grown = budget
+            while grown < silh_seen:
+                grown *= 2
+            budget_floor = grown
+            log_fn(f"  WARNING: silhouette edges ({silh_seen}) exceeded the "
+                   f"sampling budget ({budget}); truncated this pass: "
+                   f"budget grows to {grown} next pass")
+
+        mesh = mesh.with_vertices(final_vertices(state, mesh).detach())
+        run_info["passes"].append({
+            "pass": i_pass, "faces": mesh.num_faces, "budget": budget,
+            "remesh_s": t_remeshed - t_pass,
+            "steps_s": time.time() - t_remeshed})
+
+        if checkpoint_dir and hp.checkpoint_every_pass:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            v_out, f_out = mesh.host_arrays()
+            save_ply(os.path.join(checkpoint_dir,
+                                  f"{hp.name}_pass{i_pass:02d}.ply"),
+                     v_out, f_out)
+
+    log_fn(f"optimize time: {time.time() - t_start:.1f}s")
+    return mesh

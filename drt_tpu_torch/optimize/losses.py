@@ -8,8 +8,8 @@ drt_tpu/optimize/losses.py; reference optim.py:59-130).
 - total: ray_w*217.5/resy^2 * ray + vh_w*217.5/resy * vh
   + sm_w*mean_len/10 * sm (optim.py:127-129).
 
-Ray batches run unchunked (the JAX package's auto policy chunks only above
-a full 1920x1080 view).
+Ray batches above a full 1920x1080 view run in chunks with
+rematerialization (render/chunked.py); `ray_chunk` sets the chunk size.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 
 from drt_tpu_torch.geometry.metrics import dihedral_cos
 from drt_tpu_torch.geometry.vec import clip, safe_normalize
+from drt_tpu_torch.render.chunked import auto_ray_chunk, chunked_sum
 from drt_tpu_torch.render.silhouette import primary_visibility
 from drt_tpu_torch.render.trace import render_transparent
 
@@ -30,47 +31,82 @@ class LossWeights(NamedTuple):
     sm_w: float
     ior: float
     ext_ior: float = 1.00029
+    bilinear_mask: bool = False   # see silhouette_loss
     huber: float = 0.0            # see ray_loss; 0 = reference-parity L2
     compat: bool = False          # reference-exact refraction chain (f64)
 
 
 def ray_loss(mesh, view, intersect_fn: Callable, ior: float,
              ext_ior: float, collect_evidence: bool = False,
-             huber: float = 0.0, compat: bool = False):
+             huber: float = 0.0, ray_chunk: int = -1, compat: bool = False):
     """One-view refraction loss (reference optim.py:91-108). Returns
     (loss, stats). collect_evidence adds stats["vertex_evidence"], the
     per-vertex count of contributing rays; huber > 0 caps each ray's
-    influence above `huber` (0 = the reference's plain L2)."""
+    influence above `huber` (0 = the reference's plain L2).
+
+    ray_chunk: process the ray batch in sequential chunks of this size with
+    rematerialization (render/chunked.py), so per-ray intermediates never
+    exist for more than one chunk. -1 = auto policy (chunk only batches
+    larger than a full 1920x1080 view), 0 = never chunk."""
     screen_pixel, valid, _mask, origin, ray_dir, _cam = view
-    res = render_transparent(origin, ray_dir, mesh, intersect_fn, ior,
-                             ext_ior, lane_mask=valid, compat=compat)
-    # target: from the (detached) exit origin to the matted screen point
-    target = safe_normalize(screen_pixel - res.origin.detach())
-    diff = res.direction - target
-    w = valid & res.valid
-    stats = dict(res.stats)
-    if collect_evidence:
-        ev = torch.zeros(mesh.vertices.shape[0], device=w.device)
-        wf = w.float()[:, None].expand(-1, 3).reshape(-1)
-        for tri in res.tris:
-            ev.index_add_(0, mesh.faces[tri].reshape(-1), wf)
-        stats["vertex_evidence"] = ev
-    s = torch.where(w[:, None], diff * diff, torch.zeros_like(diff)).sum(1)
-    if huber:
-        r = torch.sqrt(clip(s, 1e-24))
-        s = torch.where(r <= huber, s, 2.0 * huber * r - huber * huber)
-    return torch.where(w, s, torch.zeros_like(s)).sum(), stats
+    if ray_chunk < 0:
+        ray_chunk = auto_ray_chunk(origin.shape[0])
+
+    def body(screen_pixel, valid, origin, ray_dir):
+        # lane_mask=valid: matting-invalid pixels (and the chunked path's
+        # padding lanes, padded valid=False) start inactive.
+        res = render_transparent(origin, ray_dir, mesh, intersect_fn, ior,
+                                 ext_ior, lane_mask=valid, compat=compat)
+        # target: from the (detached) exit origin to the matted screen point
+        target = safe_normalize(screen_pixel - res.origin.detach())
+        diff = res.direction - target
+        w = valid & res.valid
+        stats = dict(res.stats)
+        if collect_evidence:
+            ev = torch.zeros(mesh.vertices.shape[0], device=w.device)
+            wf = w.float()[:, None].expand(-1, 3).reshape(-1)
+            for tri in res.tris:
+                ev.index_add_(0, mesh.faces[tri].reshape(-1), wf)
+            stats["vertex_evidence"] = ev
+        s = torch.where(w[:, None], diff * diff,
+                        torch.zeros_like(diff)).sum(1)
+        if huber:
+            r = torch.sqrt(clip(s, 1e-24))
+            s = torch.where(r <= huber, s, 2.0 * huber * r - huber * huber)
+        return torch.where(w, s, torch.zeros_like(s)).sum(), stats
+
+    return chunked_sum(body, (screen_pixel, valid, origin, ray_dir),
+                       ray_chunk, pad_values=(0.0, False, 0.0, 1.0))
 
 
 def silhouette_loss(mesh, view, intersect_fn: Callable, budget: int,
-                    resy: int, resx: int):
-    """One-view silhouette loss (reference optim.py:67-80), sampling the
-    soft mask at the integer-truncated sample point as the reference does.
-    Returns (loss, true silhouette-edge count)."""
+                    resy: int, resx: int, bilinear_mask: bool = False):
+    """One-view silhouette loss (reference optim.py:67-80): the soft mask
+    sampled at each boundary-crossing silhouette edge against the 0.5 level.
+    Returns (loss, true silhouette-edge count).
+
+    bilinear_mask=False reproduces the reference's integer truncation of the
+    sample point (DiffRender.py:245); True samples the soft mask bilinearly,
+    removing the +-half-pixel bias (helpful at low capture resolutions)."""
     _sp, _valid, mask_img, origin, _rd, cam = view
     samples = primary_visibility(mesh, cam, origin[0], intersect_fn,
                                  budget, resy, resx)
-    picked = mask_img[samples.pixel[:, 1].long(), samples.pixel[:, 0].long()]
+    if bilinear_mask:
+        fx = samples.pixel_f[:, 0]
+        fy = samples.pixel_f[:, 1]
+        x0 = torch.floor(fx).long().clamp(0, resx - 2)
+        y0 = torch.floor(fy).long().clamp(0, resy - 2)
+        wx = clip(fx - x0, 0.0, 1.0)
+        wy = clip(fy - y0, 0.0, 1.0)
+        m00 = mask_img[y0, x0]
+        m01 = mask_img[y0, x0 + 1]
+        m10 = mask_img[y0 + 1, x0]
+        m11 = mask_img[y0 + 1, x0 + 1]
+        picked = ((1 - wy) * ((1 - wx) * m00 + wx * m01)
+                  + wy * ((1 - wx) * m10 + wx * m11))
+    else:
+        picked = mask_img[samples.pixel[:, 1].long(),
+                          samples.pixel[:, 0].long()]
     # |residual| with subgradient 0 at exactly-zero residual: samples on
     # the mask's 0.5 transition band must contribute no gradient.
     diff = picked - samples.output
@@ -89,7 +125,8 @@ def smooth_loss(mesh):
 
 def total_loss(mesh, views, ray_view_idx, silh_view_idx: Sequence[int],
                intersect_fn, weights: LossWeights, resy: int, resx: int,
-               silhouette_budget: int, collect_evidence: bool = False):
+               silhouette_budget: int, collect_evidence: bool = False,
+               ray_chunk: int = -1):
     """Weighted sum (reference all_loss, optim.py:110-130). ray_view_idx is
     an int (reference parity: one view per step) or a sequence of ints,
     averaged; silh_view_idx a sequence of ints (the reference uses 8).
@@ -103,7 +140,8 @@ def total_loss(mesh, views, ray_view_idx, silh_view_idx: Sequence[int],
             rl_i, st = ray_loss(mesh, views.take(i), intersect_fn,
                                 weights.ior, weights.ext_ior,
                                 collect_evidence=collect_evidence,
-                                huber=weights.huber, compat=weights.compat)
+                                huber=weights.huber, ray_chunk=ray_chunk,
+                                compat=weights.compat)
             rls.append(rl_i)
             for k, v in st.items():
                 trace_stats[k] = v if k not in trace_stats \
@@ -115,12 +153,13 @@ def total_loss(mesh, views, ray_view_idx, silh_view_idx: Sequence[int],
     if weights.vh_w:
         vhs, counts = zip(*(silhouette_loss(
             mesh, views.take(int(i)), intersect_fn, silhouette_budget,
-            resy, resx)
+            resy, resx, bilinear_mask=weights.bilinear_mask)
             for i in silh_view_idx))
         vh = torch.stack(vhs).sum()
         silh_edge_max = torch.stack(counts).max()
     else:
-        vh, silh_edge_max = zero, torch.zeros((), dtype=torch.int64)
+        vh, silh_edge_max = zero, torch.zeros((), dtype=torch.int64,
+                                              device=zero.device)
 
     sm = smooth_loss(mesh) if weights.sm_w else zero
 

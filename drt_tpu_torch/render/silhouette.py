@@ -33,6 +33,8 @@ def silhouette_edge_mask(vertices, faces, edge_faces, edge_valid,
 
 class EdgeSamples(NamedTuple):
     pixel: torch.Tensor    # [K,2] int32 (x, y) sampled pixel per edge
+    pixel_f: torch.Tensor  # [K,2] float sample point (detached), for
+                           # bilinear mask sampling
     output: torch.Tensor   # [K] the 0.5 occupancy value (grads flow here)
     valid: torch.Tensor    # [K] bool — selected, boundary-crossing, in view
     count: torch.Tensor    # [] true number of silhouette edges (may be > K)
@@ -118,4 +120,5 @@ def primary_visibility(mesh, camera: CameraM, cam_origin,
     hi = torch.tensor([resx - 1, resy - 1], dtype=torch.int32,
                       device=pixel.device)
     pixel = torch.minimum(pixel.clamp_min(0), hi)
-    return EdgeSamples(pixel, output, valid, silh_count)
+    pixel_f = E_pos.detach().mean(dim=1)                     # midpoint
+    return EdgeSamples(pixel, pixel_f, output, valid, silh_count)

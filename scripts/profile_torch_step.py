@@ -2,17 +2,21 @@
 """Where the time of the port's train step goes, on one CUDA GPU.
 
     python3 scripts/profile_torch_step.py [--views 2] [--steps 3]
+        [--optimizer sgd|adam|uadam] [--precond none|sobolev|h1]
 
 Same configuration as chip_smoke.py's train phase (synthetic capture of
-dog_mid90k at 1280x960, reference-parity steps from dog_mid45k,
-HyperParams() weights, float32), with fewer capture views. Each oracle
+dog_mid90k at 1280x960, steps from dog_mid45k, HyperParams() weights,
+float32; reference-parity sgd + none unless another optimizer or
+preconditioner is named), with fewer capture views. Each oracle
 query is timed on the host clock between two synchronizations and split
 into its stages (prepare_inputs: shift, coefficients, AABBs and the
 candidate prepass, of which the incoherent queries' prepass kernel and its
 sort are also timed apart) and the closest-hit kernel; the rest of the step
 is the differentiable trace, the losses, backward and the update. The
 synchronizations cost a little overlap; the step is also timed without
-them. Finally torch.profiler lists the device kernels by total time.
+them, and one conjugate-gradient solve of the Sobolev preconditioner
+(64 trips on the mesh's neighbor table) is timed on its own. Finally
+torch.profiler lists the device kernels by total time.
 """
 
 import argparse
@@ -31,6 +35,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--views", type=int, default=2)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--optimizer", default="sgd",
+                    choices=["sgd", "adam", "uadam"])
+    ap.add_argument("--precond", default="none",
+                    choices=["none", "sobolev", "h1"])
     args = ap.parse_args()
 
     import torch
@@ -63,6 +71,10 @@ def main():
                           ior=hp.ior, ext_ior=hp.ext_ior)
     budget = default_silhouette_budget(ms.num_edges)
     silh = [i % args.views for i in range(8)]
+    step_kw = dict(optimizer=args.optimizer, precond=args.precond,
+                   precond_lambda=hp.precond_lambda, cg_iters=hp.cg_iters)
+    lr = hp.start_lr if args.optimizer == "sgd" else 0.01
+    print(f"optimizer {args.optimizer}, precond {args.precond}, lr {lr}")
 
     acc = defaultdict(float)
     kind_now = [""]
@@ -105,13 +117,14 @@ def main():
         return Hits(t[:n], ids[:n])
 
     def run(fn, steps):
-        init, step, _ = make_train_step(fn, weights, *res, budget)
+        init, step, _ = make_train_step(fn, weights, *res, budget,
+                                        **step_kw)
         state = init(ms)
         times = []
         for it in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, loss, _ = step(state, hp.start_lr, ms, cap.views,
+            state, loss, _ = step(state, lr, ms, cap.views,
                                   it % args.views, silh)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
@@ -132,13 +145,36 @@ def main():
     print(f"  oracle total per step: {oracle:.1f}; rest of the step: "
           f"{statistics.mean(split) - oracle:.1f}")
 
+    from drt_tpu_torch.optimize.precondition import sobolev_solve
+    rhs = torch.randn_like(ms.vertices)
+
+    def solve():
+        return sobolev_solve(rhs, ms.neighbors, ms.neighbor_valid,
+                             hp.precond_lambda, maxiter=hp.cg_iters)
+    solve()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        solve()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        solve()
+    end.record()
+    torch.cuda.synchronize()
+    print(f"one Sobolev CG solve ({hp.cg_iters} trips, "
+          f"{ms.vertices.shape[0]} padded vertices): {host_ms:.2f} ms host "
+          f"clock, {start.elapsed_time(end) / 5:.2f} ms CUDA events")
+
     from torch.profiler import ProfilerActivity, profile
     init, step, _ = make_train_step(get_intersect_fn("auto"), weights, *res,
-                                    budget)
+                                    budget, **step_kw)
     state = init(ms)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state, _, _ = step(state, hp.start_lr, ms, cap.views, 0, silh)
+        state, _, _ = step(state, lr, ms, cap.views, 0, silh)
         torch.cuda.synchronize()
     print(prof.key_averages().table(sort_by="cuda_time_total",
                                     row_limit=20, max_name_column_width=60))

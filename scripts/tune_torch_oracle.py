@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Measurements behind the constants of the port's oracle, on one CUDA GPU.
 
-    python3 scripts/tune_torch_oracle.py [--what tiles blocks gate]
+    python3 scripts/tune_torch_oracle.py [--what tiles blocks gate resort]
 
 Six queries, the ones chip_smoke.py checks: the camera rays and the
 bounce-2 rays of one 1280x960 view of dog_mid90k, and the four queries of
@@ -17,12 +17,22 @@ blocks  the tiles as the package sets them, BLOCK_RAYS set to 256, 128, 64,
 gate    the per-ray gate of the kernel against the tile-wide gate of the
         JAX package's `_kernel` (the plain version with its gate widened to
         "any ray of the tile enters"): rays whose tri_id or t differ.
+resort  the two routes of an incoherent query, "ray" (the exact per-ray
+        prepass kernel) against "resort" (Morton sort of the rays, tile
+        prepass, scatter back), on the bounce-2 and exit queries of a
+        1280x960 view of dog_mid{20k,45k,90k}: hits equal bit for bit, ms
+        a query of both in turns (ray, resort, resort, ray; CUDA events),
+        and the parts of the resorted route. Writes the winner for each
+        mesh size into reports/torch_resort_ab.json (or --table PATH), the
+        table that `get_intersect_fn(incoherent="auto")` reads. Not in the
+        default set: it rewrites a file of the repository.
 Every variant's hits are also compared with the first variant's: they do
 not depend on tile or block size.
 """
 
 import argparse
 import inspect
+import json
 import os
 import subprocess
 import sys
@@ -160,10 +170,111 @@ def gate(queries):
               f"rays with the same id", flush=True)
 
 
+def resort_ab(dev, card, table=None):
+    """The A/B of the two incoherent routes; writes the port's table (to
+    `table`, or where `get_intersect_fn` reads it)."""
+    import torch
+    import chip_smoke as S
+    from drt_tpu_torch.config import POINTGRAY_RES as RES, HyperParams
+    from drt_tpu_torch.data.synthetic import synthesize_capture
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    from drt_tpu_torch.intersect.api import RESORT_TABLE, get_intersect_fn
+    from drt_tpu_torch.intersect.resort import morton_keys
+    from drt_tpu_torch.mesh import build_mesh_state, load_ply
+    from drt_tpu_torch.optimize.losses import ray_loss
+
+    hp = HyperParams()
+    v90, f90 = load_ply(os.path.join(S.MESH_DIR, "dog_mid90k.ply"))
+    cap = synthesize_capture(v90, f90, name="dog", num_views=1, resy=RES[0],
+                             resx=RES[1], ior=hp.ior, ext_ior=hp.ext_ior,
+                             num_view_used=1, device=dev)
+    fn_ray = get_intersect_fn("cuda", incoherent="ray")
+    fn_res = get_intersect_fn("cuda", incoherent="resort")
+    rows = []
+    for mesh in ("dog_mid20k", "dog_mid45k", "dog_mid90k"):
+        ms = build_mesh_state(*load_ply(os.path.join(S.MESH_DIR,
+                                                     f"{mesh}.ply")),
+                              device=dev)
+        geom = (ms.vertices, ms.faces, ms.face_valid)
+        rec = S.QueryRecorder()
+        with torch.no_grad():
+            ray_loss(ms, cap.views.take(0), rec, hp.ior, hp.ext_ior)
+        total = {"ray": 0.0, "resort": 0.0}
+        row = {"mesh": mesh, "faces": ms.num_faces,
+               "faces_padded": int(ms.faces.shape[0]),
+               "rays": int(rec.queries[0][0].shape[0])}
+        for qn, (o, d, coh) in zip(("bounce1", "bounce2", "exit"),
+                                   rec.queries):
+            if coh:
+                continue
+            h_ray = fn_ray(o, d, *geom, coherent=False)
+            h_res = fn_res(o, d, *geom, coherent=False)
+            same = bool(torch.equal(h_ray.tri_id, h_res.tri_id)
+                        and torch.equal(h_ray.t, h_res.t))
+            if not same:
+                sys.exit(f"tune_torch_oracle: {mesh} {qn}: the two routes "
+                         "give different hits")
+            ms_q = {"ray": [], "resort": []}
+            for route in ("ray", "resort", "resort", "ray"):
+                fn = fn_ray if route == "ray" else fn_res
+                ms_q[route].append(S.cuda_ms(
+                    lambda: fn(o, d, *geom, coherent=False), 10))
+            # the parts of the resorted route
+            ms_sort = S.cuda_ms(lambda: torch.argsort(
+                morton_keys(o, d), stable=True), 10)
+            order = torch.argsort(morton_keys(o, d), stable=True)
+            os_, ds_ = o[order], d[order]
+            shift = o.float().mean(dim=0)
+            ms_gather = S.cuda_ms(lambda: (o[order], d[order]), 10)
+            ms_prep = S.cuda_ms(lambda: CK.prepare_inputs(
+                os_, ds_, *geom, coherent=True, shift=shift), 10)
+            inp_res = CK.prepare_inputs(os_, ds_, *geom, coherent=True,
+                                        shift=shift)
+            inp_ray = CK.prepare_inputs(o, d, *geom, coherent=False)
+            ms_k_res = S.cuda_ms(lambda: CK.closest_hit_cuda(inp_res), 10)
+            ms_k_ray = S.cuda_ms(lambda: CK.closest_hit_cuda(inp_ray), 10)
+            ms_prep_ray = S.cuda_ms(lambda: CK.prepare_inputs(
+                o, d, *geom, coherent=False), 10)
+            r, s = (sum(ms_q[k]) / 2 for k in ("ray", "resort"))
+            total["ray"] += r
+            total["resort"] += s
+            row[qn] = {"ray_ms": ms_q["ray"], "resort_ms": ms_q["resort"],
+                       "hits": int(h_ray.hit.sum())}
+            print(f"{mesh} {qn}: hits equal bit for bit: {same} "
+                  f"({int(h_ray.hit.sum())} hits); ray "
+                  f"{ms_q['ray'][0]:.3f} / {ms_q['ray'][1]:.3f} ms, resort "
+                  f"{ms_q['resort'][0]:.3f} / {ms_q['resort'][1]:.3f} ms a "
+                  f"query. ray: stages {ms_prep_ray:.3f}, kernel "
+                  f"{ms_k_ray:.3f} (listed chunks "
+                  f"{int(inp_ray.count.sum())} over "
+                  f"{inp_ray.count.shape[0]} tiles). resort: keys and sort "
+                  f"{ms_sort:.3f}, two gathers {ms_gather:.3f}, stages with "
+                  f"the tile prepass {ms_prep:.3f}, kernel {ms_k_res:.3f} "
+                  f"(listed chunks {int(inp_res.count.sum())} over "
+                  f"{inp_res.count.shape[0]} tiles)", flush=True)
+        row["ray_ms"], row["resort_ms"] = total["ray"], total["resort"]
+        row["winner"] = "resort" if total["resort"] < total["ray"] else "ray"
+        print(f"{mesh}: both incoherent ray queries: ray "
+              f"{total['ray']:.3f} ms, resort {total['resort']:.3f} ms -> "
+              f"{row['winner']}", flush=True)
+        rows.append(row)
+    table = table or RESORT_TABLE
+    os.makedirs(os.path.dirname(os.path.abspath(table)), exist_ok=True)
+    with open(table, "w") as fh:
+        json.dump({"device": card, "script":
+                   "scripts/tune_torch_oracle.py --what resort",
+                   "rows": rows}, fh, indent=1)
+        fh.write("\n")
+    print(f"wrote {table}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--what", nargs="+", default=["tiles", "blocks", "gate"],
-                    choices=["tiles", "blocks", "gate"])
+                    choices=["tiles", "blocks", "gate", "resort"])
+    ap.add_argument("--table", default=None,
+                    help="where --what resort writes its table (default: "
+                         "reports/torch_resort_ab.json)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -172,6 +283,10 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip())
+    if "resort" in args.what:
+        resort_ab(torch.device("cuda", 0), smi.stdout.strip(), args.table)
+        if args.what == ["resort"]:
+            return
     queries = recorded_queries(torch.device("cuda", 0))
     if "tiles" in args.what:
         # blocks as large as the tile: BLOCK_RAYS = 256 divides none smaller

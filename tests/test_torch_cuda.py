@@ -179,3 +179,112 @@ def test_kernel_wrapper_raises_on_bad_input(dev):
     with pytest.raises(ValueError):
         CK.candidate_scores_cuda(inp.phi[6:9], inp.inv, inp.lo, inp.hi,
                                  cv.int(), T)
+
+
+# --- the routes and `optimize` on the card - ---------------------------------
+
+def test_resorted_route_equals_per_ray_route(dev, dog20k):
+    """Morton sort + tile prepass against the prepass kernel: the same hits
+    bit for bit, with one closest-hit launch each and no prepass launch on
+    the sorted route."""
+    from drt_tpu_torch.intersect import get_intersect_fn
+    ms = dog20k
+    o, d = _dog_rays(ms, 30001, 13, True, dev)
+    geom = (ms.vertices, ms.faces, ms.face_valid)
+    CK.counters.reset()
+    h_ray = get_intersect_fn("cuda", incoherent="ray")(
+        o, d, *geom, coherent=False)
+    assert (CK.counters.launches, CK.counters.candidates_launches) == (1, 1)
+    h_res = get_intersect_fn("cuda", incoherent="resort")(
+        o, d, *geom, coherent=False)
+    assert (CK.counters.launches, CK.counters.candidates_launches) == (2, 1)
+    assert int(h_ray.hit.sum()) > 2000
+    assert torch.equal(h_ray.tri_id, h_res.tri_id)
+    assert torch.equal(h_ray.t, h_res.t)
+
+
+def test_culled_backend_matches_kernel(dev, dog20k):
+    from drt_tpu_torch.intersect import get_intersect_fn
+    ms = dog20k
+    o, d = _dog_rays(ms, 8192, 14, False, dev)
+    geom = (ms.vertices, ms.faces, ms.face_valid)
+    h_k = get_intersect_fn("cuda")(o, d, *geom, coherent=True)
+    h_c = get_intersect_fn("culled")(o, d, *geom, coherent=True)
+    n_hit = int((h_k.hit | h_c.hit).sum())
+    assert n_hit > 2000
+    assert int((h_k.tri_id != h_c.tri_id).sum()) <= max(1, 2 * n_hit // 1024)
+    same = (h_k.tri_id == h_c.tri_id) & h_k.hit
+    torch.testing.assert_close(h_c.t[same], h_k.t[same], rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def sphere_capture(dev):
+    from drt_tpu_torch.data.synthetic import synthesize_capture
+    gt_v, gt_f = make_icosphere(subdivisions=4, radius=50.0)
+    cap = synthesize_capture(gt_v, gt_f, name="sphere", num_views=4,
+                             resy=96, resx=128, ior=1.5, num_view_used=4,
+                             device=dev)
+    return gt_v, gt_f, cap
+
+
+@pytest.mark.parametrize("one_shift", [False, True])
+def test_chunked_step_matches_unchunked(dev, sphere_capture, one_shift):
+    """One sgd + none step in chunks of 4,096 rays (3 chunks of the 12,288-
+    ray view) against the unchunked step from the same state, and the launch
+    counts of a backward that reruns the oracle. As the step runs it, each
+    chunk's oracle shifts the scene by its own mean ray origin, so a float32
+    shared-edge tie may fall the other way for a ray or two of the few
+    thousand: loss at rtol 1e-3, the raw gradient within 1e-2 of its largest
+    entry. With one shift handed to every query the chunking stands alone:
+    loss at rtol 1e-5, gradient within 1e-4 (float32 sums reassociated across
+    chunks; tests/test_torch_chunked.py holds float64 to 1e-10)."""
+    from drt_tpu_torch.intersect import get_intersect_fn
+    from drt_tpu_torch.optimize import LossWeights, make_train_step
+    gt_v, gt_f, cap = sphere_capture
+    v0, f0 = make_icosphere(subdivisions=3, radius=47.0)
+    ms = build_mesh_state(v0, f0, device=dev)
+    w = LossWeights(ray_w=40.0, vh_w=2e-3, sm_w=0.08, ior=1.5)
+    fn = get_intersect_fn("auto")
+    if one_shift:
+        shift = torch.zeros(3, device=dev)
+
+        def fn(o, d, v, f, fv=None, *, coherent):
+            return CK.intersect_cuda(o.detach(), d.detach(), v.detach(), f,
+                                     fv, coherent=coherent, shift=shift)
+    out = {}
+    for chunk, launches in ((0, (3 + 4, 2 + 4)),
+                            (4096, (2 * 3 * 3 + 4, 2 * 2 * 3 + 4))):
+        init, step, _ = make_train_step(fn, w, 96, 128, 1024,
+                                        grad_clamp=0.0, ray_chunk=chunk)
+        CK.counters.reset()
+        st, loss, _ = step(init(ms), 0.1, ms, cap.views, 1, [0, 1, 2, 3])
+        assert (CK.counters.launches,
+                CK.counters.candidates_launches) == launches
+        out[chunk] = (float(loss), st["m"])
+    (l0, g0), (l1, g1) = out[0], out[4096]
+    l_tol, g_tol = (1e-5, 1e-4) if one_shift else (1e-3, 1e-2)
+    assert abs(l1 - l0) <= l_tol * abs(l0)
+    assert float((g1 - g0).abs().max()) <= g_tol * float(g0.abs().max())
+
+
+def test_optimize_one_pass_with_remesh_on_the_card(dev, sphere_capture,
+                                                   tmp_path):
+    from drt_tpu_torch.config import HyperParams
+    from drt_tpu_torch.optimize import optimize
+    gt_v, gt_f, cap = sphere_capture
+    v0, f0 = make_icosphere(subdivisions=3, radius=47.0)
+    hp = HyperParams(name="sphere", ior=1.5, num_passes=1, iters=4,
+                     start_len=4.0, end_len=4.0, num_view=4,
+                     optimizer="uadam", precond="h1")
+    info = {}
+    CK.counters.reset()
+    out = optimize(hp, cap, v0, f0, remesh_fn="isotropic",
+                   checkpoint_dir=str(tmp_path), log_fn=lambda s: None,
+                   run_info=info, device=dev)
+    assert out.vertices.is_cuda and bool(torch.isfinite(out.vertices).all())
+    assert out.num_faces != len(f0) and info["remesh_failures"] == 0
+    assert CK.counters.launches == 4 * 11
+    assert os.listdir(tmp_path) == ["sphere_pass00.ply"]
+    v_ck, f_ck = load_ply(str(tmp_path / "sphere_pass00.ply"))
+    assert len(f_ck) == out.num_faces

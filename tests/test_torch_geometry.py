@@ -23,6 +23,10 @@ import drt_tpu_torch.geometry.vec as TV
 from drt_tpu.mesh import build_mesh_state
 from tests.meshes import make_icosphere
 
+# The test workers run side by side on few cores: torch's intra-op pool at
+# its default size oversubscribes them and slows every worker down.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 TOL = {np.float32: dict(rtol=2e-5, atol=2e-6),
        np.float64: dict(rtol=1e-10, atol=1e-12)}
 

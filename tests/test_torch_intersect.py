@@ -24,6 +24,10 @@ from drt_tpu_torch.intersect import get_intersect_fn, intersect_brute
 from tests.meshes import make_cube, make_icosphere
 from tests.test_culled import scene_rays
 
+# The test workers run side by side on few cores: torch's intra-op pool at
+# its default size oversubscribes them and slows every worker down.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 RADIUS = 50.0
 
 

@@ -15,6 +15,10 @@ import drt_tpu_torch.mesh as TMESH
 from drt_tpu_torch.convert import mesh_state_from_arrays
 from tests.meshes import make_icosphere
 
+# The test workers run side by side on few cores: torch's intra-op pool at
+# its default size oversubscribes them and slows every worker down.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 DOG20K = os.path.join(os.path.dirname(__file__), "..", "reports",
                       "tuning_meshes", "dog_mid20k.ply")
 FIELDS = ("vertices", "faces", "face_valid", "vert_valid", "edges",

@@ -28,6 +28,10 @@ from drt_tpu_torch.intersect import get_intersect_fn
 from drt_tpu_torch.mesh import build_mesh_state
 from tests.meshes import make_icosphere
 
+# The test workers run side by side on few cores: torch's intra-op pool at
+# its default size oversubscribes them and slows every worker down.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 RES = (24, 32)
 
 

@@ -25,6 +25,10 @@ from drt_tpu_torch.render.camera import CameraM as TCam
 from drt_tpu_torch.render.trace import render_transparent as t_render
 from tests.meshes import make_icosphere
 
+# The test workers run side by side on few cores: torch's intra-op pool at
+# its default size oversubscribes them and slows every worker down.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 IOR, EXT = 1.4723, 1.00029
 FIELDS = ("vertices", "faces", "face_valid", "vert_valid", "edges",
           "edge_valid", "edge_faces", "neighbors", "neighbor_valid",

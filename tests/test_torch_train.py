@@ -31,6 +31,10 @@ from drt_tpu_torch.render.silhouette import primary_visibility as t_vis
 from drt_tpu_torch.render.trace import render_transparent as t_render
 from tests.meshes import make_icosphere
 
+# The test workers run side by side on few cores: torch's intra-op pool at
+# its default size oversubscribes them and slows every worker down.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 RES = (20, 24)                 # (resy, resx)
 SILH = [0, 1, 2, 3]
 RAY_VIEWS = [1, 2]             # one per iteration
