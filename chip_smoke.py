@@ -79,16 +79,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
            at that pass's chunk count (128, 256, 512) and silhouette budget,
            goes through the checks of phase 4's queries (both kernels
            against their plain versions, the brute-force oracle); then
-           `resume=True` with one pass more runs exactly that pass.
-Then it prints the timings, a JSON line with both kernels' numbers, the
-card's name and power limit, and as its last line
-{"ok": true, "device": {...}}.
+           `resume=True` with one pass more runs exactly that pass;
+10. cli    the command line, `drt_tpu_torch.cli.main`, in a temporary
+           working directory: `reconstruct --data synthetic` of the dog
+           (dog_mid90k, 8 views at 1280x960, cached to .npz) from the hull
+           `--init carved` carves at 160^3, 2 passes x 10 steps from edge
+           length 3.0 to 1.8 (the 8-view hull's surface is larger than the
+           dog's: about 14k and 37k faces), with the closest-hit and
+           prepass launches reckoned from the synthesis (4 and 2 a view) and
+           the steps (11 and 10), a watertight carved hull and result, no
+           remesh failure, the native remesher; `carve_occupancy` of two of
+           its views on the card against the CPU (voxels flipped across 0.5
+           and the largest |dfield| printed and bounded), its device time a
+           view and its peak memory; `render` of the result at 512x512 (4
+           closest-hit launches, 3 PNGs, a mask that is not empty);
+           `evaluate` against dog_mid90k and `remesh` as `python3 -m
+           drt_tpu_torch.cli` subprocesses, run side by side; `carve` from 2
+           views; the h5 path (`save_h5_capture`, then `reconstruct --data
+           file.h5`) where h5py is installed, else a line that says it was
+           checked on the CPU only; and the time of each part, host clock
+           with synchronization.
+Then it prints the timings, a JSON line of phase 10's times, a JSON line
+with both kernels' numbers, the card's name and power limit, and as its last
+line {"ok": true, "device": {...}}.
 
 It needs the repository around it (drt_tpu_torch/, native/remesh.cpp and
-reports/tuning_meshes/), a CUDA GPU, nvcc and g++; it imports nothing of
-JAX.
+reports/tuning_meshes/), a CUDA GPU, nvcc, g++ and PIL (to decode phase 10's
+PNGs); it imports nothing of JAX.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -153,10 +173,15 @@ def t_conditioning(o, d, geom, ids):
 def compare_hits(name, ref_t, ref_id, t, ids, cond=None):
     """Tie tolerance on tri_id (counted against the rays either side hits,
     so dropped hits cannot hide among misses), rtol/atol on t; returns max
-    |dt| on rays with the same id. `cond` [n] (t_conditioning) widens each
-    ray's tolerance on t by what float32 can resolve of that hit, and sets
-    apart the rays on which the two sides name different triangles at one t
-    within that tolerance: up to 4 times the tie allowance of them."""
+    |dt| on rays with the same id. `cond` [n] (t_conditioning of the
+    triangle the side that hits names) widens each ray's tolerance on t by
+    what float32 can resolve of that hit, and sets apart the rays float32
+    cannot decide: the two sides name different triangles at one t within
+    that tolerance, or one side hits at a t within it of 0 and the other
+    misses (a ray that starts on the triangle, as an exit query's nudged
+    origins do, whose t has the sign of its rounding). Up to 4 times the tie
+    allowance of those."""
+    import torch
     n = ref_id.numel()
     differ = ref_id != ids
     n_hit = int(((ref_id >= 0) | (ids >= 0)).sum())
@@ -167,12 +192,14 @@ def compare_hits(name, ref_t, ref_id, t, ids, cond=None):
         # wrong, and an exit query has about 2 such per 1,024 hits
         near = (differ & (ref_id >= 0) & (ids >= 0)
                 & ((t - ref_t).abs() <= 1e-4 + 1e-5 * ref_t.abs() + cond))
-        ties = int(near.sum())
-        differ = differ & ~near
+        at_origin = (differ & ((ref_id >= 0) != (ids >= 0))
+                     & (torch.where(ids >= 0, t, ref_t) <= 1e-4 + cond))
+        ties = int((near | at_origin).sum())
+        differ = differ & ~(near | at_origin)
     bad = int(differ.sum())
     if bad > allowed or ties > 4 * allowed:
-        fail(f"{name}: {bad} tri_ids differ and {ties} more at one t, "
-             f"{n_hit} rays hit")
+        fail(f"{name}: {bad} tri_ids differ and {ties} more at one t or at "
+             f"the origin, {n_hit} rays hit")
     same = (ref_id == ids) & (ids >= 0)
     dt = (t[same] - ref_t[same]).abs()
     tol = 1e-4 + 1e-5 * ref_t[same].abs()
@@ -194,8 +221,8 @@ def compare_hits(name, ref_t, ref_id, t, ids, cond=None):
     if loose > max(1, TIE_PER_1024 * int(same.sum()) // 1024) or worst > 1e-2:
         fail(f"{name}: {loose} t beyond {what}, max |dt| {err:g}")
     print(f"{name}: {n} rays, {int(same.sum())} hits, {bad} tri_id "
-          f"mismatches and {ties} more at one t, {loose} t beyond {what}, "
-          f"max |dt| {err:g}")
+          f"mismatches and {ties} more at one t or at the origin, {loose} t "
+          f"beyond {what}, max |dt| {err:g}")
     return err
 
 
@@ -351,9 +378,10 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
         idx = torch.cat([idx, hit_idx[pick.to(o.device)]]).unique()
         what = f"{BRUTE_SAMPLE} sample and {pick.numel()} of the hits"
     hb = intersect_brute(o[idx], d[idx], *geom)
+    hit_id = torch.where(id_k[idx] >= 0, id_k[idx], hb.tri_id)
     compare_hits(f"{name} kernel vs brute ({what})", hb.t, hb.tri_id,
                  t_k[idx], id_k[idx],
-                 cond=t_conditioning(o[idx], d[idx], geom, id_k[idx]))
+                 cond=t_conditioning(o[idx], d[idx], geom, hit_id))
     ms_k = cuda_ms(lambda: CK.closest_hit_cuda(inp), 20)
     if plain_reps:
         ms_p = cuda_ms(lambda: CK.closest_hit_plain(inp), plain_reps)
@@ -567,6 +595,289 @@ def small_reference_check(dev):
         fail("small: valid rays differ between the card and the CPU")
     if abs(l_g - l_r) > 1e-7 * abs(l_r) or dg > 1e-6 * g_max:
         fail("small: loss or gradient differs between the card and the CPU")
+
+
+@contextlib.contextmanager
+def timed(module, name, log, wrap=None):
+    """Replace module.name, for the duration, by a wrapper that appends
+    (seconds, result) of each call to `log`, the card synchronized on both
+    sides; wrap(args, kwargs) may adjust the arguments first."""
+    import torch
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        if wrap is not None:
+            args, kwargs = wrap(args, kwargs)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append((time.time() - t0, out))
+        return out
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
+              lens=(3.0, 1.8)):
+    """Phase 10: the command line on `dev` (see the module docstring).
+    Returns (closest-hit launches, prepass launches, timings)."""
+    import numpy as np
+    import torch
+    import drt_tpu_torch.data as D
+    import drt_tpu_torch.data.carve as CV
+    import drt_tpu_torch.optimize as OPT
+    from drt_tpu_torch.cli import main as cli
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    from drt_tpu_torch.intersect.api import _auto_incoherent
+    from drt_tpu_torch.mesh import load_ply
+    from drt_tpu_torch.mesh.state import _bucket
+    from drt_tpu_torch.mesh.topology import build_topology
+
+    def watertight(label, v, f):
+        if (not np.isfinite(v).all() or len(f) == 0
+                or not build_topology(np.asarray(f), len(v)).is_watertight):
+            fail(f"cli: {label} is not a finite watertight mesh")
+
+    dog90 = gt_mesh
+    passes, iters = 2, 10
+    dev_args = ["--device", str(dev)]
+    tm = {}
+    old_cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            # -- reconstruct ------------------------------------------------
+            synth, saves, occ, hull, opt, info = [], [], [], [], [], {}
+
+            def with_info(args, kwargs):
+                kwargs["run_info"] = info
+                return args, kwargs
+            argv = ["reconstruct", "--name", "dog", "--data", "synthetic",
+                    "--gt-mesh", dog90, "--views", str(views),
+                    "--num-view", str(views), "--resy", str(RES[0]),
+                    "--resx", str(RES[1]), "--init", "carved",
+                    "--carve-res", str(carve_res), "--passes", str(passes),
+                    "--iters", str(iters), "--start-len", str(lens[0]),
+                    "--end-len", str(lens[1]), *dev_args]
+            torch.cuda.synchronize()
+            CK.counters.reset()                  # main path starts here
+            t0 = time.time()
+            with timed(D, "synthesize_capture", synth), \
+                    timed(np, "savez_compressed", saves), \
+                    timed(CV, "carve_occupancy", occ), \
+                    timed(CV, "carved_visual_hull", hull), \
+                    timed(OPT, "optimize", opt, with_info):
+                cli(argv)
+            torch.cuda.synchronize()
+            tm["reconstruct_s"] = time.time() - t0
+            launches = CK.counters.launches      # main path ends here
+            cand = CK.counters.candidates_launches
+            cap = synth[0][1]
+            tm["cache_write_s"] = saves[0][0]
+            tm["synthesis_s"] = synth[0][0] - saves[0][0]
+            tm["carve_occupancy_s"] = occ[0][0]
+            tm["carve_occupancy_ms_per_view"] = occ[0][0] / views * 1e3
+            tm["carve_host_s"] = hull[0][0] - occ[0][0]
+            tm["optimize_s"] = opt[0][0]
+            tm["passes"] = [{k: p[k] for k in ("faces", "budget", "remesh_s",
+                                               "steps_s")}
+                            for p in info["passes"]]
+            hv, hf = hull[0][1]
+            watertight("the carved hull", hv, hf)
+            if info["remesh_failures"] or info["remesher"] != "native":
+                fail(f"cli: remesh health {info}")
+            gt_faces = len(load_ply(dog90)[1])
+            syn_cand = 2 if _auto_incoherent(_bucket(gt_faces)) == "ray" else 0
+            step_cand = sum(iters * 10 for p in info["passes"]
+                            if _auto_incoherent(_bucket(p["faces"])) == "ray")
+            expect = (views * 4 + passes * iters * 11,
+                      views * syn_cand + step_cand)
+            print(f"cli: reconstruct: {launches} closest-hit and {cand} "
+                  f"prepass launches, expected {expect[0]} and {expect[1]} "
+                  f"({views} views x 4 / {syn_cand} in the synthesis, "
+                  f"{passes * iters} steps x 11 / 10)")
+            if (launches, cand) != expect:
+                fail(f"cli: reconstruct launches {(launches, cand)}, "
+                     f"expected {expect}")
+            recons = os.path.join("result", "dog_recons.ply")
+            rv, rf = load_ply(recons)
+            watertight("dog_recons.ply", rv, rf)
+            if len(rf) != info["passes"][-1]["faces"]:
+                fail("cli: dog_recons.ply is not the last pass's mesh")
+            print(f"cli: carved hull {len(hv)} vertices / {len(hf)} faces; "
+                  f"passes {tm['passes']}; result {len(rf)} faces")
+
+            # -- carve_occupancy of two views, card against CPU -------------
+            lo, hi = CV.rig_working_volume(cap)
+            v2 = cap.views
+            args2 = (v2.mask[:2], v2.R[:2], v2.K[:2], lo, hi, carve_res)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            fk, sk, _, _ = CV.carve_occupancy(*args2, device=dev)
+            torch.cuda.synchronize()
+            tm["carve_occupancy_2v_card_s"] = time.time() - t0
+            tm["carve_occupancy_peak_gib"] = (
+                torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            # a view's device time: the kernels' sum over a call of all
+            # views (the call's host clock is mostly the host's grid)
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                CV.carve_occupancy(v2.mask, v2.R, v2.K, lo, hi, carve_res,
+                                   device=dev)
+            dev_us = sum(getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+                         for e in prof.key_averages())
+            tm["carve_occupancy_view_ms"] = (dev_us / 1e3 / views if dev_us
+                                             else "not measured")
+            t0 = time.time()
+            fc, sc, _, _ = CV.carve_occupancy(
+                *(a.cpu() for a in args2[:3]), *args2[3:], device="cpu")
+            tm["carve_occupancy_2v_cpu_s"] = time.time() - t0
+            flipped = (fk > 0.5) != (fc > 0.5)
+            n_flip, dfield = int(flipped.sum()), float(np.abs(fk - fc).max())
+            band = (float(np.abs(fc[flipped] - 0.5).max()) if n_flip
+                    else 0.0)
+            print(f"cli: carve_occupancy card against CPU, 2 views at "
+                  f"{carve_res}^3: {n_flip} of {fk.size} voxels flipped "
+                  "across 0.5 "
+                  f"(farthest {band:g} from it), max |dfield| {dfield:g}, "
+                  f"seen differs on {int((sk != sc).sum())}; "
+                  f"{tm['carve_occupancy_2v_card_s']:.3f} s card, "
+                  f"{tm['carve_occupancy_2v_cpu_s']:.3f} s CPU, device "
+                  f"time {tm['carve_occupancy_view_ms']} ms a view "
+                  "(torch.profiler), "
+                  f"peak memory {tm['carve_occupancy_peak_gib']:.3f} GiB "
+                  "above what was allocated before")
+            if (dfield > 1e-6 or n_flip > 1e-4 * fk.size or band > 1e-5
+                    or (sk != sc).any()):
+                fail("cli: carve_occupancy differs between card and CPU")
+            tm["carve_flipped"], tm["carve_max_dfield"] = n_flip, dfield
+
+            # -- render ------------------------------------------------------
+            CK.counters.reset()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            cli(["render", "--mesh", recons, "--out-dir", "renders",
+                 "--res", str(render_res), *dev_args])
+            torch.cuda.synchronize()
+            tm["render_s"] = time.time() - t0
+            r_launch = CK.counters.launches
+            pngs = sorted(os.listdir("renders"))
+            if pngs != ["dog_recons_exitdir.png", "dog_recons_mask.png",
+                        "dog_recons_valid.png"] or r_launch != 4:
+                fail(f"cli: render wrote {pngs} with {r_launch} launches")
+            # decoded by PIL, a decoder of its own (the port writes its PNGs
+            # with zlib and struct)
+            from PIL import Image
+            mask = np.asarray(Image.open(
+                os.path.join("renders", "dog_recons_mask.png")))
+            exitdir = np.asarray(Image.open(
+                os.path.join("renders", "dog_recons_exitdir.png")))
+            if (mask.shape != (render_res,) * 2
+                    or exitdir.shape != (render_res, render_res, 3)):
+                fail(f"cli: render shapes {mask.shape}, {exitdir.shape}")
+            covered = int((mask == 255).sum())
+            if not 0 < covered < mask.size:
+                fail(f"cli: render mask covers {covered} pixels")
+            print(f"cli: render {render_res}x{render_res}: {r_launch} "
+                  "closest-hit launches, "
+                  f"mask covers {covered} pixels, {tm['render_s']:.2f} s")
+
+            # -- evaluate and remesh through `python3 -m`, side by side ------
+            env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+            t0 = time.time()
+            procs = {label: subprocess.Popen(
+                [sys.executable, "-m", "drt_tpu_torch.cli", *sub], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for label, sub in (
+                    ("evaluate", ["evaluate", "--mesh", recons, "--gt",
+                                  dog90]),
+                    ("remesh", ["remesh", "--mesh", recons, "--out",
+                                "remeshed.ply", "--target-len", "2.0"]))}
+            try:
+                outs = {label: p.communicate(timeout=300)
+                        for label, p in procs.items()}
+            finally:
+                for p in procs.values():
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            tm["evaluate_remesh_subprocesses_s"] = time.time() - t0
+            for label, (out, err) in outs.items():
+                if (procs[label].returncode != 0
+                        or ("mean=" if label == "evaluate" else " -> ")
+                        not in out):
+                    fail(f"cli: {label} exited {procs[label].returncode}: "
+                         f"{out[-500:]} {err[-2000:]}")
+                print(f"cli: python3 -m drt_tpu_torch.cli {label}: "
+                      f"{out.strip()}")
+            print(f"cli: both interpreters, run side by side, "
+                  f"{tm['evaluate_remesh_subprocesses_s']:.1f} s")
+            watertight("remeshed.ply", *load_ply("remeshed.ply"))
+
+            # -- carve from 2 views ------------------------------------------
+            t0 = time.time()
+            cli(["carve", "--name", "dog", "--data", "synthetic",
+                 "--gt-mesh", dog90, "--views", "2", "--resy", str(RES[0]),
+                 "--resx", str(RES[1]), "--carve-res", str(carve_res),
+                 "--out", "carved2.ply", *dev_args])
+            tm["carve_2v_s"] = time.time() - t0
+            watertight("carved2.ply", *load_ply("carved2.ply"))
+
+            # -- the h5 path -------------------------------------------------
+            import importlib.util
+            have = {m: importlib.util.find_spec(m) is not None
+                    for m in ("h5py", "imageio", "PIL")}
+            print(f"cli: python {sys.version.split()[0]}, torch "
+                  f"{torch.__version__} (CUDA {torch.version.cuda}); "
+                  f"installed: {have}")
+            tm["installed"] = have
+            try:
+                import h5py  # noqa: F401
+            except ImportError:
+                print("cli: h5py is not installed here: the h5 path "
+                      "(load_h5_capture, save_h5_capture, reconstruct --data "
+                      "file.h5) was checked on the CPU only "
+                      "(tests/test_torch_captured.py, "
+                      "tests/test_torch_cli.py)")
+                tm["h5"] = "not installed"
+            else:
+                from drt_tpu_torch.data.captured import save_h5_capture
+                from drt_tpu_torch.data.views import CaptureData, ViewBatch
+                two = CaptureData(name="dog", resy=cap.resy, resx=cap.resx,
+                                  num_views=2,
+                                  views=ViewBatch(*(x[:2] for x in v2)),
+                                  num_view_used=2)
+                save_h5_capture(two, "dog.h5")
+                t0 = time.time()
+                cli(["reconstruct", "--name", "dog", "--data", "dog.h5",
+                     "--init", "carved", "--carve-res", str(carve_res),
+                     "--passes", "1", "--iters", "2", "--start-len",
+                     str(lens[0]), "--result-dir", "h5", *dev_args])
+                tm["h5"] = time.time() - t0
+                watertight("the h5 result",
+                           *load_ply(os.path.join("h5", "dog_recons.ply")))
+        finally:
+            os.chdir(old_cwd)
+    passes_txt = [(round(p["remesh_s"], 2), round(p["steps_s"], 2))
+                  for p in tm["passes"]]
+    print(f"cli: synthesis {tm['synthesis_s']:.2f} s, cache write "
+          f"{tm['cache_write_s']:.2f} s, carve_occupancy "
+          f"{tm['carve_occupancy_ms_per_view']:.1f} ms a view "
+          f"({tm['carve_occupancy_s']:.2f} s for {views}), host carve "
+          f"{tm['carve_host_s']:.2f} s, passes (remesh s, steps s) "
+          f"{passes_txt}, "
+          f"render {tm['render_s']:.2f} s, reconstruct "
+          f"{tm['reconstruct_s']:.2f} s")
+    return launches, cand, tm
 
 
 def main():
@@ -968,9 +1279,15 @@ def main():
             fail(f"lod: resume ran passes {info2['passes']}")
         print(f"lod: resume ran pass 3 alone: {out2.num_faces} faces, "
               f"{time.time() - t0:.2f} s")
+    # -- 10. the command line -------------------------------------------------
+    t0 = time.time()
+    cli_launches, cli_cand, cli_times = cli_phase(
+        dev, RES, os.path.join(MESH_DIR, "dog_mid90k.ply"))
+    cli_times["phase_s"] = time.time() - t0
+
     launches_train, cand_train = launches, cand_launches
-    launches += lod_launches
-    cand_launches += lod_cand
+    launches += lod_launches + cli_launches
+    cand_launches += lod_cand + cli_cand
 
     cam_r = results["camera"]
     pre = {k: r["prepass"] for k, r in results.items() if "prepass" in r}
@@ -983,6 +1300,7 @@ def main():
         "launches": launches,
         "launches_train": launches_train,
         "launches_lod": lod_launches,
+        "launches_cli": cli_launches,
         "launches_per_step": per_step,
         "shape": "camera rays 1280x960 on dog_mid90k",
         "max_abs_err": max(r["err"] for r in results.values()),
@@ -999,6 +1317,7 @@ def main():
         "launches": cand_launches,
         "launches_train": cand_train,
         "launches_lod": lod_cand,
+        "launches_cli": cli_cand,
         "launches_per_step": per_step_prepass,
         "shape": "bounce-2 rays 1280x960 on dog_mid45k",
         "max_abs_err": max(r["err"] for r in pre.values()),
@@ -1011,6 +1330,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
+    print(json.dumps({"cli": cli_times}))
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
           else f"nvidia-smi failed: {smi.stderr.strip()}")

@@ -5,22 +5,28 @@ is found by path. Plain tensor code is PyTorch autograd; the hand-written
 kernels are the closest-hit oracle's (`intersect/cuda_kernel.py`:
 `csrc/closest_hit.cu` and the candidate prepass `csrc/candidates.cu`).
 Entry points that create tensors (`build_mesh_state`,
-`stack_views`, `synthesize_capture`) default to `device="cuda"`; the tests
-pass `device="cpu"`, where every kernel wrapper runs its plain version.
+`stack_views`, `synthesize_capture`, `load_h5_capture`, `carve_occupancy`,
+`optimize`, and the command line's `--device`) default to `"cuda"`; the
+tests pass `"cpu"`, where every kernel wrapper runs its plain version.
 
 Layer map:
+    cli         the command line, `python -m drt_tpu_torch.cli`:
+                reconstruct, evaluate, render, carve, remesh
     geometry/   differentiable optics and mesh metrics
     mesh/       PLY IO, topology extraction, padded mesh state
     intersect/  the non-differentiable hit oracle (brute / culled / cuda,
                 and the Morton re-sort route for incoherent queries)
     render/     2-bounce refraction trace, silhouette edge sampling, cameras,
                 ray chunking
-    data/       view containers and the synthetic capture generator
+    data/       view containers, the synthetic capture generator, the h5
+                capture loader and writer (`captured`), and space carving
+                of a first mesh from the silhouettes (`carve`: occupancy on
+                the device, cleanup and surface nets on the host)
     optimize/   losses, schedules, preconditioners, the train step and the
                 LOD loop (`optimize`)
     remesh/     host-side isotropic remeshing (numpy + the C++ core in
                 native/) and Hausdorff evaluation
-    utils/      metrics logger and profiler helper
+    utils/      metrics logger, profiler helper, image output (`images`)
 """
 
 import torch

@@ -7,6 +7,7 @@ state. Default values mirror the reference exactly (config.py:18-40).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 
@@ -101,3 +102,12 @@ POINTGRAY_OBJECTS = ("hand", "mouse", "dog", "monkey")
 # Capture resolutions (reference: captured_data.py:90-91, 131-132)
 POINTGRAY_RES = (960, 1280)   # (resy, resx)
 REDMI_RES = (1080, 1920)
+
+# The reference checkout's data directory ({name}_scan.ply ground truths,
+# {name}_vh.ply hulls). The JAX package's DEFAULT_DATA_PATH fixes it under
+# the root user's home; the port looks under the home of whoever runs it,
+# which is the same directory for root. Only the CLI reads it (a synthetic
+# capture without --gt-mesh, --init upstream, and the closing Hausdorff
+# evaluation where the scan exists).
+DEFAULT_DATA_PATH = os.path.join(os.path.expanduser("~"), "reference", "data",
+                                 "")

@@ -288,3 +288,51 @@ def test_optimize_one_pass_with_remesh_on_the_card(dev, sphere_capture,
     assert os.listdir(tmp_path) == ["sphere_pass00.ply"]
     v_ck, f_ck = load_ply(str(tmp_path / "sphere_pass00.ply"))
     assert len(f_ck) == out.num_faces
+
+
+def test_carve_occupancy_card_matches_cpu(dev, sphere_capture):
+    """The occupancy of the sphere capture's views on the card against the
+    CPU: field within 1e-6, `seen` equal, at most 1 in 10^4 voxels on the
+    other side of 0.5 and each within 1e-5 of it. The projection and blend
+    are elementwise with their roundings pinned, so neither a matmul order
+    nor TF32 can move them: the flag stays off, and turning it on changes
+    nothing."""
+    from drt_tpu_torch.data.carve import carve_occupancy, rig_working_volume
+    _, _, cap = sphere_capture
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    lo, hi = rig_working_volume(cap)
+    v = cap.views
+    fk, sk, _, _ = carve_occupancy(v.mask, v.R, v.K, lo, hi, 96, device=dev)
+    fc, sc, _, _ = carve_occupancy(v.mask.cpu(), v.R.cpu(), v.K.cpu(), lo,
+                                   hi, 96, device="cpu")
+    np.testing.assert_array_equal(sk, sc)
+    assert float(np.abs(fk - fc).max()) <= 1e-6
+    flipped = (fk > 0.5) != (fc > 0.5)
+    assert int(flipped.sum()) <= 1e-4 * fk.size
+    if flipped.any():
+        assert float(np.abs(fc[flipped] - 0.5).max()) <= 1e-5
+    assert 0 < int((fk > 0.5).sum()) < fk.size
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ft, _, _, _ = carve_occupancy(v.mask, v.R, v.K, lo, hi, 96,
+                                      device=dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    np.testing.assert_array_equal(ft, fk)
+
+
+def test_cli_render_on_the_card(dev, tmp_path, capsys):
+    """`render` through the kernel: 4 closest-hit launches (mask, two
+    bounces, exit) and three PNGs."""
+    from drt_tpu_torch.cli import main
+    from drt_tpu_torch.mesh import save_ply
+    v, f = make_icosphere(subdivisions=3, radius=40.0)
+    src = str(tmp_path / "ball.ply")
+    save_ply(src, v, f)
+    CK.counters.reset()
+    main(["render", "--mesh", src, "--res", "64", "--backend", "cuda",
+          "--out-dir", str(tmp_path / "img")])
+    assert CK.counters.launches == 4
+    assert sorted(os.listdir(tmp_path / "img")) == [
+        "ball_exitdir.png", "ball_mask.png", "ball_valid.png"]
+    assert "wrote ball_mask/valid/exitdir.png" in capsys.readouterr().out

@@ -72,7 +72,12 @@ def test_hyperparams_mirror_the_jax_package():
     for name in ("REDMI_OBJECTS", "POINTGRAY_OBJECTS", "POINTGRAY_RES",
                  "REDMI_RES"):
         assert getattr(TC, name) == getattr(JC, name)
-    assert not hasattr(TC, "DEFAULT_DATA_PATH")
+    # the reference data directory: the JAX package's fixed path, the port's
+    # under the home of whoever runs it (only the CLI reads it)
+    assert os.path.basename(os.path.dirname(
+        os.path.dirname(TC.DEFAULT_DATA_PATH))) == "reference"
+    assert TC.DEFAULT_DATA_PATH.endswith(os.sep + "data" + os.sep)
+    assert JC.DEFAULT_DATA_PATH.endswith("/reference/data/")
 
 
 def test_optimize_matches_jax_package_in_float64(monkeypatch):
