@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-1. build   both kernels (closest hit, candidate prepass) from
+1. build   both kernels (closest hit; candidate prepass with its sort) from
            drt_tpu_torch/csrc with nvcc, one compile per source in
            parallel; prints each kernel's registers, shared memory and
            spills and fails on a spill to local memory;
@@ -23,9 +23,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
            shift (the mean ray origin, as in the JAX package) lies far from
            the mesh, as it does when most lanes are parked: an exit query's
            t is then off by up to 3e-3 on grazing hits. The kernel and its
-           plain version round alike and must agree bit for bit. On each incoherent query
-           the prepass kernel must also give the candidate lists and counts
-           of its plain version `_candidates` exactly;
+           plain version round alike and must agree bit for bit. On each
+           query the prepass kernel must give the whole candidate lists and
+           counts of its plain version exactly: `_candidates` (ray mode) on
+           an incoherent query, `_candidates_tile` (tile mode) on a
+           coherent one; its time, its bound and the time of the torch
+           stages it replaced are printed;
 3. small   the full loss and gradient on a small icosphere (float64), on
            the card against the CPU: valid rays within the tie tolerance
            with each device's own oracle, and, with the card's hits
@@ -41,9 +44,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. train   3 reference-parity steps (sgd, precond none, HyperParams()
            weights, float32) from dog_mid45k: one ray view and 8 silhouette
            views per step, 11 oracle queries per step, each through the
-           closest-hit kernel and the 10 incoherent ones through the prepass
-           kernel too (the launch counters are reset just before and read
-           just after);
+           prepass kernel and the closest-hit kernel (the launch counters
+           are reset just before and read just after); then one more step
+           under torch.profiler, each query in a range: fails if the
+           oracle launched a sort kernel;
 6. steps   from dog_mid45k, 2 steps each of adam + none, uadam + h1 and
            sgd + sobolev: finite loss and vertices, and the launch counts
            reckoned from the weights (a zero weight skips its term, so h1's
@@ -64,18 +68,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
            their oracle queries in the backward, and the counts say so;
            peak memory of both;
 8. routes  the bounce-2 and exit queries of phase 4 through
-           incoherent="resort" (Morton sort + tile prepass) against "ray"
-           (the prepass kernel): tri_id and t equal bit for bit, ms of
-           both; and the `culled` backend against the kernel on 65,536-ray
-           samples within phase 2's tie allowance;
+           incoherent="resort" (Morton sort + the prepass kernel's tile
+           mode) against "ray" (its ray mode): tri_id and t equal bit for
+           bit, one launch of each kernel a query, ms of both; and the
+           `culled` backend against the kernel on 65,536-ray samples
+           within phase 2's tie allowance;
 9. lod     `optimize`, the LOD loop, on the phase-4 capture from
            dog_mid20k: 3 passes of 10 steps, remeshed by the isotropic
            remesher from edge length 2.5 to 1.5, checkpoints into a
            temporary directory; 3 loadable watertight checkpoints whose
            face counts differ, no remesh failure, finite losses, 11
-           closest-hit launches a step and the prepass launches of the
-           route `get_intersect_fn` takes for each pass's mesh, by the
-           remesher's native core; each pass's checkpoint, a remeshed mesh
+           closest-hit and 11 prepass launches a step, by the remesher's
+           native core; each pass's checkpoint, a remeshed mesh
            at that pass's chunk count (128, 256, 512) and silhouette budget,
            goes through the checks of phase 4's queries (both kernels
            against their plain versions, the brute-force oracle); then
@@ -86,13 +90,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
            `--init carved` carves at 160^3, 2 passes x 10 steps from edge
            length 3.0 to 1.8 (the 8-view hull's surface is larger than the
            dog's: about 14k and 37k faces), with the closest-hit and
-           prepass launches reckoned from the synthesis (4 and 2 a view) and
-           the steps (11 and 10), a watertight carved hull and result, no
+           prepass launches reckoned from the synthesis (4 each a view) and
+           the steps (11 each), a watertight carved hull and result, no
            remesh failure, the native remesher; `carve_occupancy` of two of
            its views on the card against the CPU (voxels flipped across 0.5
            and the largest |dfield| printed and bounded), its device time a
            view and its peak memory; `render` of the result at 512x512 (4
-           closest-hit launches, 3 PNGs, a mask that is not empty);
+           launches of each kernel, 3 PNGs, a mask that is not empty);
            `evaluate` against dog_mid90k and `remesh` as `python3 -m
            drt_tpu_torch.cli` subprocesses, run side by side; `carve` from 2
            views; the h5 path (`save_h5_capture`, then `reconstruct --data
@@ -286,60 +290,90 @@ def kernel_bound(inp, C, t_hit):
             else "bytes", visits, pairs_all * C, nbytes, t_ops, tile_pairs)
 
 
-def prepass_bound(n_rays, n_tiles, n_chunks, n_valid):
-    """Least time for one launch of the prepass kernel: every ray against
-    every valid chunk, 6 subtractions, 6 multiplies and 10 min/max a pair
-    (unfused, at half the FP32 FLOP/s peak), against the bytes: origins and
-    inverse directions and the boxes read once, T x NC scores written."""
-    ops = n_rays * n_valid * 22 * 2
-    nbytes = n_rays * 6 * 4 + n_chunks * 25 + n_tiles * n_chunks * 4
+def prepass_bound(n_rays, n_tiles, n_chunks, n_valid, tile, count):
+    """Least time for one launch of the prepass kernel. Operations (unfused,
+    at half the FP32 FLOP/s peak): ray mode, every ray against every valid
+    chunk, 20 a pair: 6 subtractions and 6 multiplies for the three planes
+    the ray meets first and the three it meets last (its direction octant
+    says which), 4 min/max for the entry and the exit, 2 compares and a
+    select for the overlap test, 1 min for the running minimum; tile mode,
+    the tile's 12 interval ends (12 min/max a ray) and, per (tile, valid
+    chunk), 12 subtractions, 24 multiplies and 36 min/max for the interval
+    products, then 10 min/max for the entry and the exit, 2 compares and a
+    select for the test and 1 max for the score; both, F log2 F compares to
+    sort the F candidates of each tile (`count` [T], this run's). Bytes:
+    origins, inverse directions and the boxes read once, the T x NC lists
+    and T counts written."""
+    import torch
+    if tile:
+        ops = n_rays * 12 + n_tiles * n_valid * 86
+    else:
+        ops = n_rays * n_valid * 20
+    f = count.double()
+    ops += float((f * torch.log2(f.clamp(min=1))).sum())
+    ops *= 2
+    nbytes = n_rays * 6 * 4 + n_chunks * 25 + n_tiles * (n_chunks + 1) * 4
     t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes")
 
 
-def check_prepass(name, o, geom, inp):
-    """The prepass kernel against its plain version on one incoherent
-    query's own inputs: scores, counts and the listed part of every
-    candidate list equal; then both times and the sort's."""
+def check_prepass(name, o, geom, inp, coherent):
+    """The prepass kernel against its plain version on one query's own
+    inputs (`_candidates` for an incoherent query, `_candidates_tile` for
+    a coherent one): the whole [T,NC] lists and the counts equal, and
+    equal to what `prepare_inputs` got from the kernel. Then the kernel's
+    time and its bound, and the times on the card of the torch stages it
+    replaces: the stable sort and count over the plain scores (ray mode),
+    the whole `_candidates_tile` (tile mode)."""
     import torch
     from drt_tpu_torch.intersect import cuda_kernel as CK
     T, NC = inp.cand.shape
     _, _, cv = CK._chunk_aabbs(*geom, o.float().mean(dim=0), CK.TRI_CHUNK)
     org = inp.phi[6:9]
+    RT = org.shape[1] // T
     args = (org, inp.inv, inp.lo, inp.hi, cv, T)
-    score_k = CK.candidate_scores_cuda(*args)
+    cand_k, count_k = CK.candidates_cuda(*args, tile=coherent)
     torch.cuda.synchronize()
+    ot = org.reshape(3, T, RT).permute(1, 0, 2)
+    dt = inp.phi[0:3].reshape(3, T, RT).permute(1, 0, 2)
+    plain = CK._candidates_tile if coherent else CK._candidates
     t0 = time.time()
-    score_p = CK.candidate_scores_plain(*args)
+    cand_p, count_p = plain(ot, dt, inp.lo, inp.hi, cv)
     torch.cuda.synchronize()
     ms_p = (time.time() - t0) * 1e3
-    cand_k, count_k = CK._sorted_candidates(score_k)
-    RT = org.shape[1] // T
-    cand_p, count_p = CK._candidates(
-        org.reshape(3, T, RT).permute(1, 0, 2),
-        inp.phi[0:3].reshape(3, T, RT).permute(1, 0, 2), inp.lo, inp.hi, cv)
-    listed = (torch.arange(NC, device=org.device) < count_p[:, None])
-    finite = torch.isfinite(score_p)
-    err = (float((score_k[finite] - score_p[finite]).abs().max())
-           if finite.any() else 0.0)
-    same = bool((score_k == score_p).all() and torch.equal(count_k, count_p)
-                and torch.equal(cand_k[listed], cand_p[listed])
+    same = bool(torch.equal(count_k, count_p) and torch.equal(cand_k, cand_p)
                 and torch.equal(cand_k, inp.cand)
                 and torch.equal(count_k, inp.count))
-    print(f"{name} prepass kernel vs plain: scores, counts and lists "
-          f"equal: {same} (max |dscore| {err:g})")
+    # chunk indices and counts are integers: the largest difference
+    err = float(max((cand_k.long() - cand_p.long()).abs().max(),
+                    (count_k.long() - count_p.long()).abs().max()))
+    mode = "tile" if coherent else "ray"
+    print(f"{name} prepass kernel ({mode} mode) vs plain: whole lists and "
+          f"counts equal: {same} (largest difference {err:g})")
     if not same:
-        fail(f"{name}: the prepass kernel differs from _candidates")
-    ms_k = cuda_ms(lambda: CK.candidate_scores_cuda(*args), 20)
-    ms_s = cuda_ms(lambda: CK._sorted_candidates(score_k), 5)
-    bound, bound_by = prepass_bound(org.shape[1], T, NC, int(cv.sum()))
-    print(f"{name} prepass: {T} tiles of {RT} x {NC} chunks "
-          f"({int(cv.sum())} valid), kernel {ms_k:.3f} ms, plain "
-          f"{ms_p:.3f} ms, sort and count {ms_s:.3f} ms, bound "
-          f"{bound:.3f} ms ({bound_by})")
+        fail(f"{name}: the prepass kernel differs from its plain version")
+    ms_k = cuda_ms(lambda: CK.candidates_cuda(*args, tile=coherent), 20)
+    if coherent:
+        ms_r = cuda_ms(lambda: plain(ot, dt, inp.lo, inp.hi, cv), 5)
+        replaced = "_candidates_tile in torch"
+    else:
+        score_p = CK.candidate_scores_plain(*args)
+        ms_r = cuda_ms(lambda: CK._sorted_candidates(score_p), 5)
+        replaced = "sort and count of the plain scores"
+    n_valid = int(cv.sum())
+    bound, bound_by = prepass_bound(org.shape[1], T, NC, n_valid, coherent,
+                                    count_k)
+    p2 = 1 << max(NC - 1, 0).bit_length()
+    smem = 2 * RT * 16 + p2 * 8 + NC * 4
+    print(f"{name} prepass: {T} tiles of {RT} x {NC} chunks ({n_valid} "
+          f"valid), {mode} mode, kernel {ms_k:.4f} ms (dynamic shared "
+          f"memory {smem} B a block), bound {bound:.4f} ms "
+          f"({bound_by}, {bound / ms_k:.0%} of it); replaced torch stages "
+          f"({replaced}) {ms_r:.4f} ms; plain version {ms_p:.3f} ms; "
+          f"candidates/tile mean {float(count_k.float().mean()):.1f}")
     return dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound, bound_by=bound_by,
-                err=err, sort_ms=ms_s)
+                err=err, replaced_ms=ms_r, mode=mode)
 
 
 def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
@@ -410,8 +444,7 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
           f"{N / ms_q * 1e3 / 1e6:.1f} Mrays/s query")
     res = dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound, bound_by=bound_by,
                err=err, query_ms=ms_q)
-    if not coherent:
-        res["prepass"] = check_prepass(name, o, geom, inp)
+    res["prepass"] = check_prepass(name, o, geom, inp, coherent)
     return res
 
 
@@ -495,12 +528,70 @@ def queries_per_step(weights, n_silh=8, ray_chunks=1):
     which terms a zero weight skips: the ray loss makes 3 queries (bounce 1
     coherent, bounce 2 and exit incoherent) for each chunk of rays, and a
     chunked loss reruns them in the backward; each silhouette view makes one
-    incoherent query. h1's two loss evaluations split these between them."""
+    incoherent query. Every query launches each kernel once. h1's two loss
+    evaluations split these between them."""
     rerun = 2 if ray_chunks > 1 else 1
     ray = 3 * ray_chunks * rerun if weights.ray_w else 0
-    ray_inc = 2 * ray_chunks * rerun if weights.ray_w else 0
     silh = n_silh if weights.vh_w else 0
-    return ray + silh, ray_inc + silh
+    return ray + silh, ray + silh
+
+
+def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
+    """One more sgd + none step under torch.profiler, each oracle query in a
+    `record_function` range: the device kernels launched inside the ranges
+    (the oracle's) and outside them, by name; fails if the oracle launched
+    a sort kernel (its prepass sorts inside csrc/candidates.cu), or if the
+    step's `n_queries` queries did not each give a range with a device-side
+    span, since then the check could not see the oracle's kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.optimize import make_train_step
+    base = get_intersect_fn("auto")
+
+    def traced(*args, **kwargs):
+        with record_function("oracle query"):
+            return base(*args, **kwargs)
+    init, step, _ = make_train_step(traced, weights, *res, budget,
+                                    momentum=hp.momentum,
+                                    grad_clamp=hp.grad_clamp)
+    state = init(mesh)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, hp.start_lr, mesh, cap.views, 0, list(range(8)))
+        torch.cuda.synchronize()
+
+    cpu_t, dev_t = (torch.autograd.DeviceType.CPU,
+                    torch.autograd.DeviceType.CUDA)
+    events = prof.events()
+    n_ranges = sum(e.name == "oracle query" and e.device_type == cpu_t
+                   for e in events)
+    # each range's device-side span (kineto's GPU user annotation): the
+    # kernels that ran inside one are the oracle's
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "oracle query" and e.device_type == dev_t]
+    kernels = [e for e in events
+               if e.device_type == dev_t and e.name != "oracle query"]
+    oracle = [k.name for k in kernels
+              if any(a <= k.time_range.start and k.time_range.end <= b
+                     for a, b in spans)]
+    sorts = sorted({n for n in oracle if "sort" in n.lower()})
+    names = {}
+    for n in oracle:
+        key = n.split("(")[0][:60]
+        names[key] = names.get(key, 0) + 1
+    print(f"profile: one step, {n_ranges} oracle queries, {len(spans)} "
+          f"device spans, {len(oracle)} of the step's {len(kernels)} device "
+          f"kernels inside them; by name "
+          f"{sorted(names.items(), key=lambda kv: -kv[1])}; sort kernels in "
+          f"the oracle: {sorts or 'none'}; sort kernels elsewhere in the "
+          f"step: {sum('sort' in k.name.lower() for k in kernels)}")
+    if not n_ranges == len(spans) == n_queries:
+        fail(f"profile: {n_ranges} oracle ranges and {len(spans)} device "
+             f"spans for the step's {n_queries} queries: the oracle's "
+             "kernels cannot be told apart")
+    if sorts:
+        fail(f"profile: the oracle launched sort kernels {sorts}")
 
 
 def run_steps(name, step, state, lr, mesh, cap, seed, n, expect):
@@ -632,9 +723,7 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
     import drt_tpu_torch.optimize as OPT
     from drt_tpu_torch.cli import main as cli
     from drt_tpu_torch.intersect import cuda_kernel as CK
-    from drt_tpu_torch.intersect.api import _auto_incoherent
     from drt_tpu_torch.mesh import load_ply
-    from drt_tpu_torch.mesh.state import _bucket
     from drt_tpu_torch.mesh.topology import build_topology
 
     def watertight(label, v, f):
@@ -690,16 +779,11 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
             watertight("the carved hull", hv, hf)
             if info["remesh_failures"] or info["remesher"] != "native":
                 fail(f"cli: remesh health {info}")
-            gt_faces = len(load_ply(dog90)[1])
-            syn_cand = 2 if _auto_incoherent(_bucket(gt_faces)) == "ray" else 0
-            step_cand = sum(iters * 10 for p in info["passes"]
-                            if _auto_incoherent(_bucket(p["faces"])) == "ray")
-            expect = (views * 4 + passes * iters * 11,
-                      views * syn_cand + step_cand)
+            expect = (views * 4 + passes * iters * 11,) * 2
             print(f"cli: reconstruct: {launches} closest-hit and {cand} "
-                  f"prepass launches, expected {expect[0]} and {expect[1]} "
-                  f"({views} views x 4 / {syn_cand} in the synthesis, "
-                  f"{passes * iters} steps x 11 / 10)")
+                  f"prepass launches, expected {expect[0]} each ({views} "
+                  f"views x 4 in the synthesis, {passes * iters} steps x "
+                  "11)")
             if (launches, cand) != expect:
                 fail(f"cli: reconstruct launches {(launches, cand)}, "
                      f"expected {expect}")
@@ -768,10 +852,10 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
                  "--res", str(render_res), *dev_args])
             torch.cuda.synchronize()
             tm["render_s"] = time.time() - t0
-            r_launch = CK.counters.launches
+            r_launch = (CK.counters.launches, CK.counters.candidates_launches)
             pngs = sorted(os.listdir("renders"))
             if pngs != ["dog_recons_exitdir.png", "dog_recons_mask.png",
-                        "dog_recons_valid.png"] or r_launch != 4:
+                        "dog_recons_valid.png"] or r_launch != (4, 4):
                 fail(f"cli: render wrote {pngs} with {r_launch} launches")
             # decoded by PIL, a decoder of its own (the port writes its PNGs
             # with zlib and struct)
@@ -786,8 +870,8 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
             covered = int((mask == 255).sum())
             if not 0 < covered < mask.size:
                 fail(f"cli: render mask covers {covered} pixels")
-            print(f"cli: render {render_res}x{render_res}: {r_launch} "
-                  "closest-hit launches, "
+            print(f"cli: render {render_res}x{render_res}: {r_launch[0]} "
+                  f"closest-hit and {r_launch[1]} prepass launches, "
                   f"mask covers {covered} pixels, {tm['render_s']:.2f} s")
 
             # -- evaluate and remesh through `python3 -m`, side by side ------
@@ -996,7 +1080,7 @@ def main():
     ray_gen = cap.ray_view_generator(seed=hp.seed)
     silh_gen = cap.silh_view_generator(seed=hp.seed + 1000)
     per_step = 3 + 8
-    per_step_prepass = 2 + 8          # the incoherent ones
+    per_step_prepass = 3 + 8          # one per query of either kind
     times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
     CK.counters.reset()                        # main path starts here
@@ -1042,6 +1126,7 @@ def main():
           f"(ray view), max vertex move {moved:.4g}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"launches {launches} closest-hit, {cand_launches} prepass")
+    oracle_kernel_profile(weights, RES, budget, hp, ms45, cap, per_step)
 
     # -- 6. the other optimizers and preconditioners -------------------------
     per_step_all = queries_per_step(weights)
@@ -1168,9 +1253,9 @@ def main():
         if not same:
             fail(f"routes: {qname}: the resorted route differs from the "
                  "per-ray route")
-        if seen_ray != (1, 1) or seen != (2, 1):
+        if seen_ray != (1, 1) or seen != (2, 2):
             fail(f"routes: {qname}: launches {seen_ray} then {seen}, "
-                 "expected (1, 1) then (2, 1)")
+                 "expected (1, 1) then (2, 2)")
     for qname, (o, d, coherent) in zip(("bounce1", "bounce2"), queries45):
         idx = torch.randperm(o.shape[0], generator=gen)[:BRUTE_SAMPLE].to(
             dev)
@@ -1212,14 +1297,12 @@ def main():
         cks = sorted(os.listdir(ck_dir))
         if cks != [f"dog_pass{i:02d}.ply" for i in range(3)]:
             fail(f"lod: checkpoints {cks}")
-        faces_by_pass, expect_cand = [], 0
+        faces_by_pass = []
         for i, name in enumerate(cks):
             ms_ck = build_mesh_state(*load_ply(os.path.join(ck_dir, name)),
                                      device=dev)      # raises if not closed
             faces_by_pass.append(ms_ck.num_faces)
             route = _auto_incoherent(ms_ck.faces.shape[0])
-            expect_cand += hp_lod.iters * (per_step_prepass
-                                           if route == "ray" else 0)
             p = info["passes"][i]
             print(f"lod: pass {i}: {ms_ck.num_faces} faces (padded "
                   f"{ms_ck.faces.shape[0]}, {ms_ck.faces.shape[0] // C} "
@@ -1248,10 +1331,11 @@ def main():
                                        for r in logged):
             fail(f"lod: logged losses {[r.get('loss') for r in logged]}")
         n_steps = hp_lod.num_passes * hp_lod.iters
-        if (lod_launches != n_steps * per_step or lod_cand != expect_cand):
+        if (lod_launches != n_steps * per_step
+                or lod_cand != n_steps * per_step_prepass):
             fail(f"lod: {lod_launches} closest-hit / {lod_cand} prepass "
                  f"launches in {n_steps} steps, expected "
-                 f"{n_steps * per_step} / {expect_cand}")
+                 f"{n_steps * per_step} / {n_steps * per_step_prepass}")
         v_out, f_out = out.host_arrays()
         if not np.isfinite(v_out).all() or len(f_out) != faces_by_pass[-1]:
             fail("lod: the final mesh is not finite or not the last pass's")
@@ -1290,8 +1374,9 @@ def main():
     cand_launches += lod_cand + cli_cand
 
     cam_r = results["camera"]
-    pre = {k: r["prepass"] for k, r in results.items() if "prepass" in r}
+    pre = {k: r["prepass"] for k, r in results.items()}
     pre_r = pre["dog_mid45k bounce2"]
+    pre_t = pre["camera"]
     kernels = [{
         "name": "closest_hit",
         "route": "cuda",
@@ -1319,12 +1404,19 @@ def main():
         "launches_lod": lod_cand,
         "launches_cli": cli_cand,
         "launches_per_step": per_step_prepass,
-        "shape": "bounce-2 rays 1280x960 on dog_mid45k",
+        "shape": "ray mode: bounce-2 rays 1280x960 on dog_mid45k",
         "max_abs_err": max(r["err"] for r in pre.values()),
         "ms": pre_r["ms"],
         "plain_ms": pre_r["plain_ms"],
         "bound_ms": pre_r["bound_ms"],
         "bound_by": pre_r["bound_by"],
+        "replaced_ms": pre_r["replaced_ms"],
+        "tile_shape": "tile mode: camera rays 1280x960 on dog_mid90k",
+        "tile_ms": pre_t["ms"],
+        "tile_plain_ms": pre_t["plain_ms"],
+        "tile_bound_ms": pre_t["bound_ms"],
+        "tile_bound_by": pre_t["bound_by"],
+        "tile_replaced_ms": pre_t["replaced_ms"],
         "library_ms": None,
     }]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

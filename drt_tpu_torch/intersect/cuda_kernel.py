@@ -12,14 +12,14 @@ Stages:
    [NC,10,4C] keeps zero blocks for the TPU's matrix unit);
 3. `_chunk_aabbs`: per-chunk AABBs from the current vertices, padded chunks
    marked invalid so they are never candidates;
-4. the candidate prepass, per tile of rays (`RAY_TILE_COHERENT` or
-   `RAY_TILE_INCOHERENT`): a nearest-first list of chunks some ray of the
-   tile may hit. Incoherent queries slab-test every (ray, chunk) pair
-   exactly: `candidate_scores`, the kernel csrc/candidates.cu on CUDA
-   tensors and its plain version `candidate_scores_plain` on CPU tensors,
-   then a stable sort (`_candidates` is the plain version with its sort).
-   Coherent queries bound a whole tile by interval arithmetic
-   (`_candidates_tile`: a superset, cheap for camera rays);
+4. `candidates`, the candidate prepass, per tile of rays
+   (`RAY_TILE_COHERENT` or `RAY_TILE_INCOHERENT`): a nearest-first list of
+   the chunks some ray of the tile may hit, and its length. One launch of
+   the kernel csrc/candidates.cu scores, sorts and counts for every tile;
+   its plain version `candidates_plain` runs on CPU tensors. Incoherent
+   queries slab-test every (ray, chunk) pair exactly (`_candidates` is the
+   plain version); coherent queries bound a whole tile by interval
+   arithmetic (`_candidates_tile`: a superset, cheap for camera rays);
 5. `closest_hit`: the kernel (csrc/closest_hit.cu) on CUDA tensors, its
    plain version `closest_hit_plain` on CPU tensors.
 No fallback anywhere: a CUDA tensor launches the kernel or raises.
@@ -60,6 +60,7 @@ RAY_TILE_INCOHERENT = 128
 BLOCK_RAYS = 64
 MAX_RAY_TILE = 256     # fixed in csrc/*.cu (`__launch_bounds__`)
 TRI_CHUNK = 128        # fixed in csrc/closest_hit.cu
+MAX_CHUNKS = 16384     # fixed in csrc/candidates.cu (keys in shared memory)
 N_COEF = 19
 # Elements of one [tiles, RT, NC] temporary of the plain prepass (and of the
 # four [tiles, RT, C] products of the plain closest hit): the plain versions
@@ -78,8 +79,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class LaunchCounter:
     """Counts oracle queries (`calls`) and the launches of the closest-hit
     kernel (`launches`) and of the candidate-prepass kernel
-    (`candidates_launches`). A launch is counted only where the CUDA kernel
-    is launched."""
+    (`candidates_launches`, one per query of either kind). A launch is
+    counted only where the CUDA kernel is launched."""
 
     def __init__(self):
         self.reset()
@@ -104,23 +105,27 @@ def _nvcc() -> str:
     return path
 
 
-def build(force: bool = False) -> str:
+def build(force: bool = False, defines: tuple = ()) -> str:
     """Compile every csrc/*.cu (one nvcc each, all started together) and
     link the objects into one shared library, if it is missing or older
-    than any source; return its path. `build_log` keeps what ptxas said."""
+    than any source; return its path. `build_log` keeps what ptxas said.
+    `defines` ("NAME=value", ...) go to nvcc as -D and make a library of
+    their own (scripts/tune_torch_oracle.py builds such variants)."""
     global build_log
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    out = os.path.join(_BUILD_DIR, "libdrt_kernels.so")
+    suffix = "".join("_" + d.replace("=", "") for d in defines)
+    out = os.path.join(_BUILD_DIR, f"libdrt_kernels{suffix}.so")
     sources = sorted(glob.glob(os.path.join(_SOURCE_DIR, "*.cu")))
     if not sources:
         raise RuntimeError(f"no kernel sources in {_SOURCE_DIR}")
     if (not force and os.path.exists(out) and os.path.getmtime(out)
             >= max(os.path.getmtime(s) for s in sources)):
         return out
-    nvcc, tag = _nvcc(), os.getpid()
+    nvcc, tag = _nvcc(), f"{os.getpid()}{suffix}"
     objs = [os.path.join(_BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
             for s in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", o, s],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for s, o in zip(sources, objs)]
@@ -146,27 +151,35 @@ def build(force: bool = False) -> str:
     return out
 
 
+def bind(path: str):
+    """The library at `path` (from `build`) with its C interface typed and
+    its constants checked against this module's."""
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.closest_hit_launch.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 3
+    lib.closest_hit_launch.restype = ci
+    lib.candidates_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp] * 3
+    lib.candidates_launch.restype = ci
+    lib.closest_hit_error_string.argtypes = [ci]
+    lib.closest_hit_error_string.restype = ctypes.c_char_p
+    lib.candidates_block.argtypes, lib.candidates_block.restype = [], ci
+    for name, want in (("closest_hit_tri_chunk", TRI_CHUNK),
+                       ("closest_hit_max_ray_tile", MAX_RAY_TILE),
+                       ("candidates_max_ray_tile", MAX_RAY_TILE),
+                       ("candidates_max_chunks", MAX_CHUNKS)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [], ci
+        if fn() != want:
+            raise RuntimeError(f"csrc: {name}() is {fn()}, "
+                               f"cuda_kernel.py expects {want}")
+    return lib
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.closest_hit_launch.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 3
-            lib.closest_hit_launch.restype = ci
-            lib.candidates_launch.argtypes = [vp] * 5 + [ci] * 3 + [vp] * 2
-            lib.candidates_launch.restype = ci
-            lib.closest_hit_error_string.argtypes = [ci]
-            lib.closest_hit_error_string.restype = ctypes.c_char_p
-            for name, want in (("closest_hit_tri_chunk", TRI_CHUNK),
-                               ("closest_hit_max_ray_tile", MAX_RAY_TILE),
-                               ("candidates_max_ray_tile", MAX_RAY_TILE)):
-                fn = getattr(lib, name)
-                fn.argtypes, fn.restype = [], ci
-                if fn() != want:
-                    raise RuntimeError(f"csrc: {name}() is {fn()}, "
-                                       f"cuda_kernel.py expects {want}")
-            _lib = lib
+            _lib = bind(build())
     return _lib
 
 
@@ -254,15 +267,21 @@ def _sorted_candidates(score):
     return order, count
 
 
-def _candidates_tile(ot, dt, lo_c, hi_c, chunk_valid):
-    """Tile-frustum prepass: one interval-arithmetic slab test per (tile,
-    chunk). A tile's rays are abstracted to per-axis origin and inverse-
-    direction intervals; the candidate list is a conservative superset of
-    the per-ray prepass (a tile straddling an axis sign keeps every chunk).
-    ot/dt: [T,3,RT]. Returns (cand [T,NC] i32, count [T] i32)."""
+def _score(overlap, t_entry):
+    """max(t_entry, 0) where `overlap`, inf elsewhere; a zero is +0, so a
+    sort that orders -0 before +0 cannot move a tie (the kernel writes +0
+    too)."""
+    return torch.where(overlap, torch.where(t_entry > 0.0, t_entry, 0.0),
+                       float("inf"))
+
+
+def _tile_scores(ot, it, lo_c, hi_c, chunk_valid):
+    """[T,NC] scores of the tile-frustum prepass: the tile's rays become
+    per-axis intervals of origin and inverse direction, and one interval
+    slab test per (tile, chunk) bounds every ray's. ot/it: [T,3,RT] shifted
+    origins and guarded inverse directions."""
     olo, ohi = ot.amin(dim=2), ot.amax(dim=2)               # [T,3]
-    inv = _safe_inv(dt)
-    ilo, ihi = inv.amin(dim=2)[:, None, :], inv.amax(dim=2)[:, None, :]
+    ilo, ihi = it.amin(dim=2)[:, None, :], it.amax(dim=2)[:, None, :]
 
     def bounds(planes):
         alo = planes[None] - ohi[:, None, :]                 # [T,NC,3]
@@ -274,10 +293,17 @@ def _candidates_tile(ot, dt, lo_c, hi_c, chunk_valid):
     t2lo, t2hi = bounds(hi_c)
     entry_lo = torch.minimum(t1lo, t2lo).amax(dim=-1)       # [T,NC]
     exit_hi = torch.maximum(t1hi, t2hi).amin(dim=-1)
-    overlap = (entry_lo <= exit_hi) & (exit_hi > 0.0) & chunk_valid[None]
-    score = torch.where(overlap, entry_lo.clamp_min(0.0),
-                        torch.full_like(entry_lo, float("inf")))
-    return _sorted_candidates(score)
+    return _score((entry_lo <= exit_hi) & (exit_hi > 0.0) & chunk_valid[None],
+                  entry_lo)
+
+
+def _candidates_tile(ot, dt, lo_c, hi_c, chunk_valid):
+    """Tile-frustum prepass in plain torch (`_tile_scores`, then the stable
+    sort). The candidate list is a conservative superset of the per-ray
+    prepass (a tile straddling an axis sign keeps every chunk). ot/dt:
+    [T,3,RT]. Returns (cand [T,NC] i32, count [T] i32)."""
+    return _sorted_candidates(
+        _tile_scores(ot, _safe_inv(dt), lo_c, hi_c, chunk_valid))
 
 
 def _check(name, x, shape, dtype, dev):
@@ -316,12 +342,13 @@ def _check_prepass_inputs(org, inv, lo, hi, chunk_valid, n_tiles):
 
 @torch.no_grad()
 def candidate_scores_plain(org, inv, lo, hi, chunk_valid, n_tiles):
-    """Plain version of csrc/candidates.cu: for every (tile, chunk) the
-    nearest slab entry max(t_entry, 0) over the tile's rays that overlap
-    the chunk's AABB, inf where none does or the chunk is padding. Groups of
-    tiles bound the [tiles, RT, NC] temporaries (the JAX package maps over
-    groups the same way). org/inv: [3,Np] shifted origins and guarded
-    inverse directions, Np = n_tiles * RT. Returns score [n_tiles,NC] f32."""
+    """Scores of the per-ray prepass (csrc/candidates.cu's ray mode): for
+    every (tile, chunk) the nearest slab entry max(t_entry, 0) over the
+    tile's rays that overlap the chunk's AABB, inf where none does or the
+    chunk is padding. Groups of tiles bound the [tiles, RT, NC]
+    temporaries (the JAX package maps over groups the same way). org/inv:
+    [3,Np] shifted origins and guarded inverse directions, Np = n_tiles *
+    RT. Returns score [n_tiles,NC] f32."""
     _, NC, RT = _check_prepass_inputs(org, inv, lo, hi, chunk_valid, n_tiles)
     o3, i3 = org.reshape(3, n_tiles, RT), inv.reshape(3, n_tiles, RT)
     g = max(1, _GROUP_ELEMS // (RT * NC))
@@ -336,44 +363,66 @@ def candidate_scores_plain(org, inv, lo, hi, chunk_valid, n_tiles):
             t_entry = e if t_entry is None else torch.maximum(t_entry, e)
             t_exit = x if t_exit is None else torch.minimum(t_exit, x)
         overlap = (t_entry <= t_exit) & (t_exit > 0.0) & chunk_valid
-        score = torch.where(overlap, t_entry.clamp_min(0.0),
-                            torch.full_like(t_entry, float("inf")))
-        scores.append(score.amin(dim=1))                     # [G,NC]
+        scores.append(_score(overlap, t_entry).amin(dim=1))  # [G,NC]
     return torch.cat(scores)
 
 
-def candidate_scores_cuda(org, inv, lo, hi, chunk_valid, n_tiles):
+@torch.no_grad()
+def candidates_plain(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool):
+    """Plain version of csrc/candidates.cu: the per-ray prepass
+    (`candidate_scores_plain`) or, with tile=True, the tile-frustum prepass
+    (`_tile_scores`), then the stable sort and the counts. Inputs as in
+    `candidate_scores_plain`. Returns (cand [n_tiles,NC] i32, count
+    [n_tiles] i32)."""
+    _, _, RT = _check_prepass_inputs(org, inv, lo, hi, chunk_valid, n_tiles)
+    if tile:
+        score = _tile_scores(org.reshape(3, n_tiles, RT).permute(1, 0, 2),
+                             inv.reshape(3, n_tiles, RT).permute(1, 0, 2),
+                             lo, hi, chunk_valid)
+    else:
+        score = candidate_scores_plain(org, inv, lo, hi, chunk_valid,
+                                       n_tiles)
+    return _sorted_candidates(score)
+
+
+def candidates_cuda(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool):
     """Launch csrc/candidates.cu on the current stream; inputs and result
-    as in `candidate_scores_plain`."""
+    as in `candidates_plain`."""
     _, NC, ray_tile = _check_prepass_inputs(org, inv, lo, hi, chunk_valid,
                                             n_tiles)
     if org.device.type != "cuda":
-        raise ValueError("candidate_scores_cuda needs CUDA tensors")
+        raise ValueError("candidates_cuda needs CUDA tensors")
+    if NC > MAX_CHUNKS:
+        raise ValueError(f"{NC} chunks: the prepass kernel takes at most "
+                         f"MAX_CHUNKS = {MAX_CHUNKS} ({MAX_CHUNKS * TRI_CHUNK}"
+                         " faces)")
     lib = _load()
     with torch.cuda.device(org.device):
-        score = torch.empty(n_tiles, NC, dtype=torch.float32,
-                            device=org.device)
+        cand = torch.empty(n_tiles, NC, dtype=torch.int32, device=org.device)
+        count = torch.empty(n_tiles, dtype=torch.int32, device=org.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.candidates_launch(
             org.data_ptr(), inv.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            chunk_valid.data_ptr(), n_tiles, ray_tile, NC, score.data_ptr(),
-            stream)
+            chunk_valid.data_ptr(), n_tiles, ray_tile, NC, int(tile),
+            cand.data_ptr(), count.data_ptr(), stream)
     if err != 0:
         msg = lib.closest_hit_error_string(err).decode()
         raise RuntimeError(f"candidates launch failed: {msg} ({err})")
     counters.candidates_launches += 1
-    return score
+    return cand, count
 
 
-def candidate_scores(org, inv, lo, hi, chunk_valid, n_tiles):
+def candidates(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool):
     """The prepass kernel on CUDA tensors, its plain version on CPU
     tensors."""
     dev = org.device.type
     if dev == "cuda":
-        return candidate_scores_cuda(org, inv, lo, hi, chunk_valid, n_tiles)
+        return candidates_cuda(org, inv, lo, hi, chunk_valid, n_tiles,
+                               tile=tile)
     if dev == "cpu":
-        return candidate_scores_plain(org, inv, lo, hi, chunk_valid, n_tiles)
-    raise ValueError(f"candidate_scores: unsupported device {org.device}")
+        return candidates_plain(org, inv, lo, hi, chunk_valid, n_tiles,
+                                tile=tile)
+    raise ValueError(f"candidates: unsupported device {org.device}")
 
 
 def _candidates(ot, dt, lo_c, hi_c, chunk_valid):
@@ -404,8 +453,9 @@ class KernelInputs(NamedTuple):
 def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
                    coherent: bool, shift=None) -> KernelInputs:
     """Stages 1-4. Coherent queries take the tile prepass; incoherent ones
-    the exact per-ray prepass (the kernel on CUDA tensors), since their tile
-    frustums straddle direction signs and blow up to near-full lists. Makes
+    the exact per-ray prepass, since their tile frustums straddle direction
+    signs and blow up to near-full lists; either is one launch of the
+    prepass kernel on CUDA tensors. Makes
     no host synchronisation. `shift` [3] replaces the mean ray origin: the
     resorted route passes the unsorted query's, since a mean summed in
     another order differs in its last bits and t would follow."""
@@ -429,14 +479,8 @@ def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
     inv = _safe_inv(d).t().contiguous()                      # [3,Np]
     w = torch.linalg.cross(o, d, dim=-1)
     phi = torch.cat([d, w, o], dim=1).t().contiguous()       # [9,Np]
-    if coherent:
-        cand, count = _candidates_tile(
-            phi[6:9].reshape(3, T, ray_tile).permute(1, 0, 2),
-            phi[0:3].reshape(3, T, ray_tile).permute(1, 0, 2),
-            lo, hi, chunk_valid)
-    else:
-        cand, count = _sorted_candidates(
-            candidate_scores(phi[6:9], inv, lo, hi, chunk_valid, T))
+    cand, count = candidates(phi[6:9], inv, lo, hi, chunk_valid, T,
+                             tile=coherent)
     return KernelInputs(phi, inv, coef, lo, hi, cand, count)
 
 

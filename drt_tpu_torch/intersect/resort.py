@@ -1,14 +1,15 @@
 """Active-ray Morton re-sort for incoherent oracle queries (port of
 drt_tpu/intersect/resort.py).
 
-The cheap tile-frustum prepass (`cuda_kernel._candidates_tile`) needs the
-rays of a tile to be spatially coherent: true for camera pixels (bounce 1),
-false for post-refraction interior and exit rays, whose tile frustums
-straddle direction octants and blow up to near-full candidate lists. The
-default answer is the exact per-ray prepass (`csrc/candidates.cu`). This
-module is the other one: permute the rays by a (direction-octant,
-origin-Morton) key so each tile is octant-pure and spatially local, run the
-oracle with the tile prepass, and scatter the hits back. The sort is
+The cheap tile-frustum prepass (the tile mode of `csrc/candidates.cu`,
+plain version `cuda_kernel._candidates_tile`) needs the rays of a tile to
+be spatially coherent: true for camera pixels (bounce 1), false for
+post-refraction interior and exit rays, whose tile frustums straddle
+direction octants and blow up to near-full candidate lists. The default
+answer is the exact per-ray prepass (the kernel's ray mode). This module is
+the other one: permute the rays by a (direction-octant, origin-Morton) key
+so each tile is octant-pure and spatially local, run the oracle with the
+tile prepass, and scatter the hits back. The sort is
 oracle-internal: inputs are detached, outputs are per-ray, and the oracle
 gates work per ray, so the hits are those of the unsorted query, bit for
 bit when the oracle is also given the unsorted query's shift (as

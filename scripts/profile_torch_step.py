@@ -10,8 +10,8 @@ float32; reference-parity sgd + none unless another optimizer or
 preconditioner is named), with fewer capture views. Each oracle
 query is timed on the host clock between two synchronizations and split
 into its stages (prepare_inputs: shift, coefficients, AABBs and the
-candidate prepass, of which the incoherent queries' prepass kernel and its
-sort are also timed apart) and the closest-hit kernel; the rest of the step
+candidate prepass, whose one kernel launch, scores, sort and counts, is
+also timed apart) and the closest-hit kernel; the rest of the step
 is the differentiable trace, the losses, backward and the update. The
 synchronizations cost a little overlap; the step is also timed without
 them, and one conjugate-gradient solve of the Sobolev preconditioner
@@ -89,15 +89,14 @@ def main():
             return out
         return wrapper
 
-    scores_fn, sort_fn = CK.candidate_scores, CK._sorted_candidates
+    prepass_fn = CK.candidates
 
     def timed_oracle(origins, dirs, vertices, faces, face_valid=None, *,
                      coherent):
         kind = ("silhouette" if origins.shape[0] != res[0] * res[1]
                 else "coherent" if coherent else "incoherent")
         kind_now[0] = kind
-        CK.candidate_scores = synced("prepare: prepass kernel", scores_fn)
-        CK._sorted_candidates = synced("prepare: sort and count", sort_fn)
+        CK.candidates = synced("prepare: prepass kernel", prepass_fn)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
@@ -105,7 +104,7 @@ def main():
                                     vertices.detach(), faces, face_valid,
                                     coherent=coherent)
         finally:
-            CK.candidate_scores, CK._sorted_candidates = scores_fn, sort_fn
+            CK.candidates = prepass_fn
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         t, ids = CK.closest_hit(inp)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Measurements behind the constants of the port's oracle, on one CUDA GPU.
 
-    python3 scripts/tune_torch_oracle.py [--what tiles blocks gate resort]
+    python3 scripts/tune_torch_oracle.py [--what tiles blocks gate prepass
+                                          resort]
 
 Six queries, the ones chip_smoke.py checks: the camera rays and the
 bounce-2 rays of one 1280x960 view of dog_mid90k, and the four queries of
@@ -10,13 +11,19 @@ view), recorded from the loss functions themselves.
 
 tiles   RAY_TILE_COHERENT and RAY_TILE_INCOHERENT set to 256, 128, 64, 32
         (closest-hit blocks as large as the tile): closest-hit kernel,
-        the stages before it (of which, for incoherent queries, the prepass
-        kernel with its sort), and whole query, in ms (CUDA events).
+        the stages before it (of which the prepass kernel), and whole
+        query, in ms (CUDA events).
 blocks  the tiles as the package sets them, BLOCK_RAYS set to 256, 128, 64,
         32: kernel and whole query.
 gate    the per-ray gate of the kernel against the tile-wide gate of the
         JAX package's `_kernel` (the plain version with its gate widened to
         "any ray of the tile enters"): rays whose tri_id or t differ.
+prepass the prepass kernel (csrc/candidates.cu) built with blocks of 128
+        and of 256 threads a tile (-DPREPASS_BLOCK), in turns (128, 256,
+        256, 128; CUDA events), on each query in its own mode, the lists
+        equal to the plain version's at both sizes. Writes
+        reports/torch_prepass_blocks.json (or --prepass-out PATH); the
+        source's PREPASS_BLOCK is the winner over the six.
 resort  the two routes of an incoherent query, "ray" (the exact per-ray
         prepass kernel) against "resort" (Morton sort of the rays, tile
         prepass, scatter back), on the bounce-2 and exit queries of a
@@ -121,15 +128,12 @@ def sweep(queries, names, values):
                         o, d, *geom, coherent=coh), 10)
                     T = inp.count.shape[0]
                     cnt = inp.count.float()
-                    pre = ""
-                    if not coh:
-                        cv = CK._chunk_aabbs(*geom, o.float().mean(dim=0),
-                                             CK.TRI_CHUNK)[2]
-                        ms_c = S.cuda_ms(lambda: CK._sorted_candidates(
-                            CK.candidate_scores_cuda(
-                                inp.phi[6:9], inp.inv, inp.lo, inp.hi, cv,
-                                T)), 10)
-                        pre = f" of which prepass kernel and sort {ms_c:.3f},"
+                    cv = CK._chunk_aabbs(*geom, o.float().mean(dim=0),
+                                         CK.TRI_CHUNK)[2]
+                    ms_c = S.cuda_ms(lambda: CK.candidates_cuda(
+                        inp.phi[6:9], inp.inv, inp.lo, inp.hi, cv, T,
+                        tile=coh), 10)
+                    pre = f" of which prepass kernel {ms_c:.3f},"
                     print(f"round {rnd} {name} {'/'.join(names)}={val} "
                           f"(tile {inp.phi.shape[1] // T}): kernel "
                           f"{ms_k:.3f} ms, stages before it {ms_p:.3f} ms,"
@@ -168,6 +172,67 @@ def gate(queries):
               f"differ in tri_id ({n_hit} hit), {only_tile} hits that only "
               f"the tile gate finds, t differs on {int((dt > 0).sum())} "
               f"rays with the same id", flush=True)
+
+
+def prepass_blocks(queries, card, out):
+    """The prepass kernel built at 128 and 256 threads a tile, on each
+    query; writes the times to `out`."""
+    import torch
+    import chip_smoke as S
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    default = CK._load()
+    libs = {b: CK.bind(CK.build(defines=(f"PREPASS_BLOCK={b}",)))
+            for b in (128, 256)}
+    for b, lib in libs.items():
+        if lib.candidates_block() != b:
+            sys.exit(f"tune_torch_oracle: the {b}-thread build launches "
+                     f"{lib.candidates_block()} threads")
+    rows, total = [], {128: 0.0, 256: 0.0}
+    for name, o, d, geom, coh in queries:
+        inp = CK.prepare_inputs(o, d, *geom, coherent=coh)
+        T, NC = inp.cand.shape
+        cv = CK._chunk_aabbs(*geom, o.float().mean(dim=0), CK.TRI_CHUNK)[2]
+        args = (inp.phi[6:9], inp.inv, inp.lo, inp.hi, cv, T)
+        want = CK.candidates_plain(*args, tile=coh)
+        ms = {128: [], 256: []}
+        try:
+            for block in (128, 256, 256, 128):
+                CK._lib = libs[block]
+                got = CK.candidates_cuda(*args, tile=coh)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    sys.exit(f"tune_torch_oracle: {name}: the prepass kernel "
+                             f"at {block} threads differs from its plain "
+                             "version")
+                ms[block].append(S.cuda_ms(lambda: CK.candidates_cuda(
+                    *args, tile=coh), 20))
+        finally:
+            CK._lib = default
+        bound, bound_by = S.prepass_bound(args[0].shape[1], T, NC,
+                                          int(cv.sum()), coh, want[1])
+        for b in ms:
+            total[b] += sum(ms[b]) / 2
+        rows.append({"query": name, "mode": "tile" if coh else "ray",
+                     "tiles": T, "ray_tile": args[0].shape[1] // T,
+                     "chunks": NC, "valid_chunks": int(cv.sum()),
+                     "ms_128": ms[128], "ms_256": ms[256],
+                     "bound_ms": bound, "bound_by": bound_by})
+        print(f"{name} ({rows[-1]['mode']} mode, {T} tiles x {NC} chunks): "
+              f"128 threads {ms[128][0]:.4f} / {ms[128][1]:.4f} ms, 256 "
+              f"threads {ms[256][0]:.4f} / {ms[256][1]:.4f} ms, bound "
+              f"{bound:.4f} ms ({bound_by})", flush=True)
+    winner = min(total, key=total.get)
+    print(f"all six queries: 128 threads {total[128]:.4f} ms, 256 threads "
+          f"{total[256]:.4f} ms -> {winner} (the source's PREPASS_BLOCK is "
+          f"{default.candidates_block()})")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as fh:
+        json.dump({"device": card, "script":
+                   "scripts/tune_torch_oracle.py --what prepass",
+                   "rows": rows, "total_ms": total, "winner": winner}, fh,
+                  indent=1)
+        fh.write("\n")
+    print(f"wrote {out}")
 
 
 def resort_ab(dev, card, table=None):
@@ -271,7 +336,11 @@ def resort_ab(dev, card, table=None):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--what", nargs="+", default=["tiles", "blocks", "gate"],
-                    choices=["tiles", "blocks", "gate", "resort"])
+                    choices=["tiles", "blocks", "gate", "prepass", "resort"])
+    ap.add_argument("--prepass-out",
+                    default=os.path.join(HERE, "reports",
+                                         "torch_prepass_blocks.json"),
+                    help="where --what prepass writes its table")
     ap.add_argument("--table", default=None,
                     help="where --what resort writes its table (default: "
                          "reports/torch_resort_ab.json)")
@@ -301,6 +370,8 @@ def main():
         sweep(queries, ("BLOCK_RAYS",), (256, 128, 64, 32))
     if "gate" in args.what:
         gate(queries)
+    if "prepass" in args.what:
+        prepass_blocks(queries, smi.stdout.strip(), args.prepass_out)
 
 
 if __name__ == "__main__":

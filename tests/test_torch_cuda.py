@@ -3,7 +3,8 @@ card. Marked `cuda`: it skips where torch sees no GPU. Run on a GPU machine
 with `python -m pytest tests/test_torch_cuda.py -m cuda` (add
 `--noconftest` where JAX is not installed). The closest-hit kernel and its
 plain version round every product and sum alike, so their hits must agree
-bit for bit; the prepass kernel must give `_candidates`' lists exactly."""
+bit for bit; the prepass kernel must give the lists and counts of
+`_candidates` (ray mode) and `_candidates_tile` (tile mode) exactly."""
 
 import os
 
@@ -99,28 +100,117 @@ def test_kernel_matches_plain_on_dog(dev, dog20k, inside):
     assert torch.equal(t_k, t_p)
 
 
+def _prepass_inputs(source, dev, dog20k=None):
+    """(org, d, lo, hi, chunk_valid) of 64 x 256 incoherent rays against
+    the icosphere (16 chunks), dog_mid20k (256 chunks) or 37 random boxes
+    (a chunk count that is not a power of two, a quarter of them invalid)."""
+    rng = np.random.default_rng(12)
+    if source == "boxes":
+        c = rng.uniform(-10, 10, (37, 3))
+        h = rng.uniform(0.5, 3, (37, 3))
+        lo, hi = (torch.tensor(x, dtype=torch.float32, device=dev)
+                  for x in (c - h, c + h))
+        cv = torch.tensor(rng.uniform(size=37) > 0.25, device=dev)
+        o = torch.tensor(rng.uniform(-6, 6, (64 * 256, 3)),
+                         dtype=torch.float32, device=dev)
+        d = torch.tensor(rng.normal(size=(64 * 256, 3)), dtype=torch.float32,
+                         device=dev)
+    else:
+        if source == "dog20k":
+            ms = dog20k
+        else:
+            v, f = make_icosphere(subdivisions=3, radius=50.0)
+            ms = build_mesh_state(v, f, device=dev)
+        o, d = _dog_rays(ms, 64 * 256, 12, True, dev)
+        shift = o.mean(dim=0)
+        lo, hi, cv = CK._chunk_aabbs(ms.vertices, ms.faces, ms.face_valid,
+                                     shift, CK.TRI_CHUNK)
+        o = o - shift
+    return o.t().contiguous(), d.t().contiguous(), lo, hi, cv
+
+
+@pytest.mark.parametrize("source", ["icosphere", "dog20k", "boxes"])
 @pytest.mark.parametrize("ray_tile", [64, 128, 256])
-def test_prepass_kernel_matches_candidates(dev, dog20k, ray_tile):
-    ms = dog20k
-    o, d = _dog_rays(ms, 64 * 256, 12, True, dev)
-    shift = o.mean(dim=0)
-    lo, hi, cv = CK._chunk_aabbs(ms.vertices, ms.faces, ms.face_valid,
-                                 shift, CK.TRI_CHUNK)
-    T = o.shape[0] // ray_tile
-    org = (o - shift).t().contiguous()
-    inv = CK._safe_inv(d).t().contiguous()
+@pytest.mark.parametrize("mode", ["ray", "tile"])
+def test_prepass_kernel_matches_candidates(dev, dog20k, mode, ray_tile,
+                                           source):
+    """Both modes of csrc/candidates.cu against their plain versions on the
+    card (`_candidates`, `_candidates_tile`): the whole [T,NC] lists and the
+    counts equal, one launch counted."""
+    org, d, lo, hi, cv = _prepass_inputs(source, dev, dog20k)
+    inv = CK._safe_inv(d)
+    T = org.shape[1] // ray_tile
+    plain = CK._candidates if mode == "ray" else CK._candidates_tile
+    cand_p, count_p = plain(org.reshape(3, T, ray_tile).permute(1, 0, 2),
+                            d.reshape(3, T, ray_tile).permute(1, 0, 2),
+                            lo, hi, cv)
+    assert int(count_p.max()) > 0 and not bool(cv.all())
     before = CK.counters.candidates_launches
-    score = CK.candidate_scores(org, inv, lo, hi, cv, T)
+    cand_k, count_k = CK.candidates_cuda(org, inv, lo, hi, cv, T,
+                                         tile=mode == "tile")
     torch.cuda.synchronize()
     assert CK.counters.candidates_launches == before + 1
-    cand_k, count_k = CK._sorted_candidates(score)
-    cand_p, count_p = CK._candidates(
-        org.reshape(3, T, ray_tile).permute(1, 0, 2),
-        d.t().reshape(3, T, ray_tile).permute(1, 0, 2), lo, hi, cv)
-    assert int(count_p.max()) > 10 and not bool(cv.all())
     assert torch.equal(count_k, count_p)
-    listed = torch.arange(lo.shape[0], device=dev) < count_p[:, None]
-    assert torch.equal(cand_k[listed], cand_p[listed])
+    assert torch.equal(cand_k, cand_p)
+
+
+@pytest.mark.parametrize("nc", [6000, CK.MAX_CHUNKS])
+@pytest.mark.parametrize("mode", ["ray", "tile"])
+def test_prepass_kernel_at_large_chunk_counts(dev, mode, nc):
+    """Above 48 KB of shared memory (the opt-in) and at the limit: one tile
+    of 128 rays against `nc` random boxes, a tenth of them invalid, the
+    whole list and the count equal to the plain version's. The tile mode's
+    rays share a direction octant, or its frustum would take every box."""
+    rng = np.random.default_rng(nc)
+    c = rng.uniform(-10, 10, (nc, 3))
+    h = rng.uniform(0.2, 1.0, (nc, 3))
+    lo, hi = (torch.tensor(x, dtype=torch.float32, device=dev)
+              for x in (c - h, c + h))
+    cv = torch.tensor(rng.uniform(size=nc) > 0.1, device=dev)
+    org = torch.tensor(rng.uniform(-3, 3, (3, 128)), dtype=torch.float32,
+                       device=dev)
+    d = rng.normal(size=(3, 128))
+    if mode == "tile":
+        d = np.abs(d) + 0.2
+    inv = CK._safe_inv(torch.tensor(d, dtype=torch.float32, device=dev))
+    cand_p, count_p = CK.candidates_plain(org, inv, lo, hi, cv, 1,
+                                          tile=mode == "tile")
+    assert 1000 < int(count_p[0]) < int(cv.sum())
+    cand_k, count_k = CK.candidates_cuda(org, inv, lo, hi, cv, 1,
+                                         tile=mode == "tile")
+    torch.cuda.synchronize()
+    assert torch.equal(count_k, count_p)
+    assert torch.equal(cand_k, cand_p)
+
+
+def test_prepass_kernel_refuses_too_many_chunks(dev):
+    nc = CK.MAX_CHUNKS + 1
+    org = torch.zeros(3, 128, device=dev)
+    inv = torch.ones(3, 128, device=dev)
+    box = torch.zeros(nc, 3, device=dev)
+    cv = torch.ones(nc, dtype=torch.bool, device=dev)
+    before = CK.counters.candidates_launches
+    with pytest.raises(ValueError, match=f"at most MAX_CHUNKS = "
+                                         f"{CK.MAX_CHUNKS}"):
+        CK.candidates(org, inv, box, box, cv, 1, tile=False)
+    assert CK.counters.candidates_launches == before
+
+
+@pytest.mark.parametrize("coherent", [False, True])
+def test_prepare_inputs_one_prepass_launch_per_query(dev, dog20k, coherent):
+    ms = dog20k
+    o, d = _dog_rays(ms, 20000, 11, not coherent, dev)
+    before = (CK.counters.launches, CK.counters.candidates_launches)
+    inp = CK.prepare_inputs(o, d, ms.vertices, ms.faces, ms.face_valid,
+                            coherent=coherent)
+    assert (CK.counters.launches,
+            CK.counters.candidates_launches) == (before[0], before[1] + 1)
+    T = inp.count.shape[0]
+    _, _, cv = CK._chunk_aabbs(ms.vertices, ms.faces, ms.face_valid,
+                               o.mean(dim=0), CK.TRI_CHUNK)
+    cand, count = CK.candidates_plain(inp.phi[6:9], inp.inv, inp.lo,
+                                      inp.hi, cv, T, tile=coherent)
+    assert torch.equal(inp.cand, cand) and torch.equal(inp.count, count)
 
 
 def test_tie_rule_on_the_card(dev):
@@ -174,19 +264,18 @@ def test_kernel_wrapper_raises_on_bad_input(dev):
     T = inp.count.shape[0]
     cv = torch.ones(inp.lo.shape[0], dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):
-        CK.candidate_scores_cuda(inp.phi[6:9].cpu(), inp.inv, inp.lo,
-                                 inp.hi, cv, T)
+        CK.candidates_cuda(inp.phi[6:9].cpu(), inp.inv, inp.lo, inp.hi, cv,
+                           T, tile=True)
     with pytest.raises(ValueError):
-        CK.candidate_scores_cuda(inp.phi[6:9], inp.inv, inp.lo, inp.hi,
-                                 cv.int(), T)
+        CK.candidates_cuda(inp.phi[6:9], inp.inv, inp.lo, inp.hi, cv.int(),
+                           T, tile=False)
 
 
 # --- the routes and `optimize` on the card - ---------------------------------
 
 def test_resorted_route_equals_per_ray_route(dev, dog20k):
-    """Morton sort + tile prepass against the prepass kernel: the same hits
-    bit for bit, with one closest-hit launch each and no prepass launch on
-    the sorted route."""
+    """Morton sort + tile prepass against the per-ray prepass: the same hits
+    bit for bit, with one closest-hit and one prepass launch each."""
     from drt_tpu_torch.intersect import get_intersect_fn
     ms = dog20k
     o, d = _dog_rays(ms, 30001, 13, True, dev)
@@ -197,7 +286,7 @@ def test_resorted_route_equals_per_ray_route(dev, dog20k):
     assert (CK.counters.launches, CK.counters.candidates_launches) == (1, 1)
     h_res = get_intersect_fn("cuda", incoherent="resort")(
         o, d, *geom, coherent=False)
-    assert (CK.counters.launches, CK.counters.candidates_launches) == (2, 1)
+    assert (CK.counters.launches, CK.counters.candidates_launches) == (2, 2)
     assert int(h_ray.hit.sum()) > 2000
     assert torch.equal(h_ray.tri_id, h_res.tri_id)
     assert torch.equal(h_ray.t, h_res.t)
@@ -253,8 +342,8 @@ def test_chunked_step_matches_unchunked(dev, sphere_capture, one_shift):
             return CK.intersect_cuda(o.detach(), d.detach(), v.detach(), f,
                                      fv, coherent=coherent, shift=shift)
     out = {}
-    for chunk, launches in ((0, (3 + 4, 2 + 4)),
-                            (4096, (2 * 3 * 3 + 4, 2 * 2 * 3 + 4))):
+    for chunk, launches in ((0, (3 + 4, 3 + 4)),
+                            (4096, (2 * 3 * 3 + 4, 2 * 3 * 3 + 4))):
         init, step, _ = make_train_step(fn, w, 96, 128, 1024,
                                         grad_clamp=0.0, ray_chunk=chunk)
         CK.counters.reset()
@@ -284,7 +373,7 @@ def test_optimize_one_pass_with_remesh_on_the_card(dev, sphere_capture,
                    run_info=info, device=dev)
     assert out.vertices.is_cuda and bool(torch.isfinite(out.vertices).all())
     assert out.num_faces != len(f0) and info["remesh_failures"] == 0
-    assert CK.counters.launches == 4 * 11
+    assert CK.counters.launches == CK.counters.candidates_launches == 4 * 11
     assert os.listdir(tmp_path) == ["sphere_pass00.ply"]
     v_ck, f_ck = load_ply(str(tmp_path / "sphere_pass00.ply"))
     assert len(f_ck) == out.num_faces
@@ -322,8 +411,8 @@ def test_carve_occupancy_card_matches_cpu(dev, sphere_capture):
 
 
 def test_cli_render_on_the_card(dev, tmp_path, capsys):
-    """`render` through the kernel: 4 closest-hit launches (mask, two
-    bounces, exit) and three PNGs."""
+    """`render` through the kernels: 4 closest-hit and 4 prepass launches
+    (mask, two bounces, exit) and three PNGs."""
     from drt_tpu_torch.cli import main
     from drt_tpu_torch.mesh import save_ply
     v, f = make_icosphere(subdivisions=3, radius=40.0)
@@ -332,7 +421,7 @@ def test_cli_render_on_the_card(dev, tmp_path, capsys):
     CK.counters.reset()
     main(["render", "--mesh", src, "--res", "64", "--backend", "cuda",
           "--out-dir", str(tmp_path / "img")])
-    assert CK.counters.launches == 4
+    assert (CK.counters.launches, CK.counters.candidates_launches) == (4, 4)
     assert sorted(os.listdir(tmp_path / "img")) == [
         "ball_exitdir.png", "ball_mask.png", "ball_valid.png"]
     assert "wrote ball_mask/valid/exitdir.png" in capsys.readouterr().out

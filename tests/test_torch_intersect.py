@@ -17,6 +17,8 @@ import drt_tpu_torch.intersect.cuda_kernel as CK
 from drt_tpu.intersect.brute import intersect_brute as j_brute
 from drt_tpu.intersect.culled import _chunk_aabbs as j_chunk_aabbs
 from drt_tpu.intersect.pallas_kernel import _candidates as j_candidates
+from drt_tpu.intersect.pallas_kernel import \
+    _candidates_tile as j_candidates_tile
 from drt_tpu.intersect.pallas_kernel import _coef_packed as j_coef_packed
 from drt_tpu.intersect.pallas_kernel import intersect_pallas
 from drt_tpu_torch.convert import mesh_state_from_arrays
@@ -134,8 +136,8 @@ def test_plain_oracle_matches_jax_pallas_and_brute(meshes, rays):
 
 
 def test_prepass_matches_jax(meshes):
-    """Per-ray candidate lists and counts equal the JAX prepass; the tile
-    prepass lists a superset of them."""
+    """Per-ray candidate lists and counts equal the JAX prepass, in order;
+    the tile prepass lists a superset of them."""
     jms, tms = meshes
     o, d = soup_rays(512, seed=13)
     shift = o.mean(0)
@@ -156,12 +158,173 @@ def test_prepass_matches_jax(meshes):
     tc2, tn2 = CK._candidates_tile(torch.from_numpy(ot),
                                    torch.from_numpy(dt), lo, hi, cv)
     np.testing.assert_array_equal(tn.numpy(), np.asarray(jn)[:, 0])
+    np.testing.assert_array_equal(tc.numpy(),
+                                  np.asarray(jc)[:, 0, :lo.shape[0]])
     for t in range(2):
         n = int(tn[t])
         assert n > 0
-        assert (set(tc[t, :n].tolist())
-                == set(np.asarray(jc)[t, 0, :n].tolist()))
         assert set(tc[t, :n].tolist()) <= set(tc2[t, :int(tn2[t])].tolist())
+
+
+def _tiles(o, d, rt):
+    """[T,3,RT] shifted origins and directions, padded as prepare_inputs
+    pads (origin 0, direction 1), and the shift."""
+    shift = o.mean(0)
+    pad = (-len(o)) % rt
+    o = np.concatenate([o - shift, np.zeros((pad, 3), np.float32)])
+    d = np.concatenate([d, np.ones((pad, 3), np.float32)])
+    T = len(o) // rt
+    return (np.ascontiguousarray(o.reshape(T, rt, 3).transpose(0, 2, 1)),
+            np.ascontiguousarray(d.reshape(T, rt, 3).transpose(0, 2, 1)),
+            shift)
+
+
+@pytest.mark.parametrize("mode", ["ray", "tile"])
+@pytest.mark.parametrize("rt", [64, 128, 256])
+def test_prepass_lists_equal_jax(mesh_pair, rt, mode):
+    """The port's plain prepasses give JAX's whole lists, in order, and its
+    counts: `_candidates` on incoherent rays from inside the mesh and
+    `_candidates_tile` (t_min 0) on a camera fan. JAX's argsort is stable
+    and takes -0 as +0, so its ties fall in chunk-index order, the order
+    csrc/candidates.cu must reproduce. The entry point `candidates` on CPU
+    tensors gives the same."""
+    name, v, jms, tms = mesh_pair
+    o, d = _mesh_rays(v, "inside" if mode == "ray" else "camera")
+    ot, dt, shift = _tiles(o, d, rt)
+    jlo, jhi, jcv = j_chunk_aabbs(jms.vertices, jms.faces, jms.face_valid,
+                                  jnp.asarray(shift), 128)
+    lo, hi, cv = CK._chunk_aabbs(tms.vertices, tms.faces, tms.face_valid,
+                                 torch.from_numpy(shift), 128)
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi))
+    j_fn, t_fn = ((j_candidates, CK._candidates) if mode == "ray"
+                  else (j_candidates_tile, CK._candidates_tile))
+    jc, jn = j_fn(jnp.asarray(ot), jnp.asarray(dt), jlo, jhi, jcv, 0.0)
+    NC = lo.shape[0]
+    jc, jn = np.asarray(jc)[:, 0, :NC], np.asarray(jn)[:, 0]
+    tc, tn = t_fn(torch.from_numpy(ot), torch.from_numpy(dt), lo, hi, cv)
+    assert int(tn.max()) > 0
+    np.testing.assert_array_equal(tn.numpy(), jn)
+    np.testing.assert_array_equal(tc.numpy(), jc)
+    T = ot.shape[0]
+    org = torch.from_numpy(ot).permute(1, 0, 2).reshape(3, -1).contiguous()
+    inv = CK._safe_inv(torch.from_numpy(dt)).permute(1, 0, 2).reshape(
+        3, -1).contiguous()
+    ec, en = CK.candidates(org, inv, lo, hi, cv, T, tile=mode == "tile")
+    assert torch.equal(ec, tc) and torch.equal(en, tn)
+
+
+def _reference_lists(org, inv, lo, hi, cv, T, tile):
+    """numpy float32 reference of both prepasses: each subtraction and
+    product rounded on its own, then the chunks ordered by (score, index)
+    with np.lexsort."""
+    o3 = org.numpy().reshape(3, T, -1).transpose(1, 0, 2)[..., None]
+    i3 = inv.numpy().reshape(3, T, -1).transpose(1, 0, 2)[..., None]
+    lo_t, hi_t = lo.numpy().T[None, :, None, :], hi.numpy().T[None, :, None, :]
+    if tile:                                   # [T,3,1,1] intervals
+        olo, ohi = o3.min(2, keepdims=True), o3.max(2, keepdims=True)
+        ilo, ihi = i3.min(2, keepdims=True), i3.max(2, keepdims=True)
+
+        def bounds(planes):
+            alo, ahi = planes - ohi, planes - olo
+            p = np.stack([alo * ilo, alo * ihi, ahi * ilo, ahi * ihi])
+            return p.min(0), p.max(0)
+        (t1lo, t1hi), (t2lo, t2hi) = bounds(lo_t), bounds(hi_t)
+        entry = np.minimum(t1lo, t2lo).max(1)[:, 0]          # [T,NC]
+        exit_ = np.maximum(t1hi, t2hi).min(1)[:, 0]
+        ok = (entry <= exit_) & (exit_ > 0) & cv.numpy()
+        score = np.where(ok, np.maximum(entry, 0), np.inf)
+    else:                                      # [T,3,RT,NC]
+        t1, t2 = (lo_t - o3) * i3, (hi_t - o3) * i3
+        entry = np.minimum(t1, t2).max(1)
+        exit_ = np.maximum(t1, t2).min(1)
+        ok = (entry <= exit_) & (exit_ > 0) & cv.numpy()
+        score = np.where(ok, np.maximum(entry, 0), np.inf).min(1)
+    score = score + np.float32(0)              # -0 -> +0
+    idx = np.arange(score.shape[1])
+    cand = np.stack([np.lexsort((idx, s)) for s in score]).astype(np.int32)
+    return cand, np.isfinite(score).sum(1).astype(np.int32), score
+
+
+def _box_case(nc, seed, n_rays=64):
+    """`nc` random boxes around the origin, a quarter of them invalid, and
+    incoherent rays from inside the cloud."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-10, 10, (nc, 3)).astype(np.float32)
+    h = rng.uniform(0.5, 3, (nc, 3)).astype(np.float32)
+    cv = rng.uniform(size=nc) > 0.25
+    o = rng.uniform(-6, 6, (n_rays, 3)).astype(np.float32)
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    org = torch.from_numpy(np.ascontiguousarray(o.T))
+    inv = CK._safe_inv(torch.from_numpy(np.ascontiguousarray(d.T)))
+    return (org, inv.contiguous(), torch.from_numpy(c - h),
+            torch.from_numpy(c + h), torch.from_numpy(cv))
+
+
+@pytest.mark.parametrize("mode", ["ray", "tile"])
+@pytest.mark.parametrize("nc", [1, 37, 64])
+def test_prepass_order_against_numpy(nc, mode):
+    """NC = 1, an NC that is not a power of two and one that is: the plain
+    prepass (what the kernel is held to) against an independent numpy
+    reference, lists and counts equal."""
+    org, inv, lo, hi, cv = _box_case(nc, seed=nc)
+    if nc == 1:
+        cv[:] = True
+    T = 2
+    cand, count = CK.candidates_plain(org, inv, lo, hi, cv, T,
+                                      tile=mode == "tile")
+    rc, rn, _ = _reference_lists(org, inv, lo, hi, cv, T, mode == "tile")
+    assert int(count.max()) > 0
+    np.testing.assert_array_equal(count.numpy(), rn)
+    np.testing.assert_array_equal(cand.numpy(), rc)
+
+
+@pytest.mark.parametrize("mode", ["ray", "tile"])
+def test_prepass_ties_in_index_order(mode):
+    """Equal scores keep chunk-index order: chunks 1, 3 and 5 share one box
+    (equal scores to the bit), and chunks 2 and 4 contain every origin
+    (score 0, as does a box whose entry rounds to -0: chunk 6 has its
+    corner on ray 0's origin). Invalid chunks are never listed. One tile of
+    32 rays, 8 copies of 4 that share a direction, so the tile's frustum
+    stays narrow."""
+    o = np.tile(np.array([[0, 0, 0], [0.1, 0, 0], [0, 0.1, 0], [0, 0, 0.1]],
+                         np.float32), (8, 1))
+    d = np.full((32, 3), -0.57735027, np.float32)
+    lo = np.array([[-9, -9, -9], [-5, -5, -5], [-1, -1, -1], [-5, -5, -5],
+                   [-1, -1, -1], [-5, -5, -5], [-1, -1, -1], [-5, -5, -5]],
+                  np.float32)
+    hi = np.array([[-8, -8, -8], [-4, -4, -4], [1, 1, 1], [-4, -4, -4],
+                   [1, 1, 1], [-4, -4, -4], [0, 0, 0], [-4, -4, -4]],
+                  np.float32)
+    cv = torch.tensor([True] * 7 + [False])   # chunk 7 = chunks 1, 3, 5
+    org = torch.from_numpy(np.ascontiguousarray(o.T))
+    inv = CK._safe_inv(torch.from_numpy(np.ascontiguousarray(d.T)))
+    cand, count = CK.candidates_plain(org, inv.contiguous(),
+                                      torch.from_numpy(lo),
+                                      torch.from_numpy(hi), cv, 1,
+                                      tile=mode == "tile")
+    if mode == "ray":
+        # ray 0's entry into chunk 6 is (0 - 0) * (-1.73) = -0 on each axis
+        score = CK.candidate_scores_plain(org, inv.contiguous(),
+                                          torch.from_numpy(lo),
+                                          torch.from_numpy(hi), cv, 1)
+        assert score[0, 6] == 0 and not torch.signbit(score[0, 6])
+    assert cand[0].tolist() == [2, 4, 6, 1, 3, 5, 0, 7]
+    assert count.tolist() == [7]
+    # the same with every chunk invalid: nothing listed, index order
+    none = torch.zeros(8, dtype=torch.bool)
+    cand, count = CK.candidates_plain(org, inv.contiguous(),
+                                      torch.from_numpy(lo),
+                                      torch.from_numpy(hi), none, 1,
+                                      tile=mode == "tile")
+    assert count.tolist() == [0] and cand[0].tolist() == list(range(8))
+
+
+def test_sorted_candidates_takes_minus_zero_as_zero():
+    score = torch.tensor([[0.0, -0.0, 1.0, -0.0, float("inf"), 0.5]])
+    cand, count = CK._sorted_candidates(CK._score(torch.isfinite(score),
+                                                  score))
+    assert cand.tolist() == [[0, 1, 3, 5, 2, 4]] and count.tolist() == [5]
 
 
 def test_api_wrapper_detaches_and_counts(meshes):
@@ -380,28 +543,32 @@ def test_wrappers_dispatch_on_device_and_check_inputs(meshes):
     args = (inp.phi[6:9], inp.inv, inp.lo, inp.hi, cv, T)
     CK.counters.reset()
     # CPU tensors take the plain versions: no launch is counted
-    score = CK.candidate_scores(*args)
-    assert torch.equal(score, CK.candidate_scores_plain(*args))
+    for tile in (False, True):
+        got = CK.candidates(*args, tile=tile)
+        want = CK.candidates_plain(*args, tile=tile)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     t, ids = CK.closest_hit(inp)
     tp, idp = CK.closest_hit_plain(inp)
     assert torch.equal(t, tp) and torch.equal(ids, idp)
     assert (CK.counters.launches, CK.counters.candidates_launches) == (0, 0)
     with pytest.raises(ValueError, match="CUDA"):
-        CK.candidate_scores_cuda(*args)
+        CK.candidates_cuda(*args, tile=False)
     # any other device is refused, never computed somewhere else
     with pytest.raises(ValueError, match="unsupported device"):
         CK.closest_hit(_inputs_to(inp, "meta"))
     with pytest.raises(ValueError, match="unsupported device"):
-        CK.candidate_scores(*[x.to("meta") if torch.is_tensor(x) else x
-                              for x in args])
+        CK.candidates(*[x.to("meta") if torch.is_tensor(x) else x
+                        for x in args], tile=False)
     with pytest.raises(ValueError, match="inv"):
-        CK.candidate_scores(args[0], inp.inv.double(), *args[2:])
+        CK.candidates(args[0], inp.inv.double(), *args[2:], tile=True)
     with pytest.raises(ValueError, match="chunk_valid"):
-        CK.candidate_scores(*args[:4], cv.int(), T)
+        CK.candidates(*args[:4], cv.int(), T, tile=False)
     with pytest.raises(ValueError, match="contiguous"):
-        CK.candidate_scores(args[0].t().contiguous().t(), *args[1:])
+        CK.candidates(args[0].t().contiguous().t(), *args[1:], tile=True)
     with pytest.raises(ValueError, match="tiles"):
-        CK.candidate_scores(*args[:5], T + 1)
+        CK.candidates(*args[:5], T + 1, tile=False)
+    with pytest.raises(TypeError):
+        CK.candidates(*args)                  # tile= is required
     with pytest.raises(ValueError, match="coef"):
         CK.closest_hit(inp._replace(coef=inp.coef.double()))
 
