@@ -103,9 +103,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
            file.h5`) where h5py is installed, else a line that says it was
            checked on the CPU only; and the time of each part, host clock
            with synchronization.
-Then it prints the timings, a JSON line of phase 10's times, a JSON line
-with both kernels' numbers, the card's name and power limit, and as its last
-line {"ok": true, "device": {...}}.
+11. parallel the sharded train step of drt_tpu_torch.parallel. (a) World
+           size 1 over NCCL in this process (`init_multihost`, a file://
+           address): `make_sharded_train_step` with phase 5's configuration
+           (sgd + none, HyperParams(), float32, dog_mid45k, 8 silhouette
+           views), 3 steps against 3 plain steps from the same state and
+           views, then one uadam + h1 step against one plain step: params,
+           m and the losses equal bit for bit (torch.equal), with 11
+           closest-hit and 11 prepass launches a step. The card's float
+           atomics (index_add) sum in any order, so the bitwise runs are
+           made under torch.use_deterministic_algorithms; two pairs of 3
+           sgd steps without it, in turns (plain, sharded, sharded, plain),
+           give the times and say whether they happened to match too. (b)
+           World size 2 on the one card over gloo (NCCL refuses two ranks
+           on one device): two ranks of this script, each with half of the
+           1,228,800 rays and its 4 of the 8 silhouette views, started side
+           by side with a deadline; one sgd + none step without the clamp
+           (after a warm-up step) against the single step from the same
+           state, first with each query's own shift (phase 7's allowance:
+           loss rtol 1e-5, update within 1e-2 of the single step's largest
+           entry; the rays that change triangle are counted and printed),
+           then with one shift for every query (no ray may change its
+           triangle, update within 1e-4); both ranks must hold the same
+           update, and each rank makes 7 launches of each kernel a step.
+Then it prints the timings, a JSON line of phase 10's times, a JSON line of
+phase 11's, a JSON line with both kernels' numbers, the card's name and power
+limit, and as its last line {"ok": true, "device": {...}}.
 
 It needs the repository around it (drt_tpu_torch/, native/remesh.cpp and
 reports/tuning_meshes/), a CUDA GPU, nvcc, g++ and PIL (to decode phase 10's
@@ -113,6 +136,7 @@ PNGs); it imports nothing of JAX.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -964,7 +988,236 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
     return launches, cand, tm
 
 
+PARALLEL_RANK = "--parallel-rank"     # argv[1] of the ranks of phase 11b
+RANK_DEADLINE_S = 600
+
+
+def parallel_phase(res, hp, weights, budget, mesh, cap):
+    """Phase 11a: the sharded step at world size 1 over NCCL against the
+    plain step. Returns (closest-hit launches, prepass launches) of its
+    sharded steps and its times."""
+    import torch
+    import torch.distributed as dist
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.optimize import make_train_step
+    from drt_tpu_torch.parallel import make_ray_mesh, make_sharded_train_step
+    from drt_tpu_torch.parallel.multihost import init_multihost
+    per_step = queries_per_step(weights)
+    launches = [0, 0]
+
+    def pair(rmesh, optimizer, precond, n, lr, sharded_first=False):
+        """n plain and n sharded steps from one state on the same views, in
+        that order or the other; (bitwise equal, max |dparams|, plain ms,
+        sharded ms of the last)."""
+        kw = dict(intersect_fn=get_intersect_fn("auto"), weights=weights,
+                  resy=res[0], resx=res[1], silhouette_budget=budget,
+                  momentum=hp.momentum, optimizer=optimizer, precond=precond,
+                  precond_lambda=hp.precond_lambda, cg_iters=hp.cg_iters,
+                  grad_clamp=hp.grad_clamp)
+        name = f"{optimizer} + {precond}"
+
+        def plain():
+            init, step, _ = make_train_step(**kw)
+            return run_steps(f"parallel: plain {name}", step, init(mesh),
+                             lr, mesh, cap, hp.seed, n, per_step)
+
+        def sharded():
+            (init, step, _), mesh_s, views_s = make_sharded_train_step(
+                kw, rmesh, mesh, cap.views)
+            return run_steps(
+                f"parallel: sharded {name}", step, init(mesh_s), lr, mesh_s,
+                dataclasses.replace(cap, views=views_s), hp.seed, n,
+                per_step)
+        if sharded_first:
+            (st_s, l_s, ms_s), (st_p, l_p, ms_p) = sharded(), plain()
+        else:
+            (st_p, l_p, ms_p), (st_s, l_s, ms_s) = plain(), sharded()
+        launches[0] += n * per_step[0]
+        launches[1] += n * per_step[1]
+        same = (l_p == l_s and torch.equal(st_p["params"], st_s["params"])
+                and torch.equal(st_p["m"], st_s["m"]))
+        return (same, float((st_p["params"] - st_s["params"]).abs().max()),
+                ms_p, ms_s)
+
+    with tempfile.TemporaryDirectory() as work:
+        init_multihost("file://" + os.path.join(work, "pg"), 1, 0,
+                       device="cuda")
+        rmesh = make_ray_mesh()
+        if (dist.get_backend(), rmesh.size, rmesh.device.type) != (
+                "nccl", 1, "cuda"):
+            fail(f"parallel: backend {dist.get_backend()}, mesh {rmesh}")
+        # in turns (plain, sharded, sharded, plain): the host drifts
+        same0, d0, ms_p0, ms_s0 = pair(rmesh, "sgd", "none", 3, hp.start_lr)
+        _, _, ms_p1, ms_s1 = pair(rmesh, "sgd", "none", 3, hp.start_lr,
+                                  sharded_first=True)
+        ms_plain, ms_sharded = [ms_p0, ms_p1], [ms_s0, ms_s1]
+        print(f"parallel: world size 1 (NCCL), default algorithms: sharded "
+              f"step {ms_s0:.1f}, {ms_s1:.1f} ms against plain {ms_p0:.1f}, "
+              f"{ms_p1:.1f} ms (third steps, in turns plain, sharded, "
+              f"sharded, plain); bit for bit: {same0} (max |dparams| "
+              f"{d0:.3g})")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        same1, d1, _, _ = pair(rmesh, "sgd", "none", 3, hp.start_lr)
+        same2, d2, ms_h1_p, ms_h1_s = pair(rmesh, "uadam", "h1", 1, 0.01)
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    print(f"parallel: world size 1 (NCCL), deterministic algorithms: "
+          f"sgd + none x3 bit for bit: {same1} (max |dparams| {d1:.3g}); "
+          f"uadam + h1 x1 bit for bit: {same2} (max |dparams| {d2:.3g}), "
+          f"step {ms_h1_s:.1f} ms against {ms_h1_p:.1f} ms")
+    if not (same1 and same2):
+        fail("parallel: the sharded step at world size 1 differs from the "
+             "plain step")
+    return launches, {"w1_sharded_ms": ms_sharded, "w1_plain_ms": ms_plain,
+                      "w1_bitwise_default_algorithms": same0,
+                      "w1_h1_sharded_ms": ms_h1_s, "w1_h1_plain_ms": ms_h1_p}
+
+
+def parallel_rank(rank, work):
+    """One of the two ranks of phase 11b (run as `chip_smoke.py
+    --parallel-rank RANK DIR`): gloo over a file:// address in DIR, this
+    rank's half of the rays on the card, one sgd + none step without the
+    clamp for each oracle of DIR/inputs.pt (after a warm-up step); writes
+    DIR/rank<RANK>.pt."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.parallel import make_ray_mesh, make_sharded_train_step
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(1)          # the work is on the card
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        work, "pg"), rank=rank, world_size=2)
+    rmesh = make_ray_mesh(device=dev)
+    inp = torch.load(os.path.join(work, "inputs.pt"), map_location=dev,
+                     weights_only=False)
+    out = {}
+    for name, oracle in (("own", get_intersect_fn("auto")),
+                         ("one", one_shift_oracle(inp["shift"]))):
+        rec = QueryRecorder(oracle, keep_rays=False)
+        (init, step, _), mesh, views = make_sharded_train_step(
+            dict(inp["kwargs"], intersect_fn=rec), rmesh, inp["mesh"],
+            inp["views"])
+        # the same step twice from rest: the first warms the process up,
+        # the second is timed, counted and recorded
+        step(init(mesh), inp["lr"], mesh, views, inp["ray_idx"],
+             inp["silh_idx"])
+        rec.hits.clear()
+        torch.cuda.synchronize()
+        CK.counters.reset()
+        t0 = time.time()
+        st, loss, aux = step(init(mesh), inp["lr"], mesh, views,
+                             inp["ray_idx"], inp["silh_idx"])
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        out[name] = dict(loss=float(loss), m=st["m"].cpu(), ms=ms,
+                         ids=[h.tri_id.cpu() for h in rec.hits],
+                         launches=(CK.counters.launches,
+                                   CK.counters.candidates_launches),
+                         valid_rays=int(aux["valid_rays"]))
+        print(f"parallel rank {rank}: {name} shift: {ms:.1f} ms, loss "
+              f"{float(loss):.8g}, {views.ray_dir.shape[1]} rays a view, "
+              f"launches {out[name]['launches']}", flush=True)
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def parallel_ranks_phase(res, hp, weights, budget, mesh, cap, shift):
+    """Phase 11b: two gloo ranks on the one card against the single step.
+    Returns (closest-hit launches, prepass launches) of the ranks' steps and
+    its times."""
+    import torch
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.optimize import make_train_step
+    kwargs = dict(weights=weights, resy=res[0], resx=res[1],
+                  silhouette_budget=budget, momentum=hp.momentum,
+                  grad_clamp=0.0)
+    ray_idx, silh_idx = 0, list(range(8))
+    single = {}
+    for name, oracle in (("own", get_intersect_fn("auto")),
+                         ("one", one_shift_oracle(shift))):
+        rec = QueryRecorder(oracle, keep_rays=False)
+        init, step, _ = make_train_step(intersect_fn=rec, **kwargs)
+        st, loss, aux = step(init(mesh), hp.start_lr, mesh, cap.views,
+                             ray_idx, silh_idx)
+        single[name] = dict(loss=float(loss), m=st["m"].cpu(),
+                            ids=[h.tri_id.cpu() for h in rec.hits])
+    with tempfile.TemporaryDirectory() as work:
+        torch.save(dict(mesh=mesh, views=cap.views, shift=shift,
+                        kwargs=kwargs, lr=hp.start_lr, ray_idx=ray_idx,
+                        silh_idx=silh_idx),
+                   os.path.join(work, "inputs.pt"))
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), PARALLEL_RANK,
+             str(r), work], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                left = max(1.0, RANK_DEADLINE_S - (time.time() - t0))
+                outs.append(p.communicate(timeout=left)[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            fail(f"parallel: a rank did not finish in {RANK_DEADLINE_S} s")
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            for ln in o.strip().splitlines():
+                print(f"  rank {r}: {ln}")
+            if p.returncode != 0:
+                fail(f"parallel: rank {r} exited with {p.returncode}")
+        ranks_s = time.time() - t0
+        got = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                          weights_only=False) for r in range(2)]
+    kinds = ("bounce1", "bounce2", "exit")
+    times = {"w2_ranks_s": ranks_s}
+    for name, bound in (("own", 1e-2), ("one", 1e-4)):
+        a, b = (g[name] for g in got)
+        ref = single[name]
+        if a["loss"] != b["loss"] or not torch.equal(a["m"], b["m"]):
+            fail(f"parallel: {name} shift: the two ranks hold different "
+                 "updates")
+        for r, g in enumerate(got):
+            if g[name]["launches"] != (3 + 4, 3 + 4):
+                fail(f"parallel: rank {r} launched {g[name]['launches']}, "
+                     "expected 7 of each kernel")
+        # the ranks' ray queries in ray order; silhouette view k is rank
+        # k % 2's query 3 + k // 2
+        flips = {k: int((torch.cat([a["ids"][q], b["ids"][q]])
+                         != ref["ids"][q]).sum())
+                 for q, k in enumerate(kinds)}
+        flips["silhouette"] = sum(
+            int((got[k % 2][name]["ids"][3 + k // 2]
+                 != ref["ids"][3 + k]).sum()) for k in range(8))
+        dm, m_max = (float((a["m"] - ref["m"]).abs().max()),
+                     float(ref["m"].abs().max()))
+        print(f"parallel: world size 2 (gloo, one card), {name} shift: loss "
+              f"{a['loss']:.8g} against {ref['loss']:.8g} single, max "
+              f"|dupdate| {dm:.3g} (max |update| {m_max:.3g}), valid rays "
+              f"{a['valid_rays']}, rays whose tri_id differs {flips}, step "
+              f"{a['ms']:.1f} / {b['ms']:.1f} ms (rank 0 / 1)")
+        if abs(a["loss"] - ref["loss"]) > 1e-5 * abs(ref["loss"]) \
+                or dm > bound * m_max:
+            fail(f"parallel: {name} shift: loss or update differs from the "
+                 "single step")
+        if name == "one" and any(flips.values()):
+            fail("parallel: with one shift a rank's rays hit other "
+                 "triangles than the single step's")
+        times[f"w2_{name}_rank_ms"] = [a["ms"], b["ms"]]
+        times[f"w2_{name}_flips"] = flips
+    return [sum(g[name]["launches"][k] for g in got for name in ("own", "one"))
+            for k in (0, 1)], times
+
+
 def main():
+    # cuBLAS's fixed workspace, which torch.use_deterministic_algorithms
+    # (phase 11a) asks for; it is read when cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1369,9 +1622,17 @@ def main():
         dev, RES, os.path.join(MESH_DIR, "dog_mid90k.ply"))
     cli_times["phase_s"] = time.time() - t0
 
+    # -- 11. the sharded train step -------------------------------------------
+    t0 = time.time()
+    par_a, par_times = parallel_phase(RES, hp, weights, budget, ms45, cap)
+    par_b, times_b = parallel_ranks_phase(RES, hp, weights, budget, ms45,
+                                          cap, one_shift)
+    par_times.update(times_b, phase_s=time.time() - t0)
+    par_launches, par_cand = par_a[0] + par_b[0], par_a[1] + par_b[1]
+
     launches_train, cand_train = launches, cand_launches
-    launches += lod_launches + cli_launches
-    cand_launches += lod_cand + cli_cand
+    launches += lod_launches + cli_launches + par_launches
+    cand_launches += lod_cand + cli_cand + par_cand
 
     cam_r = results["camera"]
     pre = {k: r["prepass"] for k, r in results.items()}
@@ -1386,6 +1647,7 @@ def main():
         "launches_train": launches_train,
         "launches_lod": lod_launches,
         "launches_cli": cli_launches,
+        "launches_parallel": par_launches,
         "launches_per_step": per_step,
         "shape": "camera rays 1280x960 on dog_mid90k",
         "max_abs_err": max(r["err"] for r in results.values()),
@@ -1403,6 +1665,7 @@ def main():
         "launches_train": cand_train,
         "launches_lod": lod_cand,
         "launches_cli": cli_cand,
+        "launches_parallel": par_cand,
         "launches_per_step": per_step_prepass,
         "shape": "ray mode: bounce-2 rays 1280x960 on dog_mid45k",
         "max_abs_err": max(r["err"] for r in pre.values()),
@@ -1423,6 +1686,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(json.dumps({"cli": cli_times}))
+    print(json.dumps({"parallel": par_times}))
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
           else f"nvidia-smi failed: {smi.stderr.strip()}")
@@ -1432,4 +1696,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [PARALLEL_RANK]:
+        parallel_rank(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

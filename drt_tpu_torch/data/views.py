@@ -72,6 +72,38 @@ class CaptureData:
                 yield int(i)
 
 
+def downsample_capture(cap: CaptureData, k: int) -> CaptureData:
+    """Subsample a capture's pixel grid by k in each dimension, keeping
+    pixels (k*i, k*j), so that one full-resolution synthesis serves every
+    lower resolution. The intrinsics scale exactly: u' = u/k, so
+    K' = diag(1/k, 1/k, 1) @ K (up to the half-pixel-centre offset, less
+    than k/2 px). K_inv is inverted in float64 and then cast, as in the JAX
+    package."""
+    v = cap.views
+    resy, resx = cap.resy // k, cap.resx // k
+
+    def grid(a):
+        """[V,N,...] row-major -> subsampled and flattened again."""
+        full = a.reshape((a.shape[0], cap.resy, cap.resx) + a.shape[2:])
+        sub = full[:, ::k, ::k]
+        return sub.reshape((a.shape[0], resy * resx) + a.shape[2:])
+
+    scale = torch.tensor([1.0 / k, 1.0 / k, 1.0], dtype=v.K.dtype,
+                         device=v.K.device)
+    K = v.K * scale[None, :, None]
+    origin = v.origin if v.origin.shape[1] == 1 else grid(v.origin)
+    views = ViewBatch(
+        screen_pixel=grid(v.screen_pixel),
+        valid=grid(v.valid),
+        mask=v.mask[:, ::k, ::k].contiguous(),
+        origin=origin,
+        ray_dir=grid(v.ray_dir),
+        R=v.R, K=K, R_inv=v.R_inv,
+        K_inv=torch.linalg.inv(K.double()).to(v.K_inv.dtype),
+    )
+    return dataclasses.replace(cap, resy=resy, resx=resx, views=views)
+
+
 def stack_views(view_list, dtype=torch.float32, device="cuda") -> ViewBatch:
     """view_list: dicts with numpy screen_pixel/valid/mask/origin/ray_dir/
     R/K. Inverses are computed here in float64."""

@@ -9,6 +9,38 @@ import torch
 from drt_tpu_torch.geometry.vec import clip, cross, dot3, safe_normalize
 
 
+def _masked_mean(x, mask):
+    cnt = torch.clamp(mask.sum(), min=1)
+    return torch.where(mask, x, torch.zeros_like(x)).sum() / cnt
+
+
+def face_areas(triangles):
+    """Twice the area: the parallelogram norm, as the reference's `JIT_area`
+    (DiffRender.py:124-131), which omits the 1/2."""
+    e1 = triangles[..., 1, :] - triangles[..., 0, :]
+    e2 = triangles[..., 2, :] - triangles[..., 0, :]
+    return torch.linalg.norm(cross(e1, e2), dim=-1)
+
+
+def area_var(triangles, face_valid):
+    """Relative variance of face areas (reference JIT_area_var,
+    DiffRender.py:134-138); the mean is detached there too."""
+    area = face_areas(triangles)
+    ave = _masked_mean(area, face_valid).detach()
+    rel = (area - ave) / clip(ave, 1e-20)
+    return _masked_mean(rel * rel, face_valid)
+
+
+def edge_var(vertices, edges, edge_valid):
+    """Relative variance of edge lengths (reference JIT_edge_var,
+    DiffRender.py:141-147); the mean is detached."""
+    ln = torch.linalg.norm(vertices[edges[:, 0]] - vertices[edges[:, 1]],
+                           dim=-1)
+    ave = _masked_mean(ln, edge_valid).detach()
+    rel = (ln - ave) / clip(ave, 1e-20)
+    return _masked_mean(rel * rel, edge_valid)
+
+
 def edge_face_normals(vertices, faces, edge_faces):
     """Unit normals of the two faces adjacent to each edge
     (reference edge_face_norm, DiffRender.py:149-163)."""

@@ -42,6 +42,12 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def reflect(wo: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection of outgoing dir `wo` about normal `n`
+    (reference DiffRender.py:31-33)."""
+    return -wo + 2.0 * dot3(wo, n, keepdims=True) * n
+
+
 def refract(wo: torch.Tensor, n: torch.Tensor, eta,
             compat_cos_from_incident: bool = False):
     """Snell refraction (reference `Refract`, DiffRender.py:35-49).

@@ -27,6 +27,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from drt_tpu_torch.config import HyperParams
 from drt_tpu_torch.data.views import CaptureData
@@ -55,12 +56,41 @@ def default_silhouette_budget(num_edges: int) -> int:
     return b
 
 
+def _reduce_over_ranks(ray_mesh, aux, *tensors):
+    """Sum `tensors` and aux's floating parts over the ranks of `ray_mesh`
+    with one all_reduce of one flat buffer (in the first tensor's dtype),
+    aux's integer counters with one more, and take the largest
+    silh_edge_max with a third. aux is updated in place; returns the summed
+    tensors, each in its own dtype and shape."""
+    group = ray_mesh.group
+    floats = [k for k, v in aux.items()
+              if k != "silh_edge_max" and v.is_floating_point()]
+    ints = [k for k, v in aux.items()
+            if k != "silh_edge_max" and not v.is_floating_point()]
+    parts = list(tensors) + [aux[k] for k in floats]
+    buf = torch.cat([x.reshape(-1).to(tensors[0].dtype) for x in parts])
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    out, i = [], 0
+    for x in parts:
+        out.append(buf[i:i + x.numel()].reshape(x.shape).to(x.dtype))
+        i += x.numel()
+    aux.update(zip(floats, out[len(tensors):]))
+    if ints:
+        counts = torch.stack([aux[k].to(torch.int64) for k in ints])
+        dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=group)
+        aux.update(zip(ints, counts.unbind()))
+    silh = aux["silh_edge_max"].to(torch.int64).reshape(1)
+    dist.all_reduce(silh, op=dist.ReduceOp.MAX, group=group)
+    aux["silh_edge_max"] = silh[0]
+    return out[:len(tensors)]
+
+
 def make_train_step(intersect_fn: Callable, weights: LossWeights,
                     resy: int, resx: int, silhouette_budget: int,
                     momentum: float = 0.95, optimizer: str = "sgd",
                     precond: str = "none", precond_lambda: float = 29.0,
                     cg_iters: int = 64, grad_clamp: float = 1.0,
-                    ray_chunk: int = -1):
+                    ray_chunk: int = -1, ray_mesh=None):
     """Build (init_state, step, final_vertices) for one LOD pass.
 
     step(state, lr, mesh, views, ray_view_idx, silh_view_idx)
@@ -89,6 +119,18 @@ def make_train_step(intersect_fn: Callable, weights: LossWeights,
     it). Under the Sobolev reparameterization the u-space gradient scale is
     different and clamping would bring back the saturation the
     preconditioner removes.
+
+    ray_mesh: a `RayMesh` (drt_tpu_torch.parallel) when `views` holds this
+      rank's shard of the rays (parallel.shard_views) and the mesh and the
+      state are the same on every rank (parallel.replicate). Each rank then
+      traces its own rays, takes the silhouette views
+      silh_view_idx[rank::size] and, on rank 0 alone, the smoothness term,
+      so that each term is counted once. One all_reduce sums the gradient,
+      the loss and its parts (and h1's per-vertex evidence, before c_bar is
+      taken from it), one more the trace counters, and one takes the largest
+      silhouette-edge count; every rank then applies the same update. Every
+      rank must pass the same lr, ray_view_idx and silh_view_idx. None (the
+      default) is the single-process step.
     """
     if optimizer not in ("sgd", "adam", "uadam"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
@@ -121,8 +163,13 @@ def make_train_step(intersect_fn: Callable, weights: LossWeights,
 
     def loss_and_grad(state, mesh, views, ray_view_idx, silh_view_idx, w,
                       collect_evidence=False):
-        """total_loss under weights w and its gradient in the parameters;
-        aux comes back detached so it does not keep the graph alive."""
+        """total_loss under weights w and its gradient in the parameters
+        (this rank's share of them under a ray mesh); aux comes back
+        detached so it does not keep the graph alive."""
+        if ray_mesh is not None:
+            silh_view_idx = list(silh_view_idx)[ray_mesh.rank::ray_mesh.size]
+            w = w._replace(vh_w=w.vh_w if silh_view_idx else 0.0,
+                           sm_w=0.0 if ray_mesh.rank else w.sm_w)
         p = state["params"].detach().requires_grad_(True)
         if precond == "sobolev":
             vert = sobolev_solve(p, mesh.neighbors, mesh.neighbor_valid,
@@ -154,6 +201,9 @@ def make_train_step(intersect_fn: Callable, weights: LossWeights,
                 weights._replace(ray_w=0.0))
             ev = aux.pop("vertex_evidence")     # float32 counts
             aux.update({k: aux_reg[k] for k in ("vh", "sm", "silh_edge_max")})
+            if ray_mesh is not None:
+                l_ray, l_reg, g_ray, g_reg, ev = _reduce_over_ranks(
+                    ray_mesh, aux, l_ray, l_reg, g_ray, g_reg, ev)
             # Equalize: vertices with little refraction evidence get the
             # same step scale as high-evidence ones; c_bar keeps the global
             # ray/regularizer balance of the reference's weighted sum. The
@@ -175,6 +225,8 @@ def make_train_step(intersect_fn: Callable, weights: LossWeights,
         else:
             loss, aux, g = loss_and_grad(state, mesh, views, ray_view_idx,
                                          silh_view_idx, weights)
+            if ray_mesh is not None:
+                loss, g = _reduce_over_ranks(ray_mesh, aux, loss, g)
         g = limit_grad(g, clamp)
         aux["max_grad"] = g.abs().max()
 

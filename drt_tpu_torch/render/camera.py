@@ -21,14 +21,23 @@ class CameraM(NamedTuple):
     K_inv: torch.Tensor      # [3,3]
 
 
-def generate_rays(resy: int, resx: int, camera: CameraM):
-    """Back-project every pixel: (origin [N,3], dir [N,3] unit), pixel (x,y)
-    at row-major index y*resx + x, pixel centres at integer coordinates on
-    the z=1 plane (reference captured_data.py:23-40)."""
+def generate_rays(resy: int, resx: int, camera: CameraM,
+                  supersample: int = 1):
+    """Back-project every pixel: (origin [N,3], dir [N,3] unit),
+    N = resy*resx*supersample^2, pixel centres at integer coordinates on the
+    z=1 plane (reference captured_data.py:23-40); with supersample 1, pixel
+    (x,y) is at row-major index y*resx + x.
+
+    supersample s > 1 gives each pixel an s x s grid of sub-pixel rays at
+    (i + 0.5)/s - 0.5 along each axis, row-major over the fine
+    (resy*s x resx*s) grid: the sub-rays of pixel (y,x) sit at fine rows
+    s*y..s*y+s-1 and columns s*x..s*x+s-1. s = 1 gives the integer centres
+    bit for bit."""
     K_inv, R_inv = camera.K_inv, camera.R_inv
     kw = dict(dtype=K_inv.dtype, device=K_inv.device)
-    ys = torch.arange(resy, **kw)
-    xs = torch.arange(resx, **kw)
+    s = int(supersample)
+    ys = (torch.arange(resy * s, **kw) + 0.5) / s - 0.5
+    xs = (torch.arange(resx * s, **kw) + 0.5) / s - 0.5
     py, px = torch.meshgrid(ys, xs, indexing="ij")
     pixel = torch.stack([px, py, torch.ones_like(py)], dim=2).reshape(-1, 3)
     cam_p = pixel @ K_inv.T

@@ -9,12 +9,29 @@ lanes so the backward pass never sees NaN.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, NamedTuple
 
 import torch
 
 from drt_tpu_torch.geometry.mt import moller_trumbore_verts
-from drt_tpu_torch.geometry.vec import clip, dot3, refract
+from drt_tpu_torch.geometry.vec import clip, dot3, fresnel_dielectric, refract
+
+
+def debug_enabled() -> bool:
+    """Debug mode (the reference's `debug` flag, DiffRender.py:15):
+    DRT_TPU_DEBUG=1 turns on the TIR cross-check of FrDielectric against
+    Refract (DiffRender.py:524-525) and the finite-ray check after each
+    bounce. Each check reads a count back to the host, so with the variable
+    unset neither runs."""
+    return os.environ.get("DRT_TPU_DEBUG", "0") not in ("", "0")
+
+
+def _debug_check(pred: torch.Tensor, msg: str) -> None:
+    """Print the number of lanes where `pred` is False, if there are any."""
+    bad = int(torch.logical_not(pred).sum())
+    if bad:
+        print(f"DRT_TPU_DEBUG VIOLATION [{msg}]: {bad} lanes", flush=True)
 
 
 class TraceResult(NamedTuple):
@@ -45,9 +62,13 @@ def refract_ray(origin, direction, t, n, int_ior, ext_ior,
     eta_t = torch.where(entering, inn, ext)
     n_f = torch.where(entering[..., None], n, -n)
     # The reference also evaluates the Fresnel reflectance here and keeps
-    # only the refracted branch (DiffRender.py:520-530); nothing reads R.
+    # only the refracted branch (DiffRender.py:520-530); nothing reads R,
+    # so only the debug check computes it.
     tir, wt = refract(wo, n_f, eta_i / eta_t,
                       compat_cos_from_incident=compat)
+    if debug_enabled():
+        tir_fr, _R = fresnel_dielectric(torch.abs(cos_i), eta_i, eta_t)
+        _debug_check(tir_fr == tir, "TIR FrDielectric/Refract mismatch")
     if compat:
         offset = offset_eps
     else:
@@ -110,6 +131,11 @@ def _bounce(origin, direction, active, mesh, intersect_fn, int_ior, ext_ior,
     m = active[..., None]
     o_out, d_out = _park_rays(torch.where(m, new_o, origin),
                               torch.where(m, new_d, direction), active, mesh)
+    if debug_enabled():
+        # active lanes must carry finite rays into the next query
+        fin = torch.isfinite(o_out).all(-1) & torch.isfinite(d_out).all(-1)
+        _debug_check(torch.logical_not(active) | fin,
+                     "non-finite ray after bounce")
     return o_out, d_out, active, torch.where(active, safe_id, 0)
 
 

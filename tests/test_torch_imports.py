@@ -3,7 +3,8 @@ and PIL only where a function needs them. A fresh interpreter (with
 JAX_PLATFORMS unset) imports every module of `drt_tpu_torch`, found by
 walking the package, and `chip_smoke` as a module without running it; the
 test then reads its `sys.modules`. The GPU machines the port runs on have no
-JAX, so a stray import would otherwise show only there."""
+JAX, so a stray import would otherwise show only there. A second test lists,
+module by module, the public names of drt_tpu that the port lacks."""
 
 import json
 import os
@@ -46,9 +47,76 @@ def test_port_imports_no_jax_and_no_optional_packages():
     for name in ("drt_tpu_torch.cli", "drt_tpu_torch.data.carve",
                  "drt_tpu_torch.data.captured", "drt_tpu_torch.utils.images",
                  "drt_tpu_torch.intersect.cuda_kernel",
-                 "drt_tpu_torch.optimize.loop"):
+                 "drt_tpu_torch.optimize.loop",
+                 "drt_tpu_torch.parallel.sharding",
+                 "drt_tpu_torch.parallel.multihost",
+                 "drt_tpu_torch.geometry.laplacian"):
         assert name in mods
     assert not any(m.startswith(f) for m in got["before"]
                    for f in ("jax", "drt_tpu"))
     loaded = [m for m in got["after"] if m.split(".")[0] in FORBIDDEN]
     assert loaded == [], loaded
+
+
+def _public_names(path, package):
+    """{name: defining module} of the public top-level names of a source
+    file: its functions, classes and assignments, and for an __init__.py
+    the names it imports (re-exports), credited to the module they come
+    from."""
+    import ast
+    mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+    init = mod.endswith(".__init__")
+    mod = mod[:-len(".__init__")] if init else mod
+    out = {}
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = mod
+        elif isinstance(node, ast.Assign):
+            out.update({t.id: mod for t in node.targets
+                        if isinstance(t, ast.Name)})
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            out[node.target.id] = mod
+        elif init and isinstance(node, ast.ImportFrom) and \
+                (node.module or "").startswith(package):
+            out.update({a.asname or a.name: node.module for a in node.names})
+    return {k: v for k, v in out.items() if not k.startswith("_")}
+
+
+def test_port_has_every_public_name_of_the_jax_package():
+    """Module by module, the public top-level names of drt_tpu that the
+    module of the same path in drt_tpu_torch lacks are exactly the named
+    exceptions: utils/cache.py (there is no XLA cache to point), the Pallas
+    kernel's module (its counterpart is intersect/cuda_kernel.py) and
+    render/silhouette.py's make_edge_sampler (an autograd.Function in the
+    port)."""
+    import importlib
+    jax_root = os.path.join(REPO, "drt_tpu")
+    lacking = {}                      # defining module -> names lacked
+    for dirpath, _, files in os.walk(jax_root):
+        for fname in sorted(files):
+            if not fname.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fname)
+            names = _public_names(path, "drt_tpu")
+            rel = os.path.relpath(path, jax_root)[:-3].replace(os.sep, ".")
+            port = "drt_tpu_torch" + ("." + rel).replace(".__init__", "")
+            if os.path.exists(os.path.join(REPO, "drt_tpu_torch",
+                                           os.path.relpath(path, jax_root))):
+                have = vars(importlib.import_module(port))
+            else:
+                have = {}
+            for name, origin in names.items():
+                if name not in have:
+                    lacking.setdefault(origin, set()).add(name)
+
+    def all_of(module):
+        path = os.path.join(REPO, *module.split(".")) + ".py"
+        return set(_public_names(path, "drt_tpu"))
+
+    assert lacking == {
+        "drt_tpu.utils.cache": all_of("drt_tpu.utils.cache"),
+        "drt_tpu.intersect.pallas_kernel": all_of(
+            "drt_tpu.intersect.pallas_kernel"),
+        "drt_tpu.render.silhouette": {"make_edge_sampler"},
+    }
