@@ -126,9 +126,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
            then with one shift for every query (no ray may change its
            triangle, update within 1e-4); both ranks must hold the same
            update, and each rank makes 7 launches of each kernel a step.
+12. groups the oracle's options, on dog_mid90k's camera, bounce-2, exit and
+           silhouette queries under a capture of dog_mid45k (so that exit
+           rays hit): at groups of 1, 4 and 16 chunks, both kernels against
+           their plain versions (closest hit bit for bit; the prepass's
+           whole lists and counts over the group boxes, in both modes), the
+           hits against group 1 within phase 2's tie allowance, a 4,096-ray
+           sample (and up to 1,024 hits) against the brute-force oracle as
+           in phase 2, and both kernels' times and bounds; the bounce-2
+           query at t_min = the median t of its hits, against its plain
+           version and the brute oracle with that t_min; and a camera query
+           of 262,144 rays (the middle rows of phase 2's view) on
+           dog_mid45k subdivided three times (2,493,568 faces, above the
+           prepass kernel's MAX_CHUNKS = 16,384 chunks) through
+           `intersect_cuda(group=None)`: the group it took (the least power
+           of two that fits), one launch of each kernel, the same checks,
+           its time and the phase's seconds.
 Then it prints the timings, a JSON line of phase 10's times, a JSON line of
-phase 11's, a JSON line with both kernels' numbers, the card's name and power
-limit, and as its last line {"ok": true, "device": {...}}.
+phase 11's and one of phase 12's, a JSON line with both kernels' numbers
+(with their times at each group on phase 12's bounce-2 query), the card's
+name and power limit, and as its last line {"ok": true, "device": {...}}.
 
 It needs the repository around it (drt_tpu_torch/, native/remesh.cpp and
 reports/tuning_meshes/), a CUDA GPU, nvcc, g++ and PIL (to decode phase 10's
@@ -255,7 +272,8 @@ def compare_hits(name, ref_t, ref_id, t, ids, cond=None):
 
 
 def slab_pairs(inp, t_hit):
-    """(ray, chunk) pairs, over the chunks on the ray's tile list, whose
+    """(ray, chunk) pairs, over the chunks on the ray's tile list (a listed
+    group's chunks, with groups: `chunk_lists`), whose
     AABB the ray's own slab test enters: all of them, and those it enters
     no later than its closest hit t_hit [Np] (inf on a miss). The second is
     the least work of the function: a chunk entered before the hit may hold
@@ -263,11 +281,13 @@ def slab_pairs(inp, t_hit):
     (tile, chunk) pairs in which some ray of the tile makes a pair of the
     second kind: the fewest chunks the tile's block must fetch."""
     import torch
-    T, NC = inp.cand.shape
+    from drt_tpu_torch.intersect.cuda_kernel import chunk_lists
+    cand, count = chunk_lists(inp)
+    T, NC = cand.shape
     RT = inp.phi.shape[1] // T
-    rank = torch.arange(NC, device=inp.cand.device)
-    listed = torch.zeros(T, NC, dtype=torch.bool, device=inp.cand.device)
-    listed.scatter_(1, inp.cand.long(), inp.count[:, None] > rank)
+    rank = torch.arange(NC, device=cand.device)
+    listed = torch.zeros(T, NC, dtype=torch.bool, device=cand.device)
+    listed.scatter_(1, cand.long(), count[:, None] > rank)
     o = inp.phi[6:9].reshape(3, T, RT)
     iv = inp.inv.reshape(3, T, RT)
     th = t_hit.reshape(T, RT, 1)
@@ -282,7 +302,8 @@ def slab_pairs(inp, t_hit):
             e, x = torch.minimum(t1, t2), torch.maximum(t1, t2)
             t_entry = e if t_entry is None else torch.maximum(t_entry, e)
             t_exit = x if t_exit is None else torch.minimum(t_exit, x)
-        hit = (t_entry <= t_exit) & (t_exit > 0) & listed[s:s + g, None]
+        hit = ((t_entry <= t_exit) & (t_exit > inp.t_min)
+               & listed[s:s + g, None])
         n_all += int(hit.sum())
         cut = hit & (t_entry <= th[s:s + g])
         n_cut += int(cut.sum())
@@ -299,13 +320,15 @@ def kernel_bound(inp, C, t_hit):
     unfused multiply or add issues at the FMA rate, half the FP32 FLOP/s
     peak (which counts an FMA as two)."""
     import torch
+    from drt_tpu_torch.intersect.cuda_kernel import chunk_lists
     count = inp.count.long()
     pairs_all, pairs, tile_pairs = slab_pairs(inp, t_hit)
     visits = pairs * C
     ops = visits * 34 * 2
-    used = count[:, None] > torch.arange(inp.cand.shape[1],
-                                         device=count.device)
-    distinct = int(inp.cand[used].unique().numel())
+    cand, n_chunks = chunk_lists(inp)
+    used = n_chunks[:, None].long() > torch.arange(cand.shape[1],
+                                                   device=count.device)
+    distinct = int(cand[used].unique().numel())
     nbytes = (inp.phi.numel() * 4 + inp.inv.numel() * 4
               + distinct * (19 * C + 6) * 4 + int(count.sum()) * 4
               + count.numel() * 4 + inp.phi.shape[1] * 8)
@@ -342,55 +365,73 @@ def prepass_bound(n_rays, n_tiles, n_chunks, n_valid, tile, count):
             else "bytes")
 
 
-def check_prepass(name, o, geom, inp, coherent):
+def prepass_args(o, geom, inp):
+    """(org, inv, lo, hi, valid, T) of the prepass `prepare_inputs` ran for
+    `inp`: its rays and the boxes it scored, the chunks' or, with groups,
+    the groups' (the query's own shift, the mean ray origin)."""
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    lo, hi, cv = CK._chunk_aabbs(*geom, o.float().mean(dim=0), CK.TRI_CHUNK)
+    _, _, boxes = CK._grouped_boxes(lo, hi, cv, inp.group)
+    return (inp.phi[6:9], inp.inv, *boxes, inp.count.shape[0])
+
+
+def check_prepass(name, o, geom, inp, coherent, mode=None, timed=True):
     """The prepass kernel against its plain version on one query's own
-    inputs (`_candidates` for an incoherent query, `_candidates_tile` for
-    a coherent one): the whole [T,NC] lists and the counts equal, and
-    equal to what `prepare_inputs` got from the kernel. Then the kernel's
-    time and its bound, and the times on the card of the torch stages it
-    replaces: the stable sort and count over the plain scores (ray mode),
-    the whole `_candidates_tile` (tile mode)."""
+    inputs (`_candidates` in ray mode, an incoherent query's, and
+    `_candidates_tile` in tile mode, a coherent one's; `mode` picks the
+    other), over the boxes the query scored (groups of `inp.group` chunks)
+    at its t_min: the whole [T,NG] lists and the counts equal, and in the
+    query's own mode equal to what `prepare_inputs` got from the kernel.
+    Then (`timed`) the kernel's time and its bound, and the times on the
+    card of the torch stages it replaces: the stable sort and count over
+    the plain scores (ray mode), the whole `_candidates_tile` (tile
+    mode)."""
     import torch
     from drt_tpu_torch.intersect import cuda_kernel as CK
-    T, NC = inp.cand.shape
-    _, _, cv = CK._chunk_aabbs(*geom, o.float().mean(dim=0), CK.TRI_CHUNK)
-    org = inp.phi[6:9]
+    tile = coherent if mode is None else mode == "tile"
+    args = prepass_args(o, geom, inp)
+    org, _, lo, hi, cv, T = args
+    NC = lo.shape[0]
     RT = org.shape[1] // T
-    args = (org, inp.inv, inp.lo, inp.hi, cv, T)
-    cand_k, count_k = CK.candidates_cuda(*args, tile=coherent)
+    cand_k, count_k = CK.candidates_cuda(*args, tile=tile, t_min=inp.t_min)
     torch.cuda.synchronize()
     ot = org.reshape(3, T, RT).permute(1, 0, 2)
     dt = inp.phi[0:3].reshape(3, T, RT).permute(1, 0, 2)
-    plain = CK._candidates_tile if coherent else CK._candidates
+    plain = CK._candidates_tile if tile else CK._candidates
     t0 = time.time()
-    cand_p, count_p = plain(ot, dt, inp.lo, inp.hi, cv)
+    cand_p, count_p = plain(ot, dt, lo, hi, cv, inp.t_min)
     torch.cuda.synchronize()
     ms_p = (time.time() - t0) * 1e3
     same = bool(torch.equal(count_k, count_p) and torch.equal(cand_k, cand_p)
-                and torch.equal(cand_k, inp.cand)
-                and torch.equal(count_k, inp.count))
+                and (tile != coherent or (torch.equal(cand_k, inp.cand)
+                                          and torch.equal(count_k,
+                                                          inp.count))))
     # chunk indices and counts are integers: the largest difference
     err = float(max((cand_k.long() - cand_p.long()).abs().max(),
                     (count_k.long() - count_p.long()).abs().max()))
-    mode = "tile" if coherent else "ray"
+    mode = "tile" if tile else "ray"
     print(f"{name} prepass kernel ({mode} mode) vs plain: whole lists and "
           f"counts equal: {same} (largest difference {err:g})")
     if not same:
         fail(f"{name}: the prepass kernel differs from its plain version")
-    ms_k = cuda_ms(lambda: CK.candidates_cuda(*args, tile=coherent), 20)
-    if coherent:
-        ms_r = cuda_ms(lambda: plain(ot, dt, inp.lo, inp.hi, cv), 5)
+    n_valid = int(cv.sum())
+    bound, bound_by = prepass_bound(org.shape[1], T, NC, n_valid, tile,
+                                    count_k)
+    if not timed:
+        return dict(plain_ms=ms_p, bound_ms=bound, bound_by=bound_by,
+                    err=err, mode=mode)
+    ms_k = cuda_ms(lambda: CK.candidates_cuda(*args, tile=tile,
+                                              t_min=inp.t_min), 20)
+    if tile:
+        ms_r = cuda_ms(lambda: plain(ot, dt, lo, hi, cv, inp.t_min), 5)
         replaced = "_candidates_tile in torch"
     else:
-        score_p = CK.candidate_scores_plain(*args)
+        score_p = CK.candidate_scores_plain(*args, inp.t_min)
         ms_r = cuda_ms(lambda: CK._sorted_candidates(score_p), 5)
         replaced = "sort and count of the plain scores"
-    n_valid = int(cv.sum())
-    bound, bound_by = prepass_bound(org.shape[1], T, NC, n_valid, coherent,
-                                    count_k)
     p2 = 1 << max(NC - 1, 0).bit_length()
     smem = 2 * RT * 16 + p2 * 8 + NC * 4
-    print(f"{name} prepass: {T} tiles of {RT} x {NC} chunks ({n_valid} "
+    print(f"{name} prepass: {T} tiles of {RT} x {NC} boxes ({n_valid} "
           f"valid), {mode} mode, kernel {ms_k:.4f} ms (dynamic shared "
           f"memory {smem} B a block), bound {bound:.4f} ms "
           f"({bound_by}, {bound / ms_k:.0%} of it); replaced torch stages "
@@ -401,17 +442,22 @@ def check_prepass(name, o, geom, inp, coherent):
 
 
 def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
-                brute_all=False):
-    """One oracle query: the closest-hit kernel against its plain version
-    on the card (bit for bit) and against the brute-force oracle (a
-    65,536-ray sample, or all rays), then the kernel's, the plain version's
-    and the whole query's times and the bound; on an incoherent query also
-    the prepass kernel against its plain version. plain_reps=0 times the
-    plain version by its one checking run."""
+                brute_all=False, group=None, t_min=0.0,
+                brute_sample=BRUTE_SAMPLE, hit_sample=8192, both_modes=False):
+    """One oracle query (`group` and `t_min` as `intersect_cuda` takes
+    them): the closest-hit kernel against its plain version on the card
+    (bit for bit) and against the brute-force oracle with the same t_min (a
+    sample of `brute_sample` rays and up to `hit_sample` of the rays that
+    hit, or all rays), then the kernel's, the plain version's and the whole
+    query's times and the bound; then the prepass kernel against its plain
+    version, in the query's own mode (and, `both_modes`, the other).
+    plain_reps=0 times the plain version by its one checking run. Returns
+    the times, and the hits as `hits` (t, tri_id)."""
     import torch
     from drt_tpu_torch.intersect import cuda_kernel as CK
     from drt_tpu_torch.intersect.brute import intersect_brute
-    inp = CK.prepare_inputs(o, d, *geom, coherent=coherent)
+    inp = CK.prepare_inputs(o, d, *geom, coherent=coherent, group=group,
+                            t_min=t_min)
     N = o.shape[0]
     t_k, id_k = (x[:N] for x in CK.closest_hit_cuda(inp))
     torch.cuda.synchronize()
@@ -425,17 +471,20 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
     print(f"{name} kernel vs plain bit for bit: {same_bits}")
     if not same_bits:
         fail(f"{name}: kernel and plain version differ")
-    if brute_all or N <= BRUTE_SAMPLE:
+    if t_min and bool((t_k[id_k >= 0] <= t_min).any()):
+        fail(f"{name}: a hit at or before t_min {t_min}")
+    if brute_all or N <= brute_sample:
         idx, what = torch.arange(N, device=o.device), "all rays"
     else:
-        # a uniform sample, and up to 8,192 of the rays the kernel hits: an
-        # exit query hits with one ray in a thousand
-        idx = torch.randperm(N, generator=gen)[:BRUTE_SAMPLE].to(o.device)
+        # a uniform sample, and some of the rays the kernel hits: an exit
+        # query hits with one ray in a thousand
+        idx = torch.randperm(N, generator=gen)[:brute_sample].to(o.device)
         hit_idx = torch.nonzero(id_k >= 0)[:, 0]
-        pick = torch.randperm(hit_idx.numel(), generator=gen)[:8192]
+        pick = torch.randperm(hit_idx.numel(), generator=gen)[:hit_sample]
         idx = torch.cat([idx, hit_idx[pick.to(o.device)]]).unique()
-        what = f"{BRUTE_SAMPLE} sample and {pick.numel()} of the hits"
-    hb = intersect_brute(o[idx], d[idx], *geom)
+        what = f"{brute_sample} sample and {pick.numel()} of the hits"
+    hb = intersect_brute(o[idx], d[idx], *geom, t_min=t_min,
+                         tri_chunk=max(512, geom[1].shape[0] // 512))
     hit_id = torch.where(id_k[idx] >= 0, id_k[idx], hb.tri_id)
     compare_hits(f"{name} kernel vs brute ({what})", hb.t, hb.tri_id,
                  t_k[idx], id_k[idx],
@@ -443,14 +492,14 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
     ms_k = cuda_ms(lambda: CK.closest_hit_cuda(inp), 20)
     if plain_reps:
         ms_p = cuda_ms(lambda: CK.closest_hit_plain(inp), plain_reps)
-    ms_q = cuda_ms(lambda: CK.intersect_cuda(o, d, *geom,
-                                             coherent=coherent), 5)
+    ms_q = cuda_ms(lambda: CK.intersect_cuda(o, d, *geom, coherent=coherent,
+                                             group=group, t_min=t_min), 5)
     bound, bound_by, visits, visits_uncut, nbytes, t_ops, tile_pairs = \
         kernel_bound(inp, CK.TRI_CHUNK, t_full)
     cnt = inp.count.float()
     T = inp.count.shape[0]
     chunk_bytes = CK.N_COEF * CK.TRI_CHUNK * 4
-    listed = int(inp.count.sum())
+    listed = int(inp.count.sum()) * inp.group
     per_tile = inp.phi.shape[1] // T // CK.BLOCK_RAYS
     print(f"{name}: coefficient traffic of {T} tiles of "
           f"{inp.phi.shape[1] // T} rays, {per_tile} blocks each: at least "
@@ -467,8 +516,11 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
           f"{N / ms_k * 1e3 / 1e6:.1f} Mrays/s kernel, "
           f"{N / ms_q * 1e3 / 1e6:.1f} Mrays/s query")
     res = dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound, bound_by=bound_by,
-               err=err, query_ms=ms_q)
+               err=err, query_ms=ms_q, group=inp.group, hits=(t_k, id_k))
     res["prepass"] = check_prepass(name, o, geom, inp, coherent)
+    if both_modes:
+        check_prepass(name, o, geom, inp, coherent,
+                      mode="ray" if coherent else "tile", timed=False)
     return res
 
 
@@ -1126,6 +1178,132 @@ def parallel_rank(rank, work):
     dist.destroy_process_group()
 
 
+GROUPS = (1, 4, 16)
+BIG_SUBDIVISIONS = 3      # dog_mid45k's 38,962 faces -> 2,493,568
+BIG_RAYS = 262144
+
+
+def midpoint_subdivide(v, f):
+    """One 1-to-4 midpoint subdivision of the triangles f [F,3] of v [V,3]:
+    each edge gets its midpoint once, and a face's four children follow one
+    another, so chunks of consecutive faces stay as tight as the parent's
+    (a Morton-ordered mesh stays Morton-ordered)."""
+    import torch
+    V, F = v.shape[0], f.shape[0]
+    e = torch.cat([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]).sort(dim=1)[0]
+    key, inv = torch.unique(e[:, 0] * V + e[:, 1], return_inverse=True)
+    mid = (v[key // V] + v[key % V]) / 2
+    ab, bc, ca = (inv.reshape(3, F) + V).unbind(0)
+    a, b, c = f.unbind(1)
+    kids = torch.stack([a, ab, ca, ab, b, bc, ca, bc, c, ab, bc, ca], dim=1)
+    return torch.cat([v, mid]), kids.reshape(-1, 3)
+
+
+def groups_phase(dev, res, hp, mesh45, o_cam, d_cam, gen):
+    """Phase 12: candidate groups, t_min and a mesh above the prepass
+    kernel's box limit. Returns ({group: check_query result} of the
+    dog_mid90k bounce-2 query, the phase's numbers)."""
+    import torch
+    from drt_tpu_torch.data.synthetic import synthesize_capture
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    from drt_tpu_torch.mesh import build_mesh_state, load_ply
+    from drt_tpu_torch.optimize import default_silhouette_budget
+    from drt_tpu_torch.optimize.losses import ray_loss, silhouette_loss
+    t_phase = time.time()
+    # dog_mid90k's queries under a capture of dog_mid45k, so that the exit
+    # rays, which leave through the capture's surface, hit the queried one
+    v45, f45 = load_ply(os.path.join(MESH_DIR, "dog_mid45k.ply"))
+    cap = synthesize_capture(v45, f45, name="dog", num_views=1, resy=res[0],
+                             resx=res[1], ior=hp.ior, ext_ior=hp.ext_ior,
+                             num_view_used=1, device=dev)
+    ms90 = build_mesh_state(*load_ply(os.path.join(MESH_DIR,
+                                                   "dog_mid90k.ply")),
+                            device=dev)
+    geom = (ms90.vertices, ms90.faces, ms90.face_valid)
+    rec = QueryRecorder()
+    with torch.no_grad():
+        ray_loss(ms90, cap.views.take(0), rec, hp.ior, hp.ext_ior)
+        silhouette_loss(ms90, cap.views.take(0), rec,
+                        default_silhouette_budget(ms90.num_edges), *res)
+    names = ("camera", "bounce2", "exit", "silhouette")
+    by_group, out = {}, {}
+    for qname, (o, d, coherent) in zip(names, rec.queries):
+        ref = None
+        for g in GROUPS:
+            label = f"groups: dog_mid90k {qname} group {g}"
+            r = check_query(label, o, d, geom, coherent, gen, group=g,
+                            brute_sample=4096, hit_sample=1024,
+                            brute_all=qname == "silhouette",
+                            both_modes=True)
+            if r["group"] != g:
+                fail(f"{label}: the query took group {r['group']}")
+            t, ids = r.pop("hits")
+            if ref is None:
+                ref = (t, ids)
+            else:
+                compare_hits(f"{label} vs group 1", *ref, t, ids)
+            if qname == "bounce2":
+                by_group[g] = r
+        del ref
+    # t_min: half of the bounce-2 hits lie beyond the median t of them all
+    o, d, _ = rec.queries[1]
+    h = CK.intersect_cuda(o, d, *geom, coherent=False)
+    t_min = float(h.t[h.tri_id >= 0].median())
+    r = check_query(f"groups: dog_mid90k bounce2 t_min {t_min:.4g}", o, d,
+                    geom, False, gen, t_min=t_min, brute_sample=4096,
+                    hit_sample=1024)
+    n_cut = int((r["hits"][1] >= 0).sum())
+    print(f"groups: t_min {t_min:.6g}: {n_cut} hits beyond it, "
+          f"{int((h.tri_id >= 0).sum())} at t_min 0")
+    del rec, h, ms90, cap
+    # above the cap: dog_mid45k subdivided three times
+    t0 = time.time()
+    v = mesh45.vertices[:mesh45.num_vertices]
+    f = mesh45.faces[:mesh45.num_faces]
+    for _ in range(BIG_SUBDIVISIONS):
+        v, f = midpoint_subdivide(v, f)
+    big = (v, f, torch.ones(f.shape[0], dtype=torch.bool, device=dev))
+    nc = -(-f.shape[0] // CK.TRI_CHUNK)
+    if nc <= CK.MAX_CHUNKS:
+        fail(f"groups: the subdivided mesh has {nc} chunks, not above "
+             f"MAX_CHUNKS = {CK.MAX_CHUNKS}")
+    n = BIG_RAYS
+    s0 = (o_cam.shape[0] - n) // 2       # the middle rows of the view
+    ob, db = o_cam[s0:s0 + n].contiguous(), d_cam[s0:s0 + n].contiguous()
+    CK.counters.reset()
+    hb = CK.intersect_cuda(ob, db, *big, coherent=True)
+    seen = (CK.counters.launches, CK.counters.candidates_launches)
+    if seen != (1, 1):
+        fail(f"groups: above the cap, launches {seen}, expected (1, 1)")
+    r_big = check_query(f"groups: dog_mid45k subdivided {BIG_SUBDIVISIONS} "
+                        f"times ({f.shape[0]} faces, {nc} chunks) camera "
+                        f"{n} rays",
+                        ob, db, big, True, gen, brute_sample=4096,
+                        hit_sample=1024, both_modes=True)
+    t_big, id_big = r_big.pop("hits")
+    if not (torch.equal(t_big, hb.t) and torch.equal(id_big, hb.tri_id)):
+        fail("groups: above the cap, intersect_cuda differs from the "
+             "checked query")
+    want = CK._auto_group(nc, CK.MAX_CHUNKS)
+    if r_big["group"] != want or want < 2:
+        fail(f"groups: above the cap group=None took {r_big['group']}, "
+             f"expected {want}")
+    out.update(big_faces=int(f.shape[0]), big_chunks=nc,
+               big_group=r_big["group"], big_query_ms=r_big["query_ms"],
+               big_kernel_ms=r_big["ms"],
+               big_prepass_ms=r_big["prepass"]["ms"],
+               big_hits=int((id_big >= 0).sum()),
+               big_s=time.time() - t0, t_min=t_min, t_min_hits=n_cut)
+    print(f"groups: above the cap: {f.shape[0]} faces, {nc} chunks, "
+          f"group=None took group {r_big['group']}; query "
+          f"{r_big['query_ms']:.3f} ms (closest hit {r_big['ms']:.3f} ms, "
+          f"prepass {r_big['prepass']['ms']:.4f} ms), {out['big_hits']} hits "
+          f"of {n} rays; {out['big_s']:.1f} s with the subdivision")
+    out["phase_s"] = time.time() - t_phase
+    print(f"groups: phase {out['phase_s']:.1f} s")
+    return by_group, out
+
+
 def parallel_ranks_phase(res, hp, weights, budget, mesh, cap, shift):
     """Phase 11b: two gloo ranks on the one card against the single step.
     Returns (closest-hit launches, prepass launches) of the ranks' steps and
@@ -1630,6 +1808,9 @@ def main():
     par_times.update(times_b, phase_s=time.time() - t0)
     par_launches, par_cand = par_a[0] + par_b[0], par_a[1] + par_b[1]
 
+    # -- 12. candidate groups, t_min, a mesh above the cap -------------------
+    by_group, group_times = groups_phase(dev, RES, hp, ms45, o1, d1, gen)
+
     launches_train, cand_train = launches, cand_launches
     launches += lod_launches + cli_launches + par_launches
     cand_launches += lod_cand + cli_cand + par_cand
@@ -1650,12 +1831,17 @@ def main():
         "launches_parallel": par_launches,
         "launches_per_step": per_step,
         "shape": "camera rays 1280x960 on dog_mid90k",
-        "max_abs_err": max(r["err"] for r in results.values()),
+        "max_abs_err": max(r["err"] for r in [*results.values(),
+                                               *by_group.values()]),
         "ms": cam_r["ms"],
         "plain_ms": cam_r["plain_ms"],
         "bound_ms": cam_r["bound_ms"],
         "bound_by": cam_r["bound_by"],
         "library_ms": None,
+        "group_shape": "bounce-2 rays 1280x960 on dog_mid90k (phase 12)",
+        "group_ms": {g: r["ms"] for g, r in by_group.items()},
+        "group_bound_ms": {g: r["bound_ms"] for g, r in by_group.items()},
+        "group_query_ms": {g: r["query_ms"] for g, r in by_group.items()},
     }, {
         "name": "candidates",
         "route": "cuda",
@@ -1667,8 +1853,10 @@ def main():
         "launches_cli": cli_cand,
         "launches_parallel": par_cand,
         "launches_per_step": per_step_prepass,
-        "shape": "ray mode: bounce-2 rays 1280x960 on dog_mid45k",
-        "max_abs_err": max(r["err"] for r in pre.values()),
+        "shape": "ray mode: bounce-2 rays 1280x960 on dog_mid45k, groups "
+                 f"of {results['dog_mid45k bounce2']['group']} (the default)",
+        "max_abs_err": max(r["err"] for r in [
+            *pre.values(), *(r["prepass"] for r in by_group.values())]),
         "ms": pre_r["ms"],
         "plain_ms": pre_r["plain_ms"],
         "bound_ms": pre_r["bound_ms"],
@@ -1681,12 +1869,18 @@ def main():
         "tile_bound_by": pre_t["bound_by"],
         "tile_replaced_ms": pre_t["replaced_ms"],
         "library_ms": None,
+        "group_shape": "ray mode: bounce-2 rays 1280x960 on dog_mid90k "
+                       "(phase 12), group boxes",
+        "group_ms": {g: r["prepass"]["ms"] for g, r in by_group.items()},
+        "group_bound_ms": {g: r["prepass"]["bound_ms"]
+                           for g, r in by_group.items()},
     }]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(json.dumps({"cli": cli_times}))
     print(json.dumps({"parallel": par_times}))
+    print(json.dumps({"groups": group_times}))
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
           else f"nvidia-smi failed: {smi.stderr.strip()}")

@@ -9,11 +9,13 @@
 //   of drt_tpu/intersect/pallas_kernel.py:359 (plain XLA in the JAX
 //   package; `candidate_scores_plain` + `_sorted_candidates` in the port).
 //   Score of (tile, chunk) = min over the tile's rays that overlap the
-//   chunk's AABB (t_entry <= t_exit, t_exit > 0) of max(t_entry, 0).
+//   chunk's AABB (t_entry <= t_exit, t_exit > t_min) of max(t_entry, 0).
 // - tile (coherent queries, the resorted route): the interval-arithmetic
 //   tile-frustum prepass, `_candidates_tile` (pallas_kernel.py:317): the
 //   tile's rays become per-axis intervals of origin and inverse direction,
 //   and one interval slab test per (tile, chunk) bounds every ray's.
+// The boxes are chunks, or groups of chunks (the candidate hierarchy's second
+// level): the kernel does not tell them apart.
 // A chunk that no ray overlaps, or that is padding, scores +inf. The list
 // is the chunks in the order of (score, chunk index), which is what a
 // stable sort of the scores gives, and count is the number of finite
@@ -137,7 +139,7 @@ __device__ __forceinline__ void score_rays(
     const float4* s_org, const float4* s_inv, const int* s_oct,
     const int* vidx, u64* keys, int nv, int col0, int split, int nsplit,
     int n_rays, const float* __restrict__ lo, const float* __restrict__ hi,
-    int lane) {
+    float t_min, int lane) {
     float blo[K][3], bhi[K][3], best[K];
     int chunk[K];
     #pragma unroll
@@ -179,8 +181,8 @@ __device__ __forceinline__ void score_rays(
                 const float fz = __fmul_rn(__fsub_rn(fr[k][2], o.z), iv.z);
                 const float te = fmaxf(fmaxf(nx, ny), nz);
                 const float tx = fminf(fminf(fx, fy), fz);
-                best[k] = (te <= tx && tx > 0.f) ? fminf(best[k], te)
-                                                 : best[k];
+                best[k] = (te <= tx && tx > t_min) ? fminf(best[k], te)
+                                                   : best[k];
             }
         }
     }
@@ -197,7 +199,7 @@ __global__ void __launch_bounds__(MAX_BLOCK) candidates_kernel(
     const float* __restrict__ lo,      // [NC, 3] chunk AABB
     const float* __restrict__ hi,      // [NC, 3]
     const unsigned char* __restrict__ valid,   // [NC] 0 for padding chunks
-    int np_, int ray_tile, int nc, int tile_mode,
+    int np_, int ray_tile, int nc, int tile_mode, float t_min,
     int* __restrict__ cand,            // [T, NC] nearest first
     int* __restrict__ count)           // [T]
 {
@@ -288,10 +290,10 @@ __global__ void __launch_bounds__(MAX_BLOCK) candidates_kernel(
             const int col0 = (u / nsplit) * K, split = u % nsplit;
             if (ncols - col0 >= 2)
                 score_rays<2>(s_org, s_inv, s_oct, vidx, keys, nv, col0,
-                              split, nsplit, ray_tile, lo, hi, lane);
+                              split, nsplit, ray_tile, lo, hi, t_min, lane);
             else
                 score_rays<1>(s_org, s_inv, s_oct, vidx, keys, nv, col0,
-                              split, nsplit, ray_tile, lo, hi, lane);
+                              split, nsplit, ray_tile, lo, hi, t_min, lane);
         }
     } else {
         // the tile's per-axis origin and inverse-direction intervals
@@ -356,7 +358,7 @@ __global__ void __launch_bounds__(MAX_BLOCK) candidates_kernel(
                 entry = fmaxf(entry, fminf(tlo[0], tlo[1]));
                 exit_ = fminf(exit_, fmaxf(thi[0], thi[1]));
             }
-            if (entry <= exit_ && exit_ > 0.f)
+            if (entry <= exit_ && exit_ > t_min)
                 keys[c] = make_key(fmaxf(entry, 0.f), c);
         }
     }
@@ -424,12 +426,18 @@ int candidates_max_ray_tile() { return MAX_RAY_TILE; }
 int candidates_max_chunks() { return MAX_CHUNKS; }
 int candidates_block() { return PREPASS_BLOCK; }
 
+// The arguments of candidates_launch, for the wrapper's interface check.
+const char* candidates_signature() {
+    return "org inv lo hi valid n_tiles ray_tile nc tile_mode t_min cand "
+           "count stream";
+}
+
 // Launches on `stream` and returns cudaGetLastError(); does not synchronise.
 // tile_mode 0: the per-ray prepass; 1: the tile-frustum prepass.
 int candidates_launch(const float* org, const float* inv, const float* lo,
                       const float* hi, const unsigned char* valid,
                       int n_tiles, int ray_tile, int nc, int tile_mode,
-                      int* cand, int* count, void* stream) {
+                      float t_min, int* cand, int* count, void* stream) {
     static_assert(PREPASS_BLOCK % 32 == 0 && PREPASS_BLOCK <= MAX_BLOCK,
                   "PREPASS_BLOCK: a multiple of 32 threads, at most 256");
     if (ray_tile < 1 || ray_tile > MAX_RAY_TILE || nc > MAX_CHUNKS)
@@ -447,7 +455,7 @@ int candidates_launch(const float* org, const float* inv, const float* lo,
         candidates_kernel<<<n_tiles, PREPASS_BLOCK, smem,
                             (cudaStream_t)stream>>>(
             org, inv, lo, hi, valid, n_tiles * ray_tile, ray_tile, nc,
-            tile_mode, cand, count);
+            tile_mode, t_min, cand, count);
     }
     return (int)cudaGetLastError();
 }

@@ -6,20 +6,25 @@
 // every chunk's coefficients are copied into shared memory on demand, so one
 // kernel serves every mesh size.
 //
-// What it computes: per ray the closest hit (t, tri_id) over its tile's
-// nearest-first candidate chunk list (built by the prepass,
-// intersect/cuda_kernel.py); t = inf, tri_id = -1 on a miss. Möller–Trumbore
-// as FP32 Plücker products against the ray features [d, o x d, o, 1], the
-// division-free sign-aware hit test of `_kernel` (eps 1e-5 on u and v,
-// t_min = 0), lowest triangle row on equal t within a chunk, strict `<`
-// across chunks.
+// What it computes: per ray the closest hit (t, tri_id) beyond t_min over
+// its tile's nearest-first candidate list (built by the prepass,
+// intersect/cuda_kernel.py); t = inf, tri_id = -1 on a miss. The list names
+// groups of `group` consecutive chunks (the second level of the candidate
+// hierarchy, `_kernel`'s `group`; 1 = chunk ids): entry i is chunk
+// cand[i / group] * group + i % group, and the walk runs over count * group
+// entries. Möller–Trumbore as FP32 Plücker products against the ray
+// features [d, o x d, o, 1], the division-free sign-aware hit test of
+// `_kernel` (eps 1e-5 on u and v, t*det beyond t_min*|det|, the product
+// rounded on its own as JAX rounds it: at t_min = 0 it is +0 for every
+// finite |det|, so the test is `> 0` bit for bit), lowest triangle row on
+// equal t within a chunk, strict `<` across chunks.
 //
 // Where it departs from `_kernel`, on purpose: work is gated per ray. In
 // `_kernel` a chunk updates every ray of the tile once any one ray's slab
 // test enters the chunk's box; here a chunk updates a ray only if that ray's
-// own slab test enters it (cut at the ray's running best t). A ray whose own
-// box test rounds to a miss therefore no longer takes a grazing hit inside
-// that box. The tile-wide gate made 92% of a camera view's rays (those that
+// own slab test enters it (leaving it beyond t_min, cut at the ray's running
+// best t). A ray whose own box test rounds to a miss therefore no longer
+// takes a grazing hit inside that box. The tile-wide gate made 92% of a camera view's rays (those that
 // miss the mesh) compute every chunk their tile lists; the per-ray gate is
 // the only way to do no more than the function needs. The brute-force
 // oracle is the ground truth for both, and the plain version
@@ -138,9 +143,11 @@ __global__ void __launch_bounds__(MAX_RAY_TILE, 2) closest_hit_kernel(
     const float* __restrict__ coef,    // [NC, 19, TRI_CHUNK]
     const float* __restrict__ lo,      // [NC, 3] chunk AABB
     const float* __restrict__ hi,      // [NC, 3]
-    const int* __restrict__ cand,      // [T, NC] nearest-first chunk ids
-    const int* __restrict__ count,     // [T] candidates per tile
-    int np_, int nc, int ray_tile,     // ray_tile % blockDim.x == 0
+    const int* __restrict__ cand,      // [T, NG] nearest-first group ids
+    const int* __restrict__ count,     // [T] groups listed per tile
+    int np_, int ng, int ray_tile,     // ray_tile % blockDim.x == 0
+    int group,                         // chunks a group; NC = NG * group
+    float t_min,
     float* __restrict__ t_out,         // [Np], inf on miss
     int* __restrict__ id_out)          // [Np], -1 on miss
 {
@@ -157,13 +164,13 @@ __global__ void __launch_bounds__(MAX_RAY_TILE, 2) closest_hit_kernel(
     const int tile = (int)(r / ray_tile);       // one for the whole block
     const size_t np = (size_t)np_;
 
-    const int n_cand = count[tile];
+    const int n_cand = count[tile] * group;     // chunk entries
     if (n_cand == 0) {                 // the whole block leaves together
         t_out[r] = CUDART_INF_F;
         id_out[r] = -1;
         return;
     }
-    const int* tile_cand = cand + (size_t)tile * nc;
+    const int* tile_cand = cand + (size_t)tile * ng;
 
     const float o0 = phi[6 * np + r], o1 = phi[7 * np + r], o2 = phi[8 * np + r];
     const float i0 = inv[0 * np + r], i1 = inv[1 * np + r], i2 = inv[2 * np + r];
@@ -177,7 +184,7 @@ __global__ void __launch_bounds__(MAX_RAY_TILE, 2) closest_hit_kernel(
         for (int j = tid; j < n; j += blockDim.x) {
             const int e = first + j;
             if (e < n_cand) {
-                const int c = tile_cand[e];
+                const int c = tile_cand[e / group] * group + e % group;
                 const int s = e & (LIST_SLOTS - 1);
                 s_chunk[s] = c;
                 #pragma unroll
@@ -214,7 +221,7 @@ __global__ void __launch_bounds__(MAX_RAY_TILE, 2) closest_hit_kernel(
         t_entry = fmaxf(fmaxf(fminf(a1, a2), fminf(b1, b2)), fminf(c1, c2));
         const float t_exit = fminf(fminf(fmaxf(a1, a2), fmaxf(b1, b2)),
                                    fmaxf(c1, c2));
-        ok = (t_entry <= t_exit) && (t_exit > 0.f);
+        ok = (t_entry <= t_exit) && (t_exit > t_min);
     };
 
     bool ok_cur, ok_nxt = false;
@@ -294,7 +301,8 @@ __global__ void __launch_bounds__(MAX_RAY_TILE, 2) closest_hit_kernel(
                             && (flip_sign(vd, sgn) >= -eps)
                             && (flip_sign(__fadd_rn(ud, vd), sgn)
                                 <= __fadd_rn(absdet, eps))
-                            && (flip_sign(td, sgn) > 0.f);
+                            && (flip_sign(td, sgn)
+                                > __fmul_rn(t_min, absdet));
                         if (hit) {
                             // td and det have one sign: t >= +0, never -0.
                             const float t = __fdiv_rn(td, det);
@@ -335,26 +343,33 @@ int closest_hit_tri_chunk() { return TRI_CHUNK; }
 
 int closest_hit_max_ray_tile() { return MAX_RAY_TILE; }
 
+// The arguments of closest_hit_launch, for the wrapper's interface check.
+const char* closest_hit_signature() {
+    return "phi inv coef lo hi cand count n_tiles ray_tile block_rays "
+           "n_groups group t_min t_out id_out stream";
+}
+
 const char* closest_hit_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
 
 // Launches on `stream` and returns cudaGetLastError(); does not synchronise.
+// cand [n_tiles, n_groups]; coef, lo, hi hold n_groups * group chunks.
 int closest_hit_launch(const float* phi, const float* inv, const float* coef,
                        const float* lo, const float* hi, const int* cand,
                        const int* count, int n_tiles, int ray_tile,
-                       int block_rays, int nc, float* t_out, int* id_out,
-                       void* stream) {
+                       int block_rays, int n_groups, int group, float t_min,
+                       float* t_out, int* id_out, void* stream) {
     if (block_rays <= 0 || block_rays > MAX_RAY_TILE || block_rays % 32
-            || ray_tile % block_rays)
+            || ray_tile % block_rays || group < 1)
         return (int)cudaErrorInvalidValue;
     if (n_tiles > 0) {
         const int np = n_tiles * ray_tile;
         const size_t feat_bytes = (size_t)block_rays * 3 * sizeof(float4);
         closest_hit_kernel<<<np / block_rays, block_rays, feat_bytes,
                              (cudaStream_t)stream>>>(
-            phi, inv, coef, lo, hi, cand, count, np, nc, ray_tile,
-            t_out, id_out);
+            phi, inv, coef, lo, hi, cand, count, np, n_groups, ray_tile,
+            group, t_min, t_out, id_out);
     }
     return (int)cudaGetLastError();
 }

@@ -57,21 +57,28 @@ def _resort_ab_table():
         return ()
 
 
+def nearest_measured(rows, num_faces: int, default):
+    """The value of the row of ((faces_padded, value), ...) nearest
+    num_faces in log space; `default` where nothing was measured."""
+    if not rows:
+        return default
+    _, value = min(rows, key=lambda kv:
+                   abs(math.log(kv[0] / max(num_faces, 1))))
+    return value
+
+
 def _auto_incoherent(num_faces: int) -> str:
     """The nearest measured mesh size's winner; "ray" (the exact per-ray
     prepass) where nothing was measured."""
-    tab = _resort_ab_table()
-    if not tab:
-        return "ray"
-    _, winner = min(tab, key=lambda kv:
-                    abs(math.log(kv[0] / max(num_faces, 1))))
-    return winner
+    return nearest_measured(_resort_ab_table(), num_faces, "ray")
 
 
-def get_intersect_fn(backend: str = "auto",
-                     incoherent: str = "auto") -> Callable:
+def get_intersect_fn(backend: str = "auto", incoherent: str = "auto",
+                     **kw) -> Callable:
     """Returns intersect(origins [N,3], dirs [N,3], vertices, faces,
-    face_valid, *, coherent) -> Hits. Inputs are detached: the oracle is a
+    face_valid, *, coherent) -> Hits. `kw` go to the backend on every
+    query, as in the JAX package (e.g. t_min; group for "cuda"; ray_chunk,
+    tri_chunk for "brute"). Inputs are detached: the oracle is a
     stop-gradient query (the reference casts to float32 OptiX buffers,
     DiffRender.py:387-388); gradients flow through the differentiable
     re-intersection of the matched triangles instead.
@@ -109,7 +116,7 @@ def get_intersect_fn(backend: str = "auto",
                 # to the bit
                 return resorted_intersect(
                     fn, *args, coherent=True,
-                    shift=args[0].float().mean(dim=0))
-        return fn(*args, coherent=coherent)
+                    shift=args[0].float().mean(dim=0), **kw)
+        return fn(*args, coherent=coherent, **kw)
 
     return wrapped

@@ -11,11 +11,9 @@ from drt_tpu_torch.intersect.api import Hits
 
 _UV_EPS = 1e-5       # barycentric tolerance: don't miss hits on shared edges
 _DET_EPS = 1e-12     # parallel-ray determinant cutoff
-_RAY_BLOCK = 8192    # rays x triangles per block: bounds the temporaries
-_TRI_BLOCK = 512
 
 
-def _mt_block(o, d, v0, e1, e2, tri_valid):
+def _mt_block(o, d, v0, e1, e2, tri_valid, t_min):
     """MT of a ray block [R,3] against a triangle tile [T,3]; t [R,T], inf
     on miss or invalid triangle."""
     d_ = d[:, None, :]
@@ -30,15 +28,19 @@ def _mt_block(o, d, v0, e1, e2, tri_valid):
     v = torch.sum(d_ * qvec, dim=-1) * inv_det
     t = torch.sum(e2[None] * qvec, dim=-1) * inv_det
     ok = (tri_valid[None] & (u >= -_UV_EPS) & (v >= -_UV_EPS)
-          & (u + v <= 1.0 + _UV_EPS) & (t > 0.0))
+          & (u + v <= 1.0 + _UV_EPS) & (t > t_min))
     return torch.where(ok, t, torch.full_like(t, float("inf")))
 
 
 @torch.no_grad()
 def intersect_brute(origins, dirs, vertices, faces, face_valid=None, *,
-                    coherent: bool = True) -> Hits:
-    """Closest hit for each ray. Misses: t=inf, tri_id=-1. `coherent` is
-    accepted for the common oracle signature and ignored."""
+                    t_min: float = 0.0, ray_chunk: int = 8192,
+                    tri_chunk: int = 512, coherent: bool = True) -> Hits:
+    """Closest hit beyond t_min for each ray. Misses: t=inf, tri_id=-1.
+    Blocks of ray_chunk rays x tri_chunk triangles bound the temporaries;
+    the hits do not depend on them (the lowest index wins a tie, as JAX's
+    argmin gives it). `coherent` is accepted for the common oracle
+    signature and ignored."""
     del coherent
     o = origins.float()
     d = dirs.float()
@@ -53,13 +55,13 @@ def intersect_brute(origins, dirs, vertices, faces, face_valid=None, *,
     N = o.shape[0]
     best_t = torch.full((N,), float("inf"), device=o.device)
     best_id = torch.full((N,), -1, dtype=torch.int32, device=o.device)
-    for r0 in range(0, N, _RAY_BLOCK):
-        oc, dc = o[r0:r0 + _RAY_BLOCK], d[r0:r0 + _RAY_BLOCK]
-        bt, bi = best_t[r0:r0 + _RAY_BLOCK], best_id[r0:r0 + _RAY_BLOCK]
-        for f0 in range(0, F, _TRI_BLOCK):
-            f1 = min(F, f0 + _TRI_BLOCK)
+    for r0 in range(0, N, ray_chunk):
+        oc, dc = o[r0:r0 + ray_chunk], d[r0:r0 + ray_chunk]
+        bt, bi = best_t[r0:r0 + ray_chunk], best_id[r0:r0 + ray_chunk]
+        for f0 in range(0, F, tri_chunk):
+            f1 = min(F, f0 + tri_chunk)
             t = _mt_block(oc, dc, v0[f0:f1], e1[f0:f1], e2[f0:f1],
-                          valid[f0:f1])
+                          valid[f0:f1], t_min)
             tile_min = t.amin(dim=1)
             cols = torch.arange(f1 - f0, device=o.device)
             tile_arg = torch.where(t <= tile_min[:, None], cols,

@@ -11,18 +11,28 @@ Stages:
    the kernel takes them in one bulk copy (the JAX package's dense
    [NC,10,4C] keeps zero blocks for the TPU's matrix unit);
 3. `_chunk_aabbs`: per-chunk AABBs from the current vertices, padded chunks
-   marked invalid so they are never candidates;
+   marked invalid so they are never candidates; with `group` > 1 (the
+   second level of the candidate hierarchy) `_grouped_boxes` joins `group`
+   consecutive chunks into one box, and the prepass lists groups. A mesh
+   above MAX_CHUNKS chunks is always grouped; below it incoherent queries
+   take the group measured fastest on the card (GROUP_TABLE);
 4. `candidates`, the candidate prepass, per tile of rays
    (`RAY_TILE_COHERENT` or `RAY_TILE_INCOHERENT`): a nearest-first list of
-   the chunks some ray of the tile may hit, and its length. One launch of
+   the boxes some ray of the tile may enter, and its length. One launch of
    the kernel csrc/candidates.cu scores, sorts and counts for every tile;
    its plain version `candidates_plain` runs on CPU tensors. Incoherent
-   queries slab-test every (ray, chunk) pair exactly (`_candidates` is the
+   queries slab-test every (ray, box) pair exactly (`_candidates` is the
    plain version); coherent queries bound a whole tile by interval
    arithmetic (`_candidates_tile`: a superset, cheap for camera rays);
 5. `closest_hit`: the kernel (csrc/closest_hit.cu) on CUDA tensors, its
-   plain version `closest_hit_plain` on CPU tensors.
+   plain version `closest_hit_plain` on CPU tensors. A listed group stands
+   for its `group` chunks, visited in order; the per-ray gate drops those a
+   ray does not enter, so the hits do not depend on the group but for ties
+   between chunks at one t.
 No fallback anywhere: a CUDA tensor launches the kernel or raises.
+
+`t_min` (default 0) is the JAX package's: a chunk counts only where a ray
+leaves its box beyond t_min, and a hit only where its t exceeds t_min.
 
 Work is gated per ray: a chunk updates a ray only if the ray's own slab
 test enters the chunk's box before its running best t. The JAX package's
@@ -39,7 +49,9 @@ seconds).
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
+import json
 import math
 import os
 import shutil
@@ -49,7 +61,7 @@ from typing import NamedTuple
 
 import torch
 
-from drt_tpu_torch.intersect.api import Hits
+from drt_tpu_torch.intersect.api import Hits, nearest_measured
 
 _UV_EPS = 1e-5
 # Rays per tile (one candidate list, one block of the prepass kernel), by the
@@ -60,7 +72,9 @@ RAY_TILE_INCOHERENT = 128
 BLOCK_RAYS = 64
 MAX_RAY_TILE = 256     # fixed in csrc/*.cu (`__launch_bounds__`)
 TRI_CHUNK = 128        # fixed in csrc/closest_hit.cu
-MAX_CHUNKS = 16384     # fixed in csrc/candidates.cu (keys in shared memory)
+# Boxes one launch of the prepass kernel takes (csrc/candidates.cu: a key a
+# box in shared memory); `group=None` groups larger meshes down to it.
+MAX_CHUNKS = 16384
 N_COEF = 19
 # Elements of one [tiles, RT, NC] temporary of the plain prepass (and of the
 # four [tiles, RT, C] products of the plain closest hit): the plain versions
@@ -74,6 +88,10 @@ _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                           "drt_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The measured A/B of candidate groups on incoherent queries, written from
+# the card by `scripts/tune_torch_oracle.py --what group`.
+GROUP_TABLE = os.path.join(os.path.dirname(_PKG_DIR), "reports",
+                           "torch_group_ab.json")
 
 
 class LaunchCounter:
@@ -151,15 +169,31 @@ def build(force: bool = False, defines: tuple = ()) -> str:
     return out
 
 
+# The argument lists `bind` types, as each source's *_signature() names them.
+_SIGNATURES = {
+    "closest_hit_signature": "phi inv coef lo hi cand count n_tiles ray_tile "
+                             "block_rays n_groups group t_min t_out id_out "
+                             "stream",
+    "candidates_signature": "org inv lo hi valid n_tiles ray_tile nc "
+                            "tile_mode t_min cand count stream",
+}
+
+
 def bind(path: str):
     """The library at `path` (from `build`) with its C interface typed and
     its constants checked against this module's."""
     lib = ctypes.CDLL(path)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.closest_hit_launch.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 3
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.closest_hit_launch.argtypes = [vp] * 7 + [ci] * 5 + [cf] + [vp] * 3
     lib.closest_hit_launch.restype = ci
-    lib.candidates_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp] * 3
+    lib.candidates_launch.argtypes = [vp] * 5 + [ci] * 4 + [cf] + [vp] * 3
     lib.candidates_launch.restype = ci
+    for name, want in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [], ctypes.c_char_p
+        if fn().decode() != want:
+            raise RuntimeError(f"csrc: {name}() is {fn().decode()!r}, "
+                               f"cuda_kernel.py passes {want!r}")
     lib.closest_hit_error_string.argtypes = [ci]
     lib.closest_hit_error_string.restype = ctypes.c_char_p
     lib.candidates_block.argtypes, lib.candidates_block.restype = [], ci
@@ -253,6 +287,52 @@ def _chunk_aabbs(vertices, faces, face_valid, shift, tri_chunk):
             cv.any(dim=1))
 
 
+def _auto_group(nc: int, limit: int = MAX_CHUNKS) -> int:
+    """The smallest power of two g with ceil(nc / g) <= limit: what
+    `group=None` takes, so that a mesh of any size fits one launch of the
+    prepass kernel."""
+    g = 1
+    while -(-nc // g) > limit:
+        g *= 2
+    return g
+
+
+@functools.lru_cache(maxsize=1)
+def _group_table():
+    """((faces_padded, group), ...) from GROUP_TABLE, or () if absent."""
+    try:
+        with open(GROUP_TABLE) as fh:
+            verdict = json.load(fh)["verdict"]
+        return tuple((int(v["faces_padded"]), int(v["group"]))
+                     for v in verdict.values())
+    except (OSError, ValueError, KeyError, TypeError):
+        return ()
+
+
+def _grouped_boxes(lo, hi, chunk_valid, group):
+    """The chunk boxes for `group`: (lo, hi) [NCg,3] that the closest-hit
+    kernel reads, NCg = NC rounded up to a multiple of group, and (lo, hi,
+    valid) of the boxes the prepass scores: the chunks' own at group 1;
+    above it, the min of `lo` and the max of `hi` over each group's valid
+    chunks, valid where any of its chunks is (pallas_kernel.py:465-469; min
+    and max are exact, so their order does not matter). Above 1, every
+    chunk without a valid face (the mesh's padding, and the chunks that pad
+    it to whole groups) gets the box +inf, which no slab test enters: JAX
+    pads with +inf too, and an inverted +-3e38 box would pass the gate."""
+    if group == 1:
+        return lo, hi, (lo, hi, chunk_valid)
+    inf = float("inf")
+    valid = _pad_axis0(chunk_valid, group, False)
+    invalid = ~valid[:, None]
+    lo = _pad_axis0(lo, group).masked_fill(invalid, inf)
+    hi_m = _pad_axis0(hi, group).masked_fill(invalid, -inf)
+    ng = valid.shape[0] // group
+    boxes = (lo.reshape(ng, group, 3).amin(dim=1),
+             hi_m.reshape(ng, group, 3).amax(dim=1),
+             valid.reshape(ng, group).any(dim=1))
+    return lo, hi_m.masked_fill(invalid, inf), boxes
+
+
 def _safe_inv(d):
     tiny = torch.where(d >= 0, torch.full_like(d, 1e-20),
                        torch.full_like(d, -1e-20))
@@ -275,7 +355,7 @@ def _score(overlap, t_entry):
                        float("inf"))
 
 
-def _tile_scores(ot, it, lo_c, hi_c, chunk_valid):
+def _tile_scores(ot, it, lo_c, hi_c, chunk_valid, t_min=0.0):
     """[T,NC] scores of the tile-frustum prepass: the tile's rays become
     per-axis intervals of origin and inverse direction, and one interval
     slab test per (tile, chunk) bounds every ray's. ot/it: [T,3,RT] shifted
@@ -293,17 +373,17 @@ def _tile_scores(ot, it, lo_c, hi_c, chunk_valid):
     t2lo, t2hi = bounds(hi_c)
     entry_lo = torch.minimum(t1lo, t2lo).amax(dim=-1)       # [T,NC]
     exit_hi = torch.maximum(t1hi, t2hi).amin(dim=-1)
-    return _score((entry_lo <= exit_hi) & (exit_hi > 0.0) & chunk_valid[None],
-                  entry_lo)
+    return _score((entry_lo <= exit_hi) & (exit_hi > t_min)
+                  & chunk_valid[None], entry_lo)
 
 
-def _candidates_tile(ot, dt, lo_c, hi_c, chunk_valid):
+def _candidates_tile(ot, dt, lo_c, hi_c, chunk_valid, t_min=0.0):
     """Tile-frustum prepass in plain torch (`_tile_scores`, then the stable
     sort). The candidate list is a conservative superset of the per-ray
     prepass (a tile straddling an axis sign keeps every chunk). ot/dt:
     [T,3,RT]. Returns (cand [T,NC] i32, count [T] i32)."""
     return _sorted_candidates(
-        _tile_scores(ot, _safe_inv(dt), lo_c, hi_c, chunk_valid))
+        _tile_scores(ot, _safe_inv(dt), lo_c, hi_c, chunk_valid, t_min))
 
 
 def _check(name, x, shape, dtype, dev):
@@ -341,10 +421,12 @@ def _check_prepass_inputs(org, inv, lo, hi, chunk_valid, n_tiles):
 
 
 @torch.no_grad()
-def candidate_scores_plain(org, inv, lo, hi, chunk_valid, n_tiles):
+def candidate_scores_plain(org, inv, lo, hi, chunk_valid, n_tiles,
+                           t_min=0.0):
     """Scores of the per-ray prepass (csrc/candidates.cu's ray mode): for
     every (tile, chunk) the nearest slab entry max(t_entry, 0) over the
-    tile's rays that overlap the chunk's AABB, inf where none does or the
+    tile's rays that overlap the chunk's AABB (t_entry <= t_exit, t_exit >
+    t_min), inf where none does or the
     chunk is padding. Groups of tiles bound the [tiles, RT, NC]
     temporaries (the JAX package maps over groups the same way). org/inv:
     [3,Np] shifted origins and guarded inverse directions, Np = n_tiles *
@@ -362,13 +444,14 @@ def candidate_scores_plain(org, inv, lo, hi, chunk_valid, n_tiles):
             e, x = torch.minimum(t1, t2), torch.maximum(t1, t2)
             t_entry = e if t_entry is None else torch.maximum(t_entry, e)
             t_exit = x if t_exit is None else torch.minimum(t_exit, x)
-        overlap = (t_entry <= t_exit) & (t_exit > 0.0) & chunk_valid
+        overlap = (t_entry <= t_exit) & (t_exit > t_min) & chunk_valid
         scores.append(_score(overlap, t_entry).amin(dim=1))  # [G,NC]
     return torch.cat(scores)
 
 
 @torch.no_grad()
-def candidates_plain(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool):
+def candidates_plain(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool,
+                     t_min: float = 0.0):
     """Plain version of csrc/candidates.cu: the per-ray prepass
     (`candidate_scores_plain`) or, with tile=True, the tile-frustum prepass
     (`_tile_scores`), then the stable sort and the counts. Inputs as in
@@ -378,24 +461,25 @@ def candidates_plain(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool):
     if tile:
         score = _tile_scores(org.reshape(3, n_tiles, RT).permute(1, 0, 2),
                              inv.reshape(3, n_tiles, RT).permute(1, 0, 2),
-                             lo, hi, chunk_valid)
+                             lo, hi, chunk_valid, t_min)
     else:
         score = candidate_scores_plain(org, inv, lo, hi, chunk_valid,
-                                       n_tiles)
+                                       n_tiles, t_min)
     return _sorted_candidates(score)
 
 
-def candidates_cuda(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool):
+def candidates_cuda(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool,
+                    t_min: float = 0.0):
     """Launch csrc/candidates.cu on the current stream; inputs and result
-    as in `candidates_plain`."""
+    as in `candidates_plain`. Takes at most MAX_CHUNKS boxes (chunks, or
+    groups of them)."""
     _, NC, ray_tile = _check_prepass_inputs(org, inv, lo, hi, chunk_valid,
                                             n_tiles)
+    if NC > MAX_CHUNKS:
+        raise ValueError(f"{NC} boxes: the prepass kernel takes at most "
+                         f"MAX_CHUNKS = {MAX_CHUNKS} (group the chunks)")
     if org.device.type != "cuda":
         raise ValueError("candidates_cuda needs CUDA tensors")
-    if NC > MAX_CHUNKS:
-        raise ValueError(f"{NC} chunks: the prepass kernel takes at most "
-                         f"MAX_CHUNKS = {MAX_CHUNKS} ({MAX_CHUNKS * TRI_CHUNK}"
-                         " faces)")
     lib = _load()
     with torch.cuda.device(org.device):
         cand = torch.empty(n_tiles, NC, dtype=torch.int32, device=org.device)
@@ -404,7 +488,7 @@ def candidates_cuda(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool):
         err = lib.candidates_launch(
             org.data_ptr(), inv.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             chunk_valid.data_ptr(), n_tiles, ray_tile, NC, int(tile),
-            cand.data_ptr(), count.data_ptr(), stream)
+            float(t_min), cand.data_ptr(), count.data_ptr(), stream)
     if err != 0:
         msg = lib.closest_hit_error_string(err).decode()
         raise RuntimeError(f"candidates launch failed: {msg} ({err})")
@@ -412,20 +496,21 @@ def candidates_cuda(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool):
     return cand, count
 
 
-def candidates(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool):
+def candidates(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool,
+               t_min: float = 0.0):
     """The prepass kernel on CUDA tensors, its plain version on CPU
     tensors."""
     dev = org.device.type
     if dev == "cuda":
         return candidates_cuda(org, inv, lo, hi, chunk_valid, n_tiles,
-                               tile=tile)
+                               tile=tile, t_min=t_min)
     if dev == "cpu":
         return candidates_plain(org, inv, lo, hi, chunk_valid, n_tiles,
-                                tile=tile)
+                                tile=tile, t_min=t_min)
     raise ValueError(f"candidates: unsupported device {org.device}")
 
 
-def _candidates(ot, dt, lo_c, hi_c, chunk_valid):
+def _candidates(ot, dt, lo_c, hi_c, chunk_valid, t_min=0.0):
     """Exact per-ray prepass in plain torch: a chunk is a tile's candidate
     if some ray of the tile overlaps its AABB; ordered by the nearest entry
     over those rays. ot/dt: [T,3,RT]. Returns (cand [T,NC] i32,
@@ -434,31 +519,53 @@ def _candidates(ot, dt, lo_c, hi_c, chunk_valid):
     org = ot.permute(1, 0, 2).reshape(3, -1).contiguous()
     inv = _safe_inv(dt).permute(1, 0, 2).reshape(3, -1).contiguous()
     return _sorted_candidates(
-        candidate_scores_plain(org, inv, lo_c, hi_c, chunk_valid, T))
+        candidate_scores_plain(org, inv, lo_c, hi_c, chunk_valid, T, t_min))
 
 
 class KernelInputs(NamedTuple):
     """Everything the closest-hit kernel (and its plain version) reads.
-    Np = T * RT."""
+    Np = T * RT; NC a multiple of `group`, NG = NC / group."""
     phi: torch.Tensor     # [9,Np] f32: d, o x d, o (shifted origins)
     inv: torch.Tensor     # [3,Np] f32: guarded 1/d
     coef: torch.Tensor    # [NC,19,C] f32
     lo: torch.Tensor      # [NC,3] f32
     hi: torch.Tensor      # [NC,3] f32
-    cand: torch.Tensor    # [T,NC] i32, nearest first
-    count: torch.Tensor   # [T] i32
+    cand: torch.Tensor    # [T,NG] i32 group ids, nearest first
+    count: torch.Tensor   # [T] i32 groups listed
+    group: int = 1        # chunks a listed group stands for
+    t_min: float = 0.0
+
+
+def chunk_lists(inp: KernelInputs):
+    """The chunks a tile visits, in order: listed group k stands for chunks
+    k * group .. k * group + group - 1. Returns (cand [T,NC] i32, count [T]
+    i32), the lists themselves at group 1."""
+    if inp.group == 1:
+        return inp.cand, inp.count
+    step = torch.arange(inp.group, dtype=torch.int32, device=inp.cand.device)
+    cand = (inp.cand[:, :, None] * inp.group + step).reshape(
+        inp.cand.shape[0], -1)
+    return cand, inp.count * inp.group
 
 
 @torch.no_grad()
 def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
-                   coherent: bool, shift=None) -> KernelInputs:
+                   coherent: bool, shift=None, t_min: float = 0.0,
+                   group: int | None = None) -> KernelInputs:
     """Stages 1-4. Coherent queries take the tile prepass; incoherent ones
     the exact per-ray prepass, since their tile frustums straddle direction
     signs and blow up to near-full lists; either is one launch of the
     prepass kernel on CUDA tensors. Makes
     no host synchronisation. `shift` [3] replaces the mean ray origin: the
     resorted route passes the unsorted query's, since a mean summed in
-    another order differs in its last bits and t would follow."""
+    another order differs in its last bits and t would follow.
+
+    group: chunks a candidate group, the prepass's boxes. None takes the
+    least power of two that brings the mesh to MAX_CHUNKS groups (1 below
+    that), and for an incoherent query at least the group measured fastest
+    for the nearest mesh size (GROUP_TABLE). The chunk axis is padded
+    to a multiple of it with zero coefficients and the boxes of
+    `_grouped_boxes`."""
     F = faces.shape[0]
     if face_valid is None:
         face_valid = torch.ones(F, dtype=torch.bool, device=faces.device)
@@ -471,6 +578,17 @@ def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
     coef, _ = _coef_packed(vertices, faces, face_valid, shift, TRI_CHUNK)
     lo, hi, chunk_valid = _chunk_aabbs(vertices, faces, face_valid, shift,
                                        TRI_CHUNK)
+    if group is None:
+        g = _auto_group(lo.shape[0], MAX_CHUNKS)
+        if not coherent:
+            # the group of the nearest measured mesh size; 1 unmeasured
+            g = max(g, nearest_measured(_group_table(), F, 1))
+    else:
+        g = int(group)
+    if g < 1:
+        raise ValueError(f"group {group}: must be at least 1")
+    coef = _pad_axis0(coef, g)
+    lo, hi, boxes = _grouped_boxes(lo, hi, chunk_valid, g)
     ray_tile = RAY_TILE_COHERENT if coherent else RAY_TILE_INCOHERENT
     o = _pad_axis0(o, ray_tile)
     d = _pad_axis0(d, ray_tile, 1.0)
@@ -479,9 +597,10 @@ def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
     inv = _safe_inv(d).t().contiguous()                      # [3,Np]
     w = torch.linalg.cross(o, d, dim=-1)
     phi = torch.cat([d, w, o], dim=1).t().contiguous()       # [9,Np]
-    cand, count = candidates(phi[6:9], inv, lo, hi, chunk_valid, T,
-                             tile=coherent)
-    return KernelInputs(phi, inv, coef, lo, hi, cand, count)
+    cand, count = candidates(phi[6:9], inv, *boxes, T, tile=coherent,
+                             t_min=t_min)
+    return KernelInputs(phi, inv, coef, lo, hi, cand, count, g,
+                        float(t_min))
 
 
 # --- the closest-hit kernel and its plain version ---------------------------
@@ -491,11 +610,15 @@ def _check_inputs(inp: KernelInputs):
     Np = inp.phi.shape[1]
     NC = inp.coef.shape[0]
     T = inp.count.shape[0]
+    if inp.group < 1 or NC % inp.group:
+        raise ValueError(f"group {inp.group}: must be at least 1 and divide "
+                         f"the {NC} chunks")
     expect = {
         "phi": ((9, Np), torch.float32), "inv": ((3, Np), torch.float32),
         "coef": ((NC, N_COEF, TRI_CHUNK), torch.float32),
         "lo": ((NC, 3), torch.float32), "hi": ((NC, 3), torch.float32),
-        "cand": ((T, NC), torch.int32), "count": ((T,), torch.int32),
+        "cand": ((T, NC // inp.group), torch.int32),
+        "count": ((T,), torch.int32),
     }
     for name, (shape, dtype) in expect.items():
         _check(name, getattr(inp, name), shape, dtype, dev)
@@ -517,8 +640,8 @@ def closest_hit_cuda(inp: KernelInputs):
             inp.phi.data_ptr(), inp.inv.data_ptr(), inp.coef.data_ptr(),
             inp.lo.data_ptr(), inp.hi.data_ptr(), inp.cand.data_ptr(),
             inp.count.data_ptr(), T, ray_tile,
-            math.gcd(ray_tile, BLOCK_RAYS), NC,
-            t_out.data_ptr(), id_out.data_ptr(), stream)
+            math.gcd(ray_tile, BLOCK_RAYS), NC // inp.group, inp.group,
+            inp.t_min, t_out.data_ptr(), id_out.data_ptr(), stream)
     if err != 0:
         msg = lib.closest_hit_error_string(err).decode()
         raise RuntimeError(f"closest_hit launch failed: {msg} ({err})")
@@ -543,14 +666,18 @@ def _products(feat, coef):
 
 @torch.no_grad()
 def closest_hit_plain(inp: KernelInputs):
-    """The kernel's algorithm in plain torch: the same visit order, the
-    same per-ray slab gate (a chunk updates a ray only if the ray's own
-    slab test enters its AABB before the ray's running best), the same f32
-    Plücker products rounded in the same order, hit test and tie rule
-    (lowest row on equal t within a chunk, strict `<` across chunks). Runs
-    on any device; the wrapper takes it for CPU tensors."""
+    """The kernel's algorithm in plain torch: the same visit order
+    (`chunk_lists`), the same per-ray slab gate (a chunk updates a ray only
+    if the ray's own slab test enters its AABB, leaving it beyond t_min,
+    before the ray's running best), the same f32 Plücker products rounded
+    in the same order, hit test (t*det beyond t_min*|det|, that product
+    rounded on its own) and tie rule (lowest row on equal t within a
+    chunk, strict `<` across chunks). Runs on any device; the wrapper takes
+    it for CPU tensors."""
     Np, NC, T, RT = _check_inputs(inp)
     C = TRI_CHUNK
+    t_min = inp.t_min
+    lists, counts = chunk_lists(inp)
     dev = inp.phi.device
     ones = torch.ones(1, Np, device=dev)
     feat = torch.cat([inp.phi, ones]).reshape(10, T, RT).permute(1, 2, 0)
@@ -561,25 +688,25 @@ def closest_hit_plain(inp: KernelInputs):
     rows = torch.arange(C, device=dev, dtype=torch.int32)
     g = max(1, _GROUP_ELEMS // (RT * 4 * C))
     for s in range(0, T, g):
-        cnt = inp.count[s:s + g]
+        cnt = counts[s:s + g]
         n_iter = int(cnt.max()) if cnt.numel() else 0
         bt, bi = best_t[s:s + g], best_id[s:s + g]
         for i in range(n_iter):
             active = cnt > i                                   # [G]
-            c = inp.cand[s:s + g, i].long().clamp(0, NC - 1)
+            c = lists[s:s + g, i].long().clamp(0, NC - 1)
             t1 = (inp.lo[c][:, :, None] - o3[s:s + g]) * inv3[s:s + g]
             t2 = (inp.hi[c][:, :, None] - o3[s:s + g]) * inv3[s:s + g]
             t_entry = torch.minimum(t1, t2).amax(dim=1)        # [G,RT]
             t_exit = torch.maximum(t1, t2).amin(dim=1)
-            enters = ((t_entry <= t_exit) & (t_exit > 0.0) & (t_entry < bt)
-                      & active[:, None])                       # [G,RT]
+            enters = ((t_entry <= t_exit) & (t_exit > t_min)
+                      & (t_entry < bt) & active[:, None])      # [G,RT]
             det, ud, vd, td = _products(feat[s:s + g], inp.coef[c])
             sgn = torch.sign(det)
             absdet = torch.abs(det)
             eps = _UV_EPS * absdet
             ok = ((absdet > 1e-16) & (ud * sgn >= -eps) & (vd * sgn >= -eps)
                   & ((ud + vd) * sgn <= absdet + eps)
-                  & (td * sgn > 0.0))
+                  & (td * sgn > t_min * absdet))
             t_all = torch.where(
                 ok, td / torch.where(absdet > 1e-16, det,
                                      torch.ones_like(det)),
@@ -603,11 +730,15 @@ def closest_hit(inp: KernelInputs):
 
 
 def intersect_cuda(origins, dirs, vertices, faces, face_valid=None, *,
-                   coherent: bool, shift=None) -> Hits:
-    """Closest hit for each ray. Misses: t=inf, tri_id=-1."""
+                   coherent: bool, shift=None, t_min: float = 0.0,
+                   group: int | None = None) -> Hits:
+    """Closest hit beyond t_min for each ray, on a mesh of any size
+    (`prepare_inputs` says how `group` is taken). Misses: t=inf,
+    tri_id=-1."""
     counters.calls += 1
     N = origins.shape[0]
     inp = prepare_inputs(origins, dirs, vertices, faces, face_valid,
-                         coherent=coherent, shift=shift)
+                         coherent=coherent, shift=shift, t_min=t_min,
+                         group=group)
     t, ids = closest_hit(inp)
     return Hits(t[:N], ids[:N])

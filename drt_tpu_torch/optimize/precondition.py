@@ -13,14 +13,15 @@ which amplifies smooth displacement modes over per-vertex noise.
 
 The solve is a matrix-free conjugate gradient on the padded fixed-degree
 neighbor table of MeshState; padded vertices have degree 0, so A = I on
-those lanes. `cg` follows jax.scipy.sparse.linalg.cg step for step (x0 = 0,
-one inner product over the whole [Vp,C] array, stop once r.r <= tol^2 b.b,
-at most `maxiter` trips), so both packages take the same iterations. It
-runs the fixed number of trips with every update masked by a device-side
-"done" flag: the early exit's result exactly, and no host synchronisation
-per iteration. `sobolev_solve` differentiates as JAX's custom_linear_solve
-does: A is symmetric, so the backward is the same CG solve of the cotangent,
-not a backward through the iterations.
+those lanes. `cg` follows jax.scipy.sparse.linalg.cg step for step (from
+x0, 0 by default; one inner product over the whole [Vp,C] array, stop once
+r.r <= tol^2 b.b, at most `maxiter` trips), so both packages take the same
+iterations. It runs the fixed number of trips with every update masked by a
+device-side "done" flag: the early exit's result exactly, and no host
+synchronisation per iteration. `sobolev_solve` differentiates as JAX's custom_linear_solve
+does: A is symmetric, so the backward is the same CG solve of the cotangent
+(from the same x0, which JAX also hands its transpose solve, and which takes
+no gradient), not a backward through the iterations.
 """
 
 from __future__ import annotations
@@ -51,16 +52,22 @@ def sobolev_apply(v, neighbors, neighbor_valid, lam):
 
 
 @torch.no_grad()
-def cg(matvec, b: torch.Tensor, tol: float = 1e-5, maxiter: int = 64):
-    """Solve A x = b for symmetric positive definite A from x0 = 0 (see the
-    module docstring). Returns (x, trips): trips is a 0-d int64 tensor on
-    b's device, the iterations an early exit would have taken. Fused
-    multiply-adds and flat dot products keep a trip at a dozen launches."""
+def cg(matvec, b: torch.Tensor, tol: float = 1e-5, maxiter: int = 64,
+       x0=None):
+    """Solve A x = b for symmetric positive definite A from x0 (zeros if
+    None; see the module docstring). Returns (x, trips): trips is a 0-d
+    int64 tensor on b's device, the iterations an early exit would have
+    taken. Fused multiply-adds and flat dot products keep a trip at a dozen
+    launches."""
     def dot(u, v):
         return torch.dot(u.reshape(-1), v.reshape(-1))
 
-    x = torch.zeros_like(b)
-    r = p = b                          # b - A x0 with x0 = 0
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = p = b                      # b - A x0 with x0 = 0
+    else:
+        x = x0.detach()
+        r = p = b - matvec(x)
     gamma = dot(r, r)
     atol2 = (tol * tol) * dot(b, b)
     went = []
@@ -86,19 +93,19 @@ class _SobolevSolve(torch.autograd.Function):
     """v = A^{-1} u by CG; d/du is the same solve of the cotangent."""
 
     @staticmethod
-    def forward(ctx, u, neighbors, neighbor_valid, lam, maxiter, tol):
+    def forward(ctx, u, neighbors, neighbor_valid, lam, maxiter, tol, x0):
         ctx.save_for_backward(neighbors, neighbor_valid)
-        ctx.args = (lam, maxiter, tol)
-        return _solve(u, neighbors, neighbor_valid, lam, maxiter, tol)
+        ctx.args = (lam, maxiter, tol, x0)
+        return _solve(u, neighbors, neighbor_valid, lam, maxiter, tol, x0)
 
     @staticmethod
     def backward(ctx, g):
         neighbors, neighbor_valid = ctx.saved_tensors
         return (_solve(g, neighbors, neighbor_valid, *ctx.args),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
-def _solve(u, neighbors, neighbor_valid, lam, maxiter, tol):
+def _solve(u, neighbors, neighbor_valid, lam, maxiter, tol, x0=None):
     # `sobolev_matvec` with what does not change between trips hoisted
     u = u.detach()
     deg = neighbor_valid.sum(dim=1).to(u.dtype)[:, None]
@@ -108,12 +115,13 @@ def _solve(u, neighbors, neighbor_valid, lam, maxiter, tol):
         lx = deg * x - x[neighbors].masked_fill(pad, 0.0).sum(dim=1)
         return x + lam * lx
 
-    v, _ = cg(matvec, u, tol=tol, maxiter=maxiter)
+    v, _ = cg(matvec, u, tol=tol, maxiter=maxiter, x0=x0)
     return v
 
 
 def sobolev_solve(u, neighbors, neighbor_valid, lam, maxiter: int = 64,
-                  tol: float = 1e-6):
-    """v = A^{-1} u by CG. Differentiable in u."""
+                  tol: float = 1e-6, x0=None):
+    """v = A^{-1} u by CG from x0 (a warm start; zeros if None).
+    Differentiable in u."""
     return _SobolevSolve.apply(u, neighbors, neighbor_valid, lam, maxiter,
-                               tol)
+                               tol, x0)

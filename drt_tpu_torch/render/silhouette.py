@@ -93,11 +93,12 @@ class _EdgeSampler(torch.autograd.Function):
 
 def primary_visibility(mesh, camera: CameraM, cam_origin,
                        intersect_fn: Callable, budget: int,
-                       resy: int, resx: int) -> EdgeSamples:
+                       resy: int, resx: int,
+                       detach_depth: bool = True) -> EdgeSamples:
     """Select up to `budget` silhouette edges, project their endpoints
-    (camera depth detached, DiffRender.py:471) and run the edge sampler
-    (reference primary_visibility, DiffRender.py:459-479, including the
-    viewport clip at :478)."""
+    (camera depth detached by default, DiffRender.py:471) and run the edge
+    sampler (reference primary_visibility, DiffRender.py:459-479, including
+    the viewport clip at :478)."""
     silh = silhouette_edge_mask(mesh.vertices, mesh.faces, mesh.edge_faces,
                                 mesh.edge_valid, cam_origin)
     silh_count = silh.sum()
@@ -107,7 +108,7 @@ def primary_visibility(mesh, camera: CameraM, cam_origin,
     sel_valid = torch.arange(budget, device=silh.device) < silh_count
 
     V = mesh.vertices[mesh.edges[edge_idx].reshape(-1)]      # [2K,3]
-    E_pos = project_vertices(camera, V, detach_depth=True)
+    E_pos = project_vertices(camera, V, detach_depth=detach_depth)
     E_pos = E_pos.reshape(budget, 2, 2)
 
     pixel, output, _f, bc_valid = _EdgeSampler.apply(

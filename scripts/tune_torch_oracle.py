@@ -2,7 +2,7 @@
 """Measurements behind the constants of the port's oracle, on one CUDA GPU.
 
     python3 scripts/tune_torch_oracle.py [--what tiles blocks gate prepass
-                                          resort]
+                                          resort group]
 
 Six queries, the ones chip_smoke.py checks: the camera rays and the
 bounce-2 rays of one 1280x960 view of dog_mid90k, and the four queries of
@@ -27,12 +27,32 @@ prepass the prepass kernel (csrc/candidates.cu) built with blocks of 128
 resort  the two routes of an incoherent query, "ray" (the exact per-ray
         prepass kernel) against "resort" (Morton sort of the rays, tile
         prepass, scatter back), on the bounce-2 and exit queries of a
-        1280x960 view of dog_mid{20k,45k,90k}: hits equal bit for bit, ms
-        a query of both in turns (ray, resort, resort, ray; CUDA events),
-        and the parts of the resorted route. Writes the winner for each
-        mesh size into reports/torch_resort_ab.json (or --table PATH), the
-        table that `get_intersect_fn(incoherent="auto")` reads. Not in the
-        default set: it rewrites a file of the repository.
+        1280x960 view of dog_mid{20k,45k,90k} (`incoherent_queries`): hits
+        equal bit for bit, ms a query of both in turns (ray, resort, resort,
+        ray; CUDA events), the group each route's query took, and the parts
+        of the resorted route. Writes the winner for each mesh size into
+        reports/torch_resort_ab.json (or --table PATH), the table that
+        `get_intersect_fn(incoherent="auto")` reads. Not in the default
+        set: it rewrites a file of the repository.
+group   candidate groups of 1, 4 and 16 chunks (`intersect_cuda(group=)`)
+        on the incoherent queries (ray mode) of dog_mid45k and dog_mid90k,
+        bounce 2, exit and one silhouette view: hits against group 1
+        (tri_id equal but for shared-edge ties), then the prepass kernel,
+        the closest-hit kernel and the whole query in turns (1, g, g, 1;
+        CUDA events), and one query's device operations, their busy time
+        (torch.profiler) and its host time (the call's return, the device
+        idle at its start). A group is faster on a mesh where both of its turns of
+        a step's incoherent kernel time (prepass + closest hit of bounce 2,
+        exit and 8 silhouette views) beat both of group 1's. Only where some
+        group is faster on both meshes does a mesh take one: the least group
+        faster on it; else every mesh takes 1. Writes
+        reports/torch_group_ab.json (or --group-out PATH), the table that
+        `intersect_cuda(group=None)` reads for incoherent queries. Not in
+        the default set either: it rewrites a file of the repository.
+defaults  with --parent DIR (an unpacked tree of another commit): the six
+        queries and the incoherent ones of `group` through both trees'
+        `intersect_cuda` at the defaults, hits equal bit for bit, and both
+        kernels of both trees timed in turns (parent, this, this, parent).
 Every variant's hits are also compared with the first variant's: they do
 not depend on tile or block size.
 """
@@ -43,6 +63,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
@@ -128,17 +149,16 @@ def sweep(queries, names, values):
                         o, d, *geom, coherent=coh), 10)
                     T = inp.count.shape[0]
                     cnt = inp.count.float()
-                    cv = CK._chunk_aabbs(*geom, o.float().mean(dim=0),
-                                         CK.TRI_CHUNK)[2]
+                    args = S.prepass_args(o, geom, inp)
                     ms_c = S.cuda_ms(lambda: CK.candidates_cuda(
-                        inp.phi[6:9], inp.inv, inp.lo, inp.hi, cv, T,
-                        tile=coh), 10)
+                        *args, tile=coh), 10)
                     pre = f" of which prepass kernel {ms_c:.3f},"
                     print(f"round {rnd} {name} {'/'.join(names)}={val} "
                           f"(tile {inp.phi.shape[1] // T}): kernel "
                           f"{ms_k:.3f} ms, stages before it {ms_p:.3f} ms,"
-                          f"{pre} query {ms_q:.3f} ms; listed chunks "
-                          f"{int(inp.count.sum())}, per tile mean "
+                          f"{pre} query {ms_q:.3f} ms; listed boxes "
+                          f"{int(inp.count.sum())} (groups of {inp.group}), "
+                          f"per tile mean "
                           f"{float(cnt.mean()):.1f} max {int(cnt.max())}; "
                           f"hits equal the first variant's: {same}",
                           flush=True)
@@ -191,8 +211,8 @@ def prepass_blocks(queries, card, out):
     for name, o, d, geom, coh in queries:
         inp = CK.prepare_inputs(o, d, *geom, coherent=coh)
         T, NC = inp.cand.shape
-        cv = CK._chunk_aabbs(*geom, o.float().mean(dim=0), CK.TRI_CHUNK)[2]
-        args = (inp.phi[6:9], inp.inv, inp.lo, inp.hi, cv, T)
+        args = S.prepass_args(o, geom, inp)
+        cv = args[4]
         want = CK.candidates_plain(*args, tile=coh)
         ms = {128: [], 256: []}
         try:
@@ -235,43 +255,71 @@ def prepass_blocks(queries, card, out):
     print(f"wrote {out}")
 
 
+# The capture each mesh's incoherent queries are made under: never the
+# mesh's own, so the exit rays (which leave through the capture's surface)
+# still hit the queried one.
+CAPTURE_OF = {"dog_mid20k": "dog_mid90k", "dog_mid45k": "dog_mid90k",
+              "dog_mid90k": "dog_mid45k"}
+
+
+def incoherent_queries(dev, meshes, silhouette=False):
+    """{mesh: (mesh state, geom, [(name, origins, dirs)])}: the bounce-2 and
+    exit queries of one 1280x960 view (and, `silhouette`, one silhouette
+    view's), recorded from the loss functions on `mesh` under a capture
+    synthesized from CAPTURE_OF[mesh]."""
+    import torch
+    import chip_smoke as S
+    from drt_tpu_torch.config import POINTGRAY_RES as RES, HyperParams
+    from drt_tpu_torch.data.synthetic import synthesize_capture
+    from drt_tpu_torch.mesh import build_mesh_state, load_ply
+    from drt_tpu_torch.optimize import default_silhouette_budget
+    from drt_tpu_torch.optimize.losses import ray_loss, silhouette_loss
+
+    hp = HyperParams()
+    caps, out = {}, {}
+    for mesh in meshes:
+        src = CAPTURE_OF[mesh]
+        if src not in caps:
+            v, f = load_ply(os.path.join(S.MESH_DIR, f"{src}.ply"))
+            caps[src] = synthesize_capture(
+                v, f, name="dog", num_views=1, resy=RES[0], resx=RES[1],
+                ior=hp.ior, ext_ior=hp.ext_ior, num_view_used=1, device=dev)
+        ms = build_mesh_state(*load_ply(os.path.join(S.MESH_DIR,
+                                                     f"{mesh}.ply")),
+                              device=dev)
+        rec = S.QueryRecorder()
+        view = caps[src].views.take(0)
+        with torch.no_grad():
+            ray_loss(ms, view, rec, hp.ior, hp.ext_ior)
+            if silhouette:
+                silhouette_loss(ms, view, rec,
+                                default_silhouette_budget(ms.num_edges),
+                                *RES)
+        out[mesh] = (ms, (ms.vertices, ms.faces, ms.face_valid),
+                     [(qn, o, d) for qn, (o, d, coh) in
+                      zip(S.QUERY_NAMES, rec.queries) if not coh])
+    return out
+
+
 def resort_ab(dev, card, table=None):
     """The A/B of the two incoherent routes; writes the port's table (to
     `table`, or where `get_intersect_fn` reads it)."""
     import torch
     import chip_smoke as S
-    from drt_tpu_torch.config import POINTGRAY_RES as RES, HyperParams
-    from drt_tpu_torch.data.synthetic import synthesize_capture
     from drt_tpu_torch.intersect import cuda_kernel as CK
     from drt_tpu_torch.intersect.api import RESORT_TABLE, get_intersect_fn
     from drt_tpu_torch.intersect.resort import morton_keys
-    from drt_tpu_torch.mesh import build_mesh_state, load_ply
-    from drt_tpu_torch.optimize.losses import ray_loss
 
-    hp = HyperParams()
-    v90, f90 = load_ply(os.path.join(S.MESH_DIR, "dog_mid90k.ply"))
-    cap = synthesize_capture(v90, f90, name="dog", num_views=1, resy=RES[0],
-                             resx=RES[1], ior=hp.ior, ext_ior=hp.ext_ior,
-                             num_view_used=1, device=dev)
     fn_ray = get_intersect_fn("cuda", incoherent="ray")
     fn_res = get_intersect_fn("cuda", incoherent="resort")
     rows = []
-    for mesh in ("dog_mid20k", "dog_mid45k", "dog_mid90k"):
-        ms = build_mesh_state(*load_ply(os.path.join(S.MESH_DIR,
-                                                     f"{mesh}.ply")),
-                              device=dev)
-        geom = (ms.vertices, ms.faces, ms.face_valid)
-        rec = S.QueryRecorder()
-        with torch.no_grad():
-            ray_loss(ms, cap.views.take(0), rec, hp.ior, hp.ext_ior)
+    meshes = ("dog_mid20k", "dog_mid45k", "dog_mid90k")
+    for mesh, (ms, geom, queries) in incoherent_queries(dev, meshes).items():
         total = {"ray": 0.0, "resort": 0.0}
-        row = {"mesh": mesh, "faces": ms.num_faces,
-               "faces_padded": int(ms.faces.shape[0]),
-               "rays": int(rec.queries[0][0].shape[0])}
-        for qn, (o, d, coh) in zip(("bounce1", "bounce2", "exit"),
-                                   rec.queries):
-            if coh:
-                continue
+        row = {"mesh": mesh, "capture": CAPTURE_OF[mesh],
+               "faces": ms.num_faces, "faces_padded": int(ms.faces.shape[0]),
+               "rays": int(queries[0][1].shape[0])}
+        for qn, o, d in queries:
             h_ray = fn_ray(o, d, *geom, coherent=False)
             h_res = fn_res(o, d, *geom, coherent=False)
             same = bool(torch.equal(h_ray.tri_id, h_res.tri_id)
@@ -304,22 +352,26 @@ def resort_ab(dev, card, table=None):
             total["ray"] += r
             total["resort"] += s
             row[qn] = {"ray_ms": ms_q["ray"], "resort_ms": ms_q["resort"],
-                       "hits": int(h_ray.hit.sum())}
+                       "hits": int(h_ray.hit.sum()),
+                       "ray_group": inp_ray.group,
+                       "resort_group": inp_res.group}
             print(f"{mesh} {qn}: hits equal bit for bit: {same} "
-                  f"({int(h_ray.hit.sum())} hits); ray "
+                  f"({int(h_ray.hit.sum())} hits; groups {inp_ray.group} "
+                  f"/ {inp_res.group}); ray "
                   f"{ms_q['ray'][0]:.3f} / {ms_q['ray'][1]:.3f} ms, resort "
                   f"{ms_q['resort'][0]:.3f} / {ms_q['resort'][1]:.3f} ms a "
                   f"query. ray: stages {ms_prep_ray:.3f}, kernel "
-                  f"{ms_k_ray:.3f} (listed chunks "
+                  f"{ms_k_ray:.3f} (listed boxes "
                   f"{int(inp_ray.count.sum())} over "
                   f"{inp_ray.count.shape[0]} tiles). resort: keys and sort "
                   f"{ms_sort:.3f}, two gathers {ms_gather:.3f}, stages with "
                   f"the tile prepass {ms_prep:.3f}, kernel {ms_k_res:.3f} "
-                  f"(listed chunks {int(inp_res.count.sum())} over "
+                  f"(listed boxes {int(inp_res.count.sum())} over "
                   f"{inp_res.count.shape[0]} tiles)", flush=True)
         row["ray_ms"], row["resort_ms"] = total["ray"], total["resort"]
         row["winner"] = "resort" if total["resort"] < total["ray"] else "ray"
-        print(f"{mesh}: both incoherent ray queries: ray "
+        print(f"{mesh} (capture of {CAPTURE_OF[mesh]}): both incoherent ray "
+              f"queries: ray "
               f"{total['ray']:.3f} ms, resort {total['resort']:.3f} ms -> "
               f"{row['winner']}", flush=True)
         rows.append(row)
@@ -333,14 +385,197 @@ def resort_ab(dev, card, table=None):
     print(f"wrote {table}")
 
 
+GROUPS = (1, 4, 16)
+
+
+def query_profile(fn, reps=5):
+    """(device operations a call, their busy ms a call, host ms a call) of
+    fn: the operations and the sum of their spans from torch.profiler, the
+    host time by the clock from the call to its return, the device idle at
+    its start and not waited for."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    host = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        host += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.end - e.time_range.start for e in ops)
+    return len(ops) / reps, busy / reps / 1e3, host / reps * 1e3
+
+
+def group_ab(dev, card, out):
+    """Groups of 1, 4 and 16 chunks on the incoherent queries; writes the
+    times and the verdict to `out`."""
+    import chip_smoke as S
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+
+    rows, verdict = [], {}
+    data = incoherent_queries(dev, ("dog_mid45k", "dog_mid90k"),
+                              silhouette=True)
+    for mesh, (ms, geom, queries) in data.items():
+        # a step's incoherent queries (a train step makes 8 silhouette
+        # queries): each group's two turns and group 1's two turns beside
+        # them
+        sums = {g: {"group": [0.0, 0.0], "group_1": [0.0, 0.0]}
+                for g in GROUPS[1:]}
+        for qn, o, d in queries:
+            ref = CK.intersect_cuda(o, d, *geom, coherent=False, group=1)
+            row = {"mesh": mesh, "capture": CAPTURE_OF[mesh], "query": qn,
+                   "rays": int(o.shape[0]), "faces": ms.num_faces,
+                   "faces_padded": int(ms.faces.shape[0]),
+                   "hits": int(ref.hit.sum()), "groups": {}}
+            runs = {}
+            for g in GROUPS:
+                h = CK.intersect_cuda(o, d, *geom, coherent=False, group=g)
+                S.compare_hits(f"{mesh} {qn} group {g} vs group 1", ref.t,
+                               ref.tri_id, h.t, h.tri_id)
+                inp = CK.prepare_inputs(o, d, *geom, coherent=False, group=g)
+                args = S.prepass_args(o, geom, inp)
+                boxes = args[2:5]
+                runs[g] = (inp, args)
+                n_ops, busy, host = query_profile(
+                    lambda: CK.intersect_cuda(o, d, *geom, coherent=False,
+                                              group=g))
+                row["groups"][g] = {
+                    "device_ops": n_ops, "device_busy_ms": busy,
+                    "host_ms": host,
+                    "boxes": int(boxes[0].shape[0]),
+                    "valid_boxes": int(boxes[2].sum()),
+                    "listed": int(inp.count.sum()),
+                    "entries": int(inp.count.sum()) * g,
+                    "tri_id_differ": int((h.tri_id != ref.tri_id).sum()),
+                    "query_ms": [], "prepass_ms": [], "closest_hit_ms": []}
+            for g in GROUPS[1:]:
+                for k, turn in enumerate((1, g, g, 1)):
+                    r = row["groups"][turn]
+                    inp, args = runs[turn]
+                    q = S.cuda_ms(lambda: CK.intersect_cuda(
+                        o, d, *geom, coherent=False, group=turn), 10)
+                    r["query_ms"].append(q)
+                    pre = S.cuda_ms(
+                        lambda: CK.candidates_cuda(*args, tile=False), 10)
+                    hit = S.cuda_ms(lambda: CK.closest_hit_cuda(inp), 10)
+                    r["prepass_ms"].append(pre)
+                    r["closest_hit_ms"].append(hit)
+                    side = "group_1" if turn == 1 else "group"
+                    sums[g][side][0 if k in (0, 1) else 1] += (pre + hit) * (
+                        8 if qn == "silhouette" else 1)
+            for g in GROUPS:
+                r = row["groups"][g]
+                print(f"{mesh} {qn}: group {g}: {r['valid_boxes']} of "
+                      f"{r['boxes']} boxes valid, {r['listed']} listed, "
+                      f"{r['entries']} chunk entries walked, "
+                      f"{r['tri_id_differ']} tri_ids differ from group 1; "
+                      f"a query: {r['device_ops']:g} device operations busy "
+                      f"{r['device_busy_ms']:.4f} ms, host "
+                      f"{r['host_ms']:.4f} ms; "
+                      f"query {_fmt(r['query_ms'])} ms, prepass "
+                      f"{_fmt(r['prepass_ms'])} ms, closest hit "
+                      f"{_fmt(r['closest_hit_ms'])} ms", flush=True)
+            rows.append(row)
+        faster = [g for g in GROUPS[1:]
+                  if max(sums[g]["group"]) < min(sums[g]["group_1"])]
+        verdict[mesh] = {"faces_padded": int(ms.faces.shape[0]),
+                         "step_kernel_ms": sums, "faster": faster}
+        print(f"{mesh}: a step's incoherent queries (bounce 2, exit, 8 "
+              f"silhouette views), prepass + closest hit ms in turns: "
+              f"{sums}; faster than group 1 beyond the spread: "
+              f"{faster or 'none'}", flush=True)
+    both = [g for g in GROUPS[1:]
+            if all(g in v["faster"] for v in verdict.values())]
+    for mesh, v in verdict.items():
+        v["group"] = v["faster"][0] if both else 1
+        print(f"{mesh}: group=None takes group {v['group']} for incoherent "
+              "queries")
+    print(f"groups faster than group 1 on both meshes: {both or 'none'}")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as fh:
+        json.dump({"device": card, "script":
+                   "scripts/tune_torch_oracle.py --what group",
+                   "rows": rows, "verdict": verdict,
+                   "faster_on_both": both}, fh, indent=1)
+        fh.write("\n")
+    print(f"wrote {out}")
+
+
+def parent_defaults(queries, incoherent, parent):
+    """Hits at the defaults against the tree at `parent` (its kernels built
+    from its own csrc/ into its own build/): bit for bit where both take
+    the same group, else within the tie allowance; and both kernels of
+    both trees in turns, the prepass on the boxes this tree scored."""
+    import importlib.util
+    import torch
+    import chip_smoke as S
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    spec = importlib.util.spec_from_file_location(
+        "parent_cuda_kernel",
+        os.path.join(parent, "drt_tpu_torch", "intersect", "cuda_kernel.py"))
+    P = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(P)          # builds its kernels at first use
+    for name, o, d, geom, coh in queries + incoherent:
+        new = CK.intersect_cuda(o, d, *geom, coherent=coh)
+        old = P.intersect_cuda(o, d, *geom, coherent=coh)
+        same = bool(torch.equal(new.t, old.t)
+                    and torch.equal(new.tri_id, old.tri_id))
+        inp_n = CK.prepare_inputs(o, d, *geom, coherent=coh)
+        inp_o = P.prepare_inputs(o, d, *geom, coherent=coh)
+        if inp_n.group == 1 and not same:
+            sys.exit(f"tune_torch_oracle: {name}: hits at the defaults differ "
+                     "from the parent tree's")
+        S.compare_hits(f"defaults: {name} (group {inp_n.group}) vs the "
+                       "parent tree", old.t, old.tri_id, new.t, new.tri_id)
+        o_args = (inp_o.phi[6:9], inp_o.inv,
+                  *CK._chunk_aabbs(*geom, o.float().mean(dim=0),
+                                   CK.TRI_CHUNK), inp_o.count.shape[0])
+        n_args = S.prepass_args(o, geom, inp_n)
+        ms = {"parent": {"closest_hit": [], "prepass": []},
+              "this": {"closest_hit": [], "prepass": []}}
+        for side in ("parent", "this", "this", "parent"):
+            M, inp, args = ((P, inp_o, o_args) if side == "parent"
+                            else (CK, inp_n, n_args))
+            ms[side]["closest_hit"].append(S.cuda_ms(
+                lambda: M.closest_hit_cuda(inp), 20))
+            ms[side]["prepass"].append(S.cuda_ms(
+                lambda: M.candidates_cuda(*args, tile=coh), 20))
+        print(f"defaults: {name}: group {inp_n.group}, hits equal the "
+              f"parent tree's bit for bit: {same} "
+              f"({int(new.hit.sum())} hits); closest hit parent "
+              f"{_fmt(ms['parent']['closest_hit'])} ms, this "
+              f"{_fmt(ms['this']['closest_hit'])} ms; prepass parent "
+              f"{_fmt(ms['parent']['prepass'])} ms, this "
+              f"{_fmt(ms['this']['prepass'])} ms", flush=True)
+
+
+def _fmt(xs):
+    return "/".join(f"{x:.4f}" for x in xs)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--what", nargs="+", default=["tiles", "blocks", "gate"],
-                    choices=["tiles", "blocks", "gate", "prepass", "resort"])
+                    choices=["tiles", "blocks", "gate", "prepass", "resort",
+                             "group", "defaults"])
+    ap.add_argument("--parent", default=None,
+                    help="--what defaults: the unpacked tree to compare with")
     ap.add_argument("--prepass-out",
                     default=os.path.join(HERE, "reports",
                                          "torch_prepass_blocks.json"),
                     help="where --what prepass writes its table")
+    ap.add_argument("--group-out",
+                    default=os.path.join(HERE, "reports",
+                                         "torch_group_ab.json"),
+                    help="where --what group writes its table")
     ap.add_argument("--table", default=None,
                     help="where --what resort writes its table (default: "
                          "reports/torch_resort_ab.json)")
@@ -352,11 +587,21 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip())
+    if "group" in args.what:
+        group_ab(torch.device("cuda", 0), smi.stdout.strip(), args.group_out)
     if "resort" in args.what:
         resort_ab(torch.device("cuda", 0), smi.stdout.strip(), args.table)
-        if args.what == ["resort"]:
-            return
+    if not set(args.what) - {"group", "resort"}:
+        return
     queries = recorded_queries(torch.device("cuda", 0))
+    if "defaults" in args.what:
+        if not args.parent:
+            sys.exit("tune_torch_oracle: --what defaults needs --parent DIR")
+        incoherent = [(f"{mesh} {qn}", o, d, geom, False) for mesh, (
+            _, geom, qs) in incoherent_queries(
+                torch.device("cuda", 0), ("dog_mid90k",)).items()
+            for qn, o, d in qs]
+        parent_defaults(queries, incoherent, args.parent)
     if "tiles" in args.what:
         # blocks as large as the tile: BLOCK_RAYS = 256 divides none smaller
         from drt_tpu_torch.intersect import cuda_kernel as CK

@@ -206,11 +206,63 @@ def test_prepare_inputs_one_prepass_launch_per_query(dev, dog20k, coherent):
     assert (CK.counters.launches,
             CK.counters.candidates_launches) == (before[0], before[1] + 1)
     T = inp.count.shape[0]
-    _, _, cv = CK._chunk_aabbs(ms.vertices, ms.faces, ms.face_valid,
-                               o.mean(dim=0), CK.TRI_CHUNK)
-    cand, count = CK.candidates_plain(inp.phi[6:9], inp.inv, inp.lo,
-                                      inp.hi, cv, T, tile=coherent)
+    lo, hi, cv = CK._chunk_aabbs(ms.vertices, ms.faces, ms.face_valid,
+                                 o.mean(dim=0), CK.TRI_CHUNK)
+    _, _, boxes = CK._grouped_boxes(lo, hi, cv, inp.group)
+    cand, count = CK.candidates_plain(inp.phi[6:9], inp.inv, *boxes, T,
+                                      tile=coherent)
     assert torch.equal(inp.cand, cand) and torch.equal(inp.count, count)
+
+
+@pytest.mark.parametrize("cut", [False, True])
+@pytest.mark.parametrize("group", [1, 3, 4, 16])
+@pytest.mark.parametrize("coherent", [False, True])
+def test_grouped_kernels_match_plain(dev, dog20k, coherent, group, cut):
+    """Both kernels with the launch arguments `group` and `t_min` (0, or the
+    median t of the hits, which moves half of them to a farther surface)
+    against their plain versions: the prepass's lists and counts over the
+    group boxes (3 does not divide the 256 chunks), closest hit's t and
+    tri_id bit for bit, one launch of each."""
+    ms = dog20k
+    geom = (ms.vertices, ms.faces, ms.face_valid)
+    o, d = _dog_rays(ms, 20000, 11, not coherent, dev)
+    t_min = 0.0
+    if cut:
+        h = CK.intersect_cuda(o, d, *geom, coherent=coherent, group=1)
+        t_min = float(h.t[h.tri_id >= 0].median())
+    before = (CK.counters.launches, CK.counters.candidates_launches)
+    inp = CK.prepare_inputs(o, d, *geom, coherent=coherent, group=group,
+                            t_min=t_min)
+    t_k, id_k = CK.closest_hit(inp)
+    torch.cuda.synchronize()
+    assert (CK.counters.launches, CK.counters.candidates_launches) == (
+        before[0] + 1, before[1] + 1)
+    T = inp.count.shape[0]
+    lo, hi, cv = CK._chunk_aabbs(*geom, o.mean(dim=0), CK.TRI_CHUNK)
+    _, _, boxes = CK._grouped_boxes(lo, hi, cv, group)
+    cand, count = CK.candidates_plain(inp.phi[6:9], inp.inv, *boxes, T,
+                                      tile=coherent, t_min=t_min)
+    assert torch.equal(inp.cand, cand) and torch.equal(inp.count, count)
+    t_p, id_p = CK.closest_hit_plain(inp)
+    assert torch.equal(id_k, id_p)
+    assert torch.equal(t_k, t_p)
+    assert int((id_k >= 0).sum()) > 1000
+    assert bool((t_k[id_k >= 0] > t_min).all())
+
+
+def test_group_none_above_a_lowered_cap(dev, dog20k, monkeypatch):
+    """group=None groups a mesh above MAX_CHUNKS boxes: with the cap set to
+    64, dog_mid20k's 256 chunks take groups of 4, and the hits are those of
+    an explicit group=4 bit for bit."""
+    ms = dog20k
+    geom = (ms.vertices, ms.faces, ms.face_valid)
+    o, d = _dog_rays(ms, 20000, 11, True, dev)
+    want = CK.intersect_cuda(o, d, *geom, coherent=False, group=4)
+    monkeypatch.setattr(CK, "MAX_CHUNKS", 64)
+    assert CK.prepare_inputs(o, d, *geom, coherent=False).group == 4
+    got = CK.intersect_cuda(o, d, *geom, coherent=False)
+    assert torch.equal(got.tri_id, want.tri_id)
+    assert torch.equal(got.t, want.t)
 
 
 def test_tie_rule_on_the_card(dev):
@@ -219,7 +271,8 @@ def test_tie_rule_on_the_card(dev):
     quad whose shared diagonal ray 2 crosses. In both ties the lowest row
     sits in a higher lane than another tied row (row = lane + 32 m): the
     warp's (t, row) minimum must be lexicographic, not the first lane's,
-    and strict `<` across chunks keeps the first chunk."""
+    and strict `<` across chunks keeps the first chunk, in a group of
+    chunks too."""
     near = [[-1.0, -1, 2], [3, -1, 2], [-1, 3, 2]]
     quad = [[-1.0, -1, 4], [1, -1, 4], [1, 1, 4], [-1, 1, 4]]
     # off to the side, hit by no ray: they pull both chunks' boxes toward the
@@ -239,10 +292,13 @@ def test_tie_rule_on_the_card(dev):
     o = torch.zeros(64, 3, device=dev)
     d = torch.tensor([[0.0, 0.0, 1.0]], device=dev).repeat(64, 1)
     o[2] = torch.tensor([-0.5, -0.5, 3.0], device=dev)
-    for order in ([33, 64], [64, 33]):
+    # group 4: one group of both chunks (and two of padding), walked in the
+    # same order
+    for order, group in (([33, 64], 1), ([64, 33], 1), ([33, 64], 4)):
         fc = faces.clone()
         fc[[33, 64]] = faces[order]
-        inp = CK.prepare_inputs(o, d, verts, fc, valid, coherent=False)
+        inp = CK.prepare_inputs(o, d, verts, fc, valid, coherent=False,
+                                group=group)
         t_k, id_k = CK.closest_hit(inp)
         torch.cuda.synchronize()
         t_p, id_p = CK.closest_hit_plain(inp)

@@ -4,7 +4,8 @@ JAX_PLATFORMS unset) imports every module of `drt_tpu_torch`, found by
 walking the package, and `chip_smoke` as a module without running it; the
 test then reads its `sys.modules`. The GPU machines the port runs on have no
 JAX, so a stray import would otherwise show only there. A second test lists,
-module by module, the public names of drt_tpu that the port lacks."""
+module by module, the public names of drt_tpu that the port lacks, and a
+third, function by function, the parameters it lacks."""
 
 import json
 import os
@@ -120,3 +121,79 @@ def test_port_has_every_public_name_of_the_jax_package():
             "drt_tpu.intersect.pallas_kernel"),
         "drt_tpu.render.silhouette": {"make_edge_sampler"},
     }
+
+
+# Parameters of drt_tpu's public functions that the port's counterpart does
+# not take, each with its reason: {(module, function): {parameter: reason}}.
+PARAMETERS_LEFT_OUT = {
+    **{(m, f): {"ray_shard_count": "the port gathers the triangles of a "
+                "ray's hit by one route; there are no gather shards to "
+                "count"}
+       for m, f in (("render.trace", "trace2"),
+                    ("render.trace", "render_transparent"),
+                    ("optimize.losses", "ray_loss"),
+                    ("optimize.losses", "total_loss"),
+                    ("optimize.loop", "make_train_step"))},
+    ("parallel.sharding", "make_ray_mesh"): {
+        "devices": "a torch.distributed process group takes the place of "
+                   "JAX's device list"},
+    ("intersect.pallas_kernel", "intersect_pallas"): {
+        "ray_tile": "fixed by the kind of query (RAY_TILE_COHERENT, "
+                    "RAY_TILE_INCOHERENT) and __launch_bounds__ in csrc/",
+        "tri_chunk": "fixed at TRI_CHUNK = 128 in csrc/closest_hit.cu",
+        "prepass": "follows `coherent`: the tile prepass for coherent "
+                   "queries, the per-ray one for the others",
+        "interpret": "no interpreter: CPU tensors take the plain versions"},
+}
+# A JAX function whose counterpart has another name or module.
+COUNTERPART = {("intersect.pallas_kernel", "intersect_pallas"):
+               ("intersect.cuda_kernel", "intersect_cuda")}
+
+
+def _parameters(node):
+    """The names a call can pass: every parameter, *args and **kwargs as
+    '*' and '**'."""
+    a = node.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    return names + ["*"] * bool(a.vararg) + ["**"] * bool(a.kwarg)
+
+
+def test_port_takes_every_parameter_of_the_jax_package():
+    """For every public top-level function of drt_tpu (read from its
+    source) whose counterpart the port has, the parameters the counterpart
+    does not take (read from its signature) are exactly the named ones of
+    PARAMETERS_LEFT_OUT."""
+    import ast
+    import importlib
+    import inspect
+    jax_root = os.path.join(REPO, "drt_tpu")
+    kinds = {inspect.Parameter.VAR_POSITIONAL: "*",
+             inspect.Parameter.VAR_KEYWORD: "**"}
+    lacking, checked = {}, 0
+    for dirpath, _, files in os.walk(jax_root):
+        for fname in sorted(files):
+            if not fname.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fname)
+            rel = os.path.relpath(path, jax_root)[:-3].replace(os.sep, ".")
+            for node in ast.parse(open(path).read()).body:
+                if (not isinstance(node, ast.FunctionDef)
+                        or node.name.startswith("_")):
+                    continue
+                mod, name = COUNTERPART.get((rel, node.name),
+                                            (rel, node.name))
+                port = "drt_tpu_torch" + ("." + mod).replace(".__init__", "")
+                if not os.path.exists(os.path.join(
+                        REPO, *port.split(".")) + ".py"):
+                    continue
+                fn = getattr(importlib.import_module(port), name, None)
+                if fn is None:      # a lacking name: the test above's
+                    continue
+                have = {kinds.get(p.kind, p.name) for p in
+                        inspect.signature(fn).parameters.values()}
+                checked += 1
+                missing = {p for p in _parameters(node) if p not in have}
+                if missing:
+                    lacking[(rel, node.name)] = missing
+    assert checked > 90               # 98 functions when written
+    assert lacking == {k: set(v) for k, v in PARAMETERS_LEFT_OUT.items()}

@@ -96,17 +96,19 @@ def _port(ms, o, d, coherent):
 
 
 def _other_prepass(ms, o, d, coherent):
-    """The plain twin's hits with the prepass the query does not pick."""
+    """The plain twin's hits with the prepass the query does not pick, over
+    the boxes (chunks, or groups of them) the query's own prepass scored."""
     to, td = torch.from_numpy(o), torch.from_numpy(d)
     inp = CK.prepare_inputs(to, td, ms.vertices, ms.faces, ms.face_valid,
                             coherent=coherent)
     T = inp.count.shape[0]
     ot = inp.phi[6:9].reshape(3, T, -1).permute(1, 0, 2)
     dt = inp.phi[0:3].reshape(3, T, -1).permute(1, 0, 2)
-    _, _, cv = CK._chunk_aabbs(ms.vertices, ms.faces, ms.face_valid,
-                               to.mean(dim=0), CK.TRI_CHUNK)
+    lo, hi, cv = CK._chunk_aabbs(ms.vertices, ms.faces, ms.face_valid,
+                                 to.mean(dim=0), CK.TRI_CHUNK)
+    _, _, boxes = CK._grouped_boxes(lo, hi, cv, inp.group)
     other = CK._candidates if coherent else CK._candidates_tile
-    cand, count = other(ot, dt, inp.lo, inp.hi, cv)
+    cand, count = other(ot, dt, *boxes)
     t, ids = CK.closest_hit_plain(inp._replace(cand=cand, count=count))
     return t[:len(o)].numpy(), ids[:len(o)].numpy()
 
@@ -492,7 +494,8 @@ def tie_case():
 
 def test_tie_rule_lowest_row_then_first_chunk():
     o, d, verts, faces, valid = tie_case()
-    inp = CK.prepare_inputs(o, d, verts, faces, valid, coherent=False)
+    inp = CK.prepare_inputs(o, d, verts, faces, valid, coherent=False,
+                            group=1)
     assert inp.count.tolist() == [2]
     t, ids = CK.closest_hit(inp)
     assert ids[0] == 38 and t[0] == 2.0
@@ -505,8 +508,16 @@ def test_tie_rule_lowest_row_then_first_chunk():
     flipped = faces.clone()
     flipped[[33, 64]] = faces[[64, 33]]
     t2, ids2 = CK.closest_hit(CK.prepare_inputs(o, d, verts, flipped, valid,
-                                                coherent=False))
+                                                coherent=False, group=1))
     assert ids2[2] == 33 and torch.equal(t2, t)
+    # one group of both chunks (and two of padding) walks them in the same
+    # order: the same answers
+    for group in (2, 4):
+        g_inp = CK.prepare_inputs(o, d, verts, faces, valid, coherent=False,
+                                  group=group)
+        assert g_inp.count.tolist() == [1]
+        t3, ids3 = CK.closest_hit(g_inp)
+        assert torch.equal(ids3, ids) and torch.equal(t3, t)
 
 
 def test_coef_layout_matches_jax_through_row_map(meshes):
@@ -574,4 +585,5 @@ def test_wrappers_dispatch_on_device_and_check_inputs(meshes):
 
 
 def _inputs_to(inp, device):
-    return CK.KernelInputs(*[x.to(device) for x in inp])
+    return inp._replace(**{k: v.to(device) for k, v in inp._asdict().items()
+                           if torch.is_tensor(v)})
