@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-1. build   both kernels (closest hit; candidate prepass with its sort) from
-           drt_tpu_torch/csrc with nvcc, one compile per source in
-           parallel; prints each kernel's registers, shared memory and
-           spills and fails on a spill to local memory;
+1. build   the three kernels (closest hit; candidate prepass with its sort;
+           the packing stages) from drt_tpu_torch/csrc with nvcc, one
+           compile per source in parallel; prints each kernel's registers,
+           shared memory and spills and fails on a spill to local memory;
 2. kernel  the closest-hit kernel vs its plain PyTorch version on
            dog_mid90k (82,566 faces) at 1280x960: camera rays (coherent)
            and the bounce-2 rays of the same view (incoherent), plus a
@@ -28,7 +28,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
            counts of its plain version exactly: `_candidates` (ray mode) on
            an incoherent query, `_candidates_tile` (tile mode) on a
            coherent one; its time, its bound and the time of the torch
-           stages it replaced are printed;
+           stages it replaced are printed; and the packing kernel must give
+           all eight outputs of `pack_plain` (coefficients, chunk boxes,
+           the prepass's boxes and validity, ray features, inverse
+           directions) bit for bit as int32 views, on the query's own
+           shift, group and ray tile, and they must be what the query
+           handed the other two kernels; the time of a call (its wrapper's
+           host time included: the kernel takes less), its bound and the
+           plain version's time;
 3. small   the full loss and gradient on a small icosphere (float64), on
            the card against the CPU: valid rays within the tie tolerance
            with each device's own oracle, and, with the card's hits
@@ -44,10 +51,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. train   3 reference-parity steps (sgd, precond none, HyperParams()
            weights, float32) from dog_mid45k: one ray view and 8 silhouette
            views per step, 11 oracle queries per step, each through the
-           prepass kernel and the closest-hit kernel (the launch counters
-           are reset just before and read just after); then one more step
-           under torch.profiler, each query in a range: fails if the
-           oracle launched a sort kernel;
+           packing, the prepass and the closest-hit kernel (the launch
+           counters are reset just before and read just after); then one
+           more step under torch.profiler, each query in a range: prints
+           the device operations inside the oracle's ranges, a query and a
+           step, and the packing kernel's device time in each query (its
+           profiler span: the kernels line's `ms`), and fails if the oracle launched a sort, cross product,
+           min/max reduction or concatenation kernel, or more than 8
+           device operations a query;
 6. steps   from dog_mid45k, 2 steps each of adam + none, uadam + h1 and
            sgd + sobolev: finite loss and vertices, and the launch counts
            reckoned from the weights (a zero weight skips its term, so h1's
@@ -78,10 +89,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
            remesher from edge length 2.5 to 1.5, checkpoints into a
            temporary directory; 3 loadable watertight checkpoints whose
            face counts differ, no remesh failure, finite losses, 11
-           closest-hit and 11 prepass launches a step, by the remesher's
+           launches of each kernel a step, by the remesher's
            native core; each pass's checkpoint, a remeshed mesh
            at that pass's chunk count (128, 256, 512) and silhouette budget,
-           goes through the checks of phase 4's queries (both kernels
+           goes through the checks of phase 4's queries (the kernels
            against their plain versions, the brute-force oracle); then
            `resume=True` with one pass more runs exactly that pass;
 10. cli    the command line, `drt_tpu_torch.cli.main`, in a temporary
@@ -89,8 +100,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
            (dog_mid90k, 8 views at 1280x960, cached to .npz) from the hull
            `--init carved` carves at 160^3, 2 passes x 10 steps from edge
            length 3.0 to 1.8 (the 8-view hull's surface is larger than the
-           dog's: about 14k and 37k faces), with the closest-hit and
-           prepass launches reckoned from the synthesis (4 each a view) and
+           dog's: about 14k and 37k faces), with the launches of each
+           kernel reckoned from the synthesis (4 each a view) and
            the steps (11 each), a watertight carved hull and result, no
            remesh failure, the native remesher; `carve_occupancy` of two of
            its views on the card against the CPU (voxels flipped across 0.5
@@ -110,7 +121,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
            views), 3 steps against 3 plain steps from the same state and
            views, then one uadam + h1 step against one plain step: params,
            m and the losses equal bit for bit (torch.equal), with 11
-           closest-hit and 11 prepass launches a step. The card's float
+           launches of each kernel a step. The card's float
            atomics (index_add) sum in any order, so the bitwise runs are
            made under torch.use_deterministic_algorithms; two pairs of 3
            sgd steps without it, in turns (plain, sharded, sharded, plain),
@@ -129,8 +140,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 12. groups the oracle's options, on dog_mid90k's camera, bounce-2, exit and
            silhouette queries under a capture of dog_mid45k (so that exit
            rays hit): at groups of 1, 4 and 16 chunks, both kernels against
-           their plain versions (closest hit bit for bit; the prepass's
-           whole lists and counts over the group boxes, in both modes), the
+           their plain versions (closest hit and packing bit for bit; the
+           prepass's whole lists and counts over the group boxes, in both
+           modes), the
            hits against group 1 within phase 2's tie allowance, a 4,096-ray
            sample (and up to 1,024 hits) against the brute-force oracle as
            in phase 2, and both kernels' times and bounds; the bounce-2
@@ -143,7 +155,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
            of two that fits), one launch of each kernel, the same checks,
            its time and the phase's seconds.
 Then it prints the timings, a JSON line of phase 10's times, a JSON line of
-phase 11's and one of phase 12's, a JSON line with both kernels' numbers
+phase 11's and one of phase 12's, a JSON line with the kernels' numbers
 (with their times at each group on phase 12's bounce-2 query), the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
 
@@ -170,6 +182,13 @@ FP32_PEAK = 67e12                 # H100 SXM FP32 non-tensor FLOP/s
 HBM_RATE = 3.35e12                # H100 SXM HBM3 bytes/s
 TIE_PER_1024 = 2
 BRUTE_SAMPLE = 65536
+
+
+def counts():
+    """The launch counters: (closest hit, prepass, packing)."""
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    c = CK.counters
+    return (c.launches, c.candidates_launches, c.pack_launches)
 
 
 def fail(msg):
@@ -365,6 +384,121 @@ def prepass_bound(n_rays, n_tiles, n_chunks, n_valid, tile, count):
             else "bytes")
 
 
+def pack_bound(n_rays, n_pad, faces, vertices, face_valid, pk, rbytes):
+    """Least time for one launch of the packing kernel: bytes (rays, faces,
+    vertices and validity read once; phi, inv, coefficients and boxes
+    written once) against operations (unfused, at half the FP32 FLOP/s
+    peak: a ray 21 (3 subtractions for the shift, 3 products and 3 fused
+    products for o x d, 3 guards of 3 and 3 reciprocals), a face 70 (9
+    subtractions for the shift, 6 for the edges, 24 for the four cross
+    products, 6 for v0 . n, 12 min/max for its box and 13 more for the
+    chunk's reduction)). Returns (ms, "bytes" or "operations", bytes)."""
+    nbytes = (n_rays * 6 * rbytes + 12 + faces.numel() * faces.element_size()
+              + vertices.numel() * vertices.element_size()
+              + (face_valid.numel() if face_valid is not None else 0)
+              + n_pad * 12 * 4 + pk.coef.numel() * 4 + pk.lo.numel() * 8
+              + pk.box_valid.numel())
+    if pk.box_lo is not pk.lo:
+        nbytes += pk.box_lo.numel() * 8
+    ops = (n_pad * 21 + faces.shape[0] * 70) * 2
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes
+            else "bytes", nbytes)
+
+
+def same_bits(a, b):
+    """a and b hold the same bits (floats compared as int32 views, so -0
+    is not +0)."""
+    import torch
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def max_abs_diff(a, b):
+    """The largest |a - b| over the elements whose bits differ (0 where
+    every element is the same to the bit; inf where one side is not
+    finite)."""
+    import torch
+    if a.dtype == torch.bool:
+        return float((a != b).any())
+    differ = a.view(torch.int32) != b.view(torch.int32)
+    if not differ.any():
+        return 0.0
+    return float((a[differ].double() - b[differ].double()).abs()
+                 .nan_to_num(nan=float("inf")).max())
+
+
+def check_pack(name, o, d, geom, inp):
+    """The packing kernel against `pack_plain` on one query's inputs (its
+    shift, the mean ray origin; its group and ray tile): all eight outputs
+    equal as int32 views, and the kernel's phi, inv, coefficients and chunk
+    boxes those `prepare_inputs` handed the other kernels. Then the
+    kernel's time, its bound and the plain version's time."""
+    import torch
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    args = (*geom, o.float().mean(dim=0), o.contiguous(), d.contiguous())
+    kw = dict(group=inp.group, ray_tile=inp.phi.shape[1] // inp.count.shape[0])
+    got = CK.pack_cuda(*args, **kw)
+    want = CK.pack_plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs = {f: max_abs_diff(getattr(got, f), getattr(want, f))
+            for f in CK.Packed._fields}
+    bits = {f: same_bits(getattr(got, f), getattr(want, f))
+            for f in CK.Packed._fields}
+    handed = all(same_bits(getattr(got, f), getattr(inp, f))
+                 for f in ("phi", "inv", "coef", "lo", "hi"))
+    err = max(errs.values())
+    print(f"{name} packing kernel vs plain: all eight outputs equal as int32 "
+          f"views: {all(bits.values())} (largest difference {err:g}); what "
+          f"the query handed the other kernels: {handed}")
+    if not all(bits.values()) or not handed:
+        fail(f"{name}: the packing kernel differs from its plain version "
+             f"({[f for f, b in bits.items() if not b]}) or from the query's "
+             f"inputs ({handed})")
+    vertices, faces, face_valid = geom
+    bound, bound_by, nbytes = pack_bound(
+        o.shape[0], inp.phi.shape[1], faces, vertices, face_valid, got,
+        o.element_size())
+    ms_c = cuda_ms(lambda: CK.pack_cuda(*args, **kw), 20)
+    ms_p = cuda_ms(lambda: CK.pack_plain(*args, **kw), 5)
+    print(f"{name} packing: {faces.shape[0]} faces, {got.coef.shape[0]} "
+          f"chunks in {got.box_valid.numel()} groups of {inp.group}, "
+          f"{inp.phi.shape[1]} rays: a call {ms_c:.4f} ms (CUDA events, the "
+          f"wrapper's host time included), bound {bound:.4f} ms ({bound_by}, "
+          f"{nbytes} bytes); plain version (the torch stages) {ms_p:.3f} ms")
+    return dict(call_ms=ms_c, plain_ms=ms_p, bound_ms=bound,
+                bound_by=bound_by, err=err)
+
+
+def parent_stage_inputs(o, d, geom, inp):
+    """KernelInputs of the query as the torch stages gave them before
+    csrc/pack.cu (on the card, the same shift, group and t_min), their
+    prepass run by csrc/candidates.cu: the path the packing kernel replaced,
+    whose hits the query must give bit for bit."""
+    import torch
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    vertices, faces, face_valid = geom
+    RT = inp.phi.shape[1] // inp.count.shape[0]
+    o32 = o.float()
+    shift = o32.mean(dim=0)
+    coef, _ = CK._coef_packed(vertices, faces, face_valid, shift, CK.TRI_CHUNK)
+    lo, hi, cv = CK._chunk_aabbs(vertices, faces, face_valid, shift,
+                                 CK.TRI_CHUNK)
+    lo, hi, boxes = CK._grouped_boxes(lo, hi, cv, inp.group)
+    oo = CK._pad_axis0(o32 - shift, RT)
+    dd = CK._pad_axis0(d.float(), RT, 1.0)
+    inv = CK._safe_inv(dd).t().contiguous()
+    phi = torch.cat([dd, torch.linalg.cross(oo, dd, dim=-1), oo],
+                    dim=1).t().contiguous()
+    T = phi.shape[1] // RT
+    cand, count = CK.candidates_cuda(phi[6:9], inv, *boxes, T,
+                                     tile=RT == CK.RAY_TILE_COHERENT,
+                                     t_min=inp.t_min)
+    return CK.KernelInputs(phi, inv, CK._pad_axis0(coef, inp.group), lo, hi,
+                           cand, count, inp.group, inp.t_min)
+
+
 def prepass_args(o, geom, inp):
     """(org, inv, lo, hi, valid, T) of the prepass `prepare_inputs` ran for
     `inp`: its rays and the boxes it scored, the chunks' or, with groups,
@@ -450,7 +584,8 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
     sample of `brute_sample` rays and up to `hit_sample` of the rays that
     hit, or all rays), then the kernel's, the plain version's and the whole
     query's times and the bound; then the prepass kernel against its plain
-    version, in the query's own mode (and, `both_modes`, the other).
+    version, in the query's own mode (and, `both_modes`, the other), and the
+    packing kernel against its plain version.
     plain_reps=0 times the plain version by its one checking run. Returns
     the times, and the hits as `hits` (t, tri_id)."""
     import torch
@@ -471,6 +606,13 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
     print(f"{name} kernel vs plain bit for bit: {same_bits}")
     if not same_bits:
         fail(f"{name}: kernel and plain version differ")
+    t_s, id_s = (x[:N] for x in CK.closest_hit_cuda(
+        parent_stage_inputs(o, d, geom, inp)))
+    same_stages = bool(torch.equal(id_k, id_s) and torch.equal(t_k, t_s))
+    print(f"{name} hits against the torch stages the packing kernel "
+          f"replaced, bit for bit: {same_stages}")
+    if not same_stages:
+        fail(f"{name}: the hits differ from those of the torch stages")
     if t_min and bool((t_k[id_k >= 0] <= t_min).any()):
         fail(f"{name}: a hit at or before t_min {t_min}")
     if brute_all or N <= brute_sample:
@@ -510,7 +652,8 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
           f"operations bound of {t_ops:.3f} ms")
     print(f"{name}: {N} rays, candidates/tile mean {float(cnt.mean()):.1f} "
           f"max {int(cnt.max())}, kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms,"
-          f" query (prepass + kernel) {ms_q:.3f} ms, bound {bound:.3f} ms "
+          f" query (packing + prepass + kernel) {ms_q:.3f} ms, bound "
+          f"{bound:.3f} ms "
           f"({bound_by}: {visits} ray-triangle pairs entered before the hit,"
           f" {visits_uncut} entered at all, {nbytes} bytes), "
           f"{N / ms_k * 1e3 / 1e6:.1f} Mrays/s kernel, "
@@ -518,6 +661,7 @@ def check_query(name, o, d, geom, coherent, gen, plain_reps=0,
     res = dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound, bound_by=bound_by,
                err=err, query_ms=ms_q, group=inp.group, hits=(t_k, id_k))
     res["prepass"] = check_prepass(name, o, geom, inp, coherent)
+    res["pack"] = check_pack(name, o, d, geom, inp)
     if both_modes:
         check_prepass(name, o, geom, inp, coherent,
                       mode="ray" if coherent else "tile", timed=False)
@@ -600,7 +744,7 @@ def replay(recorded, device):
 
 
 def queries_per_step(weights, n_silh=8, ray_chunks=1):
-    """(closest-hit launches, prepass launches) of one train step, from
+    """(closest-hit, prepass, packing launches) of one train step, from
     which terms a zero weight skips: the ray loss makes 3 queries (bounce 1
     coherent, bounce 2 and exit incoherent) for each chunk of rays, and a
     chunked loss reruns them in the backward; each silhouette view makes one
@@ -609,16 +753,32 @@ def queries_per_step(weights, n_silh=8, ray_chunks=1):
     rerun = 2 if ray_chunks > 1 else 1
     ray = 3 * ray_chunks * rerun if weights.ray_w else 0
     silh = n_silh if weights.vh_w else 0
-    return ray + silh, ray + silh
+    return (ray + silh,) * 3
+
+
+# Device operations of the packing stages before csrc/pack.cu took them
+# (lowercased substrings of their kernels' names): none may run inside an
+# oracle range.
+PACKED_STAGE_KERNELS = ("cross", "minnan", "maxnan", "minops", "maxops",
+                        "catarray")
+MAX_ORACLE_OPS = 8                # a query: mean, pack, prepass, closest hit
+# A step's device operations inside the oracle's ranges while the torch
+# stages packed each query (groups of 4 for the incoherent ones).
+TORCH_STAGES_ORACLE_OPS = 707
 
 
 def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
     """One more sgd + none step under torch.profiler, each oracle query in a
     `record_function` range: the device kernels launched inside the ranges
-    (the oracle's) and outside them, by name; fails if the oracle launched
-    a sort kernel (its prepass sorts inside csrc/candidates.cu), or if the
-    step's `n_queries` queries did not each give a range with a device-side
-    span, since then the check could not see the oracle's kernels."""
+    (the oracle's) and outside them, by name, and a query's count; fails if
+    the oracle launched a sort kernel (its prepass sorts inside
+    csrc/candidates.cu), a kernel of the packing stages (a cross product, a
+    min/max reduction, a concatenation: csrc/pack.cu does them), more than
+    MAX_ORACLE_OPS device operations in a query, or if the step's
+    `n_queries` queries did not each give a range with a device-side span,
+    since then the check could not see the oracle's kernels. Returns the
+    step's device operations inside the ranges and each query's packing
+    kernel device ms (its profiler span)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from drt_tpu_torch.intersect.api import get_intersect_fn
@@ -648,10 +808,17 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
              if e.name == "oracle query" and e.device_type == dev_t]
     kernels = [e for e in events
                if e.device_type == dev_t and e.name != "oracle query"]
-    oracle = [k.name for k in kernels
-              if any(a <= k.time_range.start and k.time_range.end <= b
-                     for a, b in spans)]
+    per_query = [[k for k in kernels
+                  if a <= k.time_range.start and k.time_range.end <= b]
+                 for a, b in spans]
+    pack_ms = [sum(k.time_range.end - k.time_range.start for k in q
+                   if k.name.split("(")[0] == "pack_kernel") / 1e3
+               for q in per_query]
+    per_query = [[k.name for k in q] for q in per_query]
+    oracle = [n for q in per_query for n in q]
     sorts = sorted({n for n in oracle if "sort" in n.lower()})
+    stages = sorted({n[:80] for n in oracle
+                     if any(k in n.lower() for k in PACKED_STAGE_KERNELS)})
     names = {}
     for n in oracle:
         key = n.split("(")[0][:60]
@@ -662,17 +829,31 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
           f"{sorted(names.items(), key=lambda kv: -kv[1])}; sort kernels in "
           f"the oracle: {sorts or 'none'}; sort kernels elsewhere in the "
           f"step: {sum('sort' in k.name.lower() for k in kernels)}")
+    print(f"profile: device operations inside the oracle's ranges: "
+          f"{len(oracle)} a step ({TORCH_STAGES_ORACLE_OPS} with the torch "
+          f"stages), "
+          f"{[len(q) for q in per_query]} a query; kernels of the packing "
+          f"stages among them: {stages or 'none'}; pack_kernel's device ms a "
+          f"query {[round(x, 4) for x in pack_ms]}")
     if not n_ranges == len(spans) == n_queries:
         fail(f"profile: {n_ranges} oracle ranges and {len(spans)} device "
              f"spans for the step's {n_queries} queries: the oracle's "
              "kernels cannot be told apart")
     if sorts:
         fail(f"profile: the oracle launched sort kernels {sorts}")
+    if stages:
+        fail(f"profile: the oracle launched the packing stages' kernels "
+             f"{stages}")
+    if max(len(q) for q in per_query) > MAX_ORACLE_OPS:
+        fail(f"profile: a query made {max(len(q) for q in per_query)} device "
+             f"operations, more than {MAX_ORACLE_OPS}")
+    return len(oracle), pack_ms
 
 
 def run_steps(name, step, state, lr, mesh, cap, seed, n, expect):
     """n steps through `step`; the launch counts of each against `expect`
-    (closest-hit, prepass). Returns (state, losses, ms of the last step)."""
+    (closest-hit, prepass, packing). Returns (state, losses, ms of the last
+    step)."""
     import torch
     from drt_tpu_torch.intersect import cuda_kernel as CK
     ray_gen = cap.ray_view_generator(seed=seed)
@@ -689,10 +870,10 @@ def run_steps(name, step, state, lr, mesh, cap, seed, n, expect):
         torch.cuda.synchronize()
         ms = (time.time() - t0) * 1e3
         losses.append(float(loss))
-        got = (CK.counters.launches, CK.counters.candidates_launches)
+        got = counts()
         print(f"{name} step {it}: {ms:.1f} ms, loss {losses[-1]:.6g}, max "
               f"grad {float(aux['max_grad']):.3g}, launches {got[0]} "
-              f"closest-hit, {got[1]} prepass")
+              f"closest-hit, {got[1]} prepass, {got[2]} packing")
         if got != tuple(expect):
             fail(f"{name} step {it}: launches {got}, expected {expect}")
         if not math.isfinite(losses[-1]):
@@ -791,7 +972,7 @@ def timed(module, name, log, wrap=None):
 def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
               lens=(3.0, 1.8)):
     """Phase 10: the command line on `dev` (see the module docstring).
-    Returns (closest-hit launches, prepass launches, timings)."""
+    Returns (closest-hit, prepass, packing launches, timings)."""
     import numpy as np
     import torch
     import drt_tpu_torch.data as D
@@ -839,8 +1020,7 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
                 cli(argv)
             torch.cuda.synchronize()
             tm["reconstruct_s"] = time.time() - t0
-            launches = CK.counters.launches      # main path ends here
-            cand = CK.counters.candidates_launches
+            launches = counts()                  # main path ends here
             cap = synth[0][1]
             tm["cache_write_s"] = saves[0][0]
             tm["synthesis_s"] = synth[0][0] - saves[0][0]
@@ -855,13 +1035,13 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
             watertight("the carved hull", hv, hf)
             if info["remesh_failures"] or info["remesher"] != "native":
                 fail(f"cli: remesh health {info}")
-            expect = (views * 4 + passes * iters * 11,) * 2
-            print(f"cli: reconstruct: {launches} closest-hit and {cand} "
-                  f"prepass launches, expected {expect[0]} each ({views} "
+            expect = (views * 4 + passes * iters * 11,) * 3
+            print(f"cli: reconstruct: {launches} closest-hit, prepass and "
+                  f"packing launches, expected {expect[0]} each ({views} "
                   f"views x 4 in the synthesis, {passes * iters} steps x "
                   "11)")
-            if (launches, cand) != expect:
-                fail(f"cli: reconstruct launches {(launches, cand)}, "
+            if launches != expect:
+                fail(f"cli: reconstruct launches {launches}, "
                      f"expected {expect}")
             recons = os.path.join("result", "dog_recons.ply")
             rv, rf = load_ply(recons)
@@ -928,10 +1108,10 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
                  "--res", str(render_res), *dev_args])
             torch.cuda.synchronize()
             tm["render_s"] = time.time() - t0
-            r_launch = (CK.counters.launches, CK.counters.candidates_launches)
+            r_launch = counts()
             pngs = sorted(os.listdir("renders"))
             if pngs != ["dog_recons_exitdir.png", "dog_recons_mask.png",
-                        "dog_recons_valid.png"] or r_launch != (4, 4):
+                        "dog_recons_valid.png"] or r_launch != (4, 4, 4):
                 fail(f"cli: render wrote {pngs} with {r_launch} launches")
             # decoded by PIL, a decoder of its own (the port writes its PNGs
             # with zlib and struct)
@@ -946,8 +1126,8 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
             covered = int((mask == 255).sum())
             if not 0 < covered < mask.size:
                 fail(f"cli: render mask covers {covered} pixels")
-            print(f"cli: render {render_res}x{render_res}: {r_launch[0]} "
-                  f"closest-hit and {r_launch[1]} prepass launches, "
+            print(f"cli: render {render_res}x{render_res}: {r_launch} "
+                  f"closest-hit, prepass and packing launches, "
                   f"mask covers {covered} pixels, {tm['render_s']:.2f} s")
 
             # -- evaluate and remesh through `python3 -m`, side by side ------
@@ -1037,7 +1217,7 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
           f"{passes_txt}, "
           f"render {tm['render_s']:.2f} s, reconstruct "
           f"{tm['reconstruct_s']:.2f} s")
-    return launches, cand, tm
+    return launches, tm
 
 
 PARALLEL_RANK = "--parallel-rank"     # argv[1] of the ranks of phase 11b
@@ -1046,7 +1226,7 @@ RANK_DEADLINE_S = 600
 
 def parallel_phase(res, hp, weights, budget, mesh, cap):
     """Phase 11a: the sharded step at world size 1 over NCCL against the
-    plain step. Returns (closest-hit launches, prepass launches) of its
+    plain step. Returns (closest-hit, prepass, packing launches) of its
     sharded steps and its times."""
     import torch
     import torch.distributed as dist
@@ -1055,7 +1235,7 @@ def parallel_phase(res, hp, weights, budget, mesh, cap):
     from drt_tpu_torch.parallel import make_ray_mesh, make_sharded_train_step
     from drt_tpu_torch.parallel.multihost import init_multihost
     per_step = queries_per_step(weights)
-    launches = [0, 0]
+    launches = [0, 0, 0]
 
     def pair(rmesh, optimizer, precond, n, lr, sharded_first=False):
         """n plain and n sharded steps from one state on the same views, in
@@ -1084,8 +1264,8 @@ def parallel_phase(res, hp, weights, budget, mesh, cap):
             (st_s, l_s, ms_s), (st_p, l_p, ms_p) = sharded(), plain()
         else:
             (st_p, l_p, ms_p), (st_s, l_s, ms_s) = plain(), sharded()
-        launches[0] += n * per_step[0]
-        launches[1] += n * per_step[1]
+        for k in range(3):
+            launches[k] += n * per_step[k]
         same = (l_p == l_s and torch.equal(st_p["params"], st_s["params"])
                 and torch.equal(st_p["m"], st_s["m"]))
         return (same, float((st_p["params"] - st_s["params"]).abs().max()),
@@ -1168,8 +1348,7 @@ def parallel_rank(rank, work):
         ms = (time.time() - t0) * 1e3
         out[name] = dict(loss=float(loss), m=st["m"].cpu(), ms=ms,
                          ids=[h.tri_id.cpu() for h in rec.hits],
-                         launches=(CK.counters.launches,
-                                   CK.counters.candidates_launches),
+                         launches=counts(),
                          valid_rays=int(aux["valid_rays"]))
         print(f"parallel rank {rank}: {name} shift: {ms:.1f} ms, loss "
               f"{float(loss):.8g}, {views.ray_dir.shape[1]} rays a view, "
@@ -1272,9 +1451,9 @@ def groups_phase(dev, res, hp, mesh45, o_cam, d_cam, gen):
     ob, db = o_cam[s0:s0 + n].contiguous(), d_cam[s0:s0 + n].contiguous()
     CK.counters.reset()
     hb = CK.intersect_cuda(ob, db, *big, coherent=True)
-    seen = (CK.counters.launches, CK.counters.candidates_launches)
-    if seen != (1, 1):
-        fail(f"groups: above the cap, launches {seen}, expected (1, 1)")
+    seen = counts()
+    if seen != (1, 1, 1):
+        fail(f"groups: above the cap, launches {seen}, expected (1, 1, 1)")
     r_big = check_query(f"groups: dog_mid45k subdivided {BIG_SUBDIVISIONS} "
                         f"times ({f.shape[0]} faces, {nc} chunks) camera "
                         f"{n} rays",
@@ -1292,12 +1471,15 @@ def groups_phase(dev, res, hp, mesh45, o_cam, d_cam, gen):
                big_group=r_big["group"], big_query_ms=r_big["query_ms"],
                big_kernel_ms=r_big["ms"],
                big_prepass_ms=r_big["prepass"]["ms"],
+               big_pack_call_ms=r_big["pack"]["call_ms"],
+               big_pack_bound_ms=r_big["pack"]["bound_ms"],
                big_hits=int((id_big >= 0).sum()),
                big_s=time.time() - t0, t_min=t_min, t_min_hits=n_cut)
     print(f"groups: above the cap: {f.shape[0]} faces, {nc} chunks, "
           f"group=None took group {r_big['group']}; query "
           f"{r_big['query_ms']:.3f} ms (closest hit {r_big['ms']:.3f} ms, "
-          f"prepass {r_big['prepass']['ms']:.4f} ms), {out['big_hits']} hits "
+          f"prepass {r_big['prepass']['ms']:.4f} ms, packing call "
+          f"{r_big['pack']['call_ms']:.4f} ms), {out['big_hits']} hits "
           f"of {n} rays; {out['big_s']:.1f} s with the subdivision")
     out["phase_s"] = time.time() - t_phase
     print(f"groups: phase {out['phase_s']:.1f} s")
@@ -1306,7 +1488,7 @@ def groups_phase(dev, res, hp, mesh45, o_cam, d_cam, gen):
 
 def parallel_ranks_phase(res, hp, weights, budget, mesh, cap, shift):
     """Phase 11b: two gloo ranks on the one card against the single step.
-    Returns (closest-hit launches, prepass launches) of the ranks' steps and
+    Returns (closest-hit, prepass, packing launches) of the ranks' steps and
     its times."""
     import torch
     from drt_tpu_torch.intersect.api import get_intersect_fn
@@ -1361,7 +1543,7 @@ def parallel_ranks_phase(res, hp, weights, budget, mesh, cap, shift):
             fail(f"parallel: {name} shift: the two ranks hold different "
                  "updates")
         for r, g in enumerate(got):
-            if g[name]["launches"] != (3 + 4, 3 + 4):
+            if tuple(g[name]["launches"]) != (3 + 4,) * 3:
                 fail(f"parallel: rank {r} launched {g[name]['launches']}, "
                      "expected 7 of each kernel")
         # the ranks' ray queries in ray order; silhouette view k is rank
@@ -1389,7 +1571,7 @@ def parallel_ranks_phase(res, hp, weights, budget, mesh, cap, shift):
         times[f"w2_{name}_rank_ms"] = [a["ms"], b["ms"]]
         times[f"w2_{name}_flips"] = flips
     return [sum(g[name]["launches"][k] for g in got for name in ("own", "one"))
-            for k in (0, 1)], times
+            for k in range(3)], times
 
 
 def main():
@@ -1441,8 +1623,8 @@ def main():
                       line)
         if m and (int(m.group(1)) or int(m.group(2))):
             fail(f"{entry} spills to local memory: {line.strip()}")
-    if n_entries < 2:
-        fail(f"ptxas reported {n_entries} kernels, expected 2:\n"
+    if n_entries < 3:
+        fail(f"ptxas reported {n_entries} kernels, expected 3:\n"
              f"{CK.build_log}")
     print(f"ray tiles: coherent {CK.RAY_TILE_COHERENT}, incoherent "
           f"{CK.RAY_TILE_INCOHERENT}; closest-hit blocks of "
@@ -1510,14 +1692,12 @@ def main():
     state = init(ms45)
     ray_gen = cap.ray_view_generator(seed=hp.seed)
     silh_gen = cap.silh_view_generator(seed=hp.seed + 1000)
-    per_step = 3 + 8
-    per_step_prepass = 3 + 8          # one per query of either kind
+    per_step = 3 + 8                  # each kernel once a query of either kind
     times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
     CK.counters.reset()                        # main path starts here
     for it in range(3):
-        calls0, launches0 = CK.counters.calls, CK.counters.launches
-        cand0 = CK.counters.candidates_launches
+        calls0, seen0 = CK.counters.calls, counts()
         ray_idx = next(ray_gen)
         silh_idx = [next(silh_gen) for _ in range(8)]
         torch.cuda.synchronize()
@@ -1528,23 +1708,19 @@ def main():
         times.append((time.time() - t0) * 1e3)
         losses.append(float(loss))
         d_calls = CK.counters.calls - calls0
-        d_launch = CK.counters.launches - launches0
-        d_cand = CK.counters.candidates_launches - cand0
+        d_seen = tuple(b - a for a, b in zip(seen0, counts()))
         print(f"step {it}: {times[-1]:.1f} ms, loss {losses[-1]:.6g} "
               f"(ray {float(aux['ray']):.6g} vh {float(aux['vh']):.6g} "
               f"sm {float(aux['sm']):.6g}), valid rays "
               f"{int(aux['valid_rays'])}, max grad "
               f"{float(aux['max_grad']):.3g}, queries {d_calls}, "
-              f"closest-hit launches {d_launch}, prepass launches {d_cand}")
-        if (d_calls != per_step or d_launch != per_step
-                or d_cand != per_step_prepass):
-            fail(f"step {it}: {d_calls} queries / {d_launch} closest-hit / "
-                 f"{d_cand} prepass launches, expected {per_step} / "
-                 f"{per_step} / {per_step_prepass}")
+              f"closest-hit, prepass and packing launches {d_seen}")
+        if d_calls != per_step or d_seen != (per_step,) * 3:
+            fail(f"step {it}: {d_calls} queries, launches {d_seen}, expected "
+                 f"{per_step} of each")
         if not math.isfinite(losses[-1]):
             fail(f"step {it}: loss is not finite")
-    launches = CK.counters.launches              # main path ends here
-    cand_launches = CK.counters.candidates_launches
+    launches = counts()                          # main path ends here
     verts = final(state, ms45)
     moved = float((verts - ms45.vertices).abs().max())
     if not torch.isfinite(verts).all() or moved <= 0:
@@ -1556,14 +1732,15 @@ def main():
           f"warm-up), {n_rays / step_ms * 1e3 / 1e6:.2f} Mrays/s "
           f"(ray view), max vertex move {moved:.4g}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"launches {launches} closest-hit, {cand_launches} prepass")
-    oracle_kernel_profile(weights, RES, budget, hp, ms45, cap, per_step)
+          f"closest-hit, prepass and packing launches {launches}")
+    oracle_ops, pack_step_ms = oracle_kernel_profile(weights, RES, budget,
+                                                     hp, ms45, cap, per_step)
 
     # -- 6. the other optimizers and preconditioners -------------------------
     per_step_all = queries_per_step(weights)
-    if per_step_all != (per_step, per_step_prepass):
+    if per_step_all != (per_step,) * 3:
         fail(f"reckoned {per_step_all} launches a step, phase 5 saw "
-             f"{(per_step, per_step_prepass)}")
+             f"{per_step} of each kernel")
     step_ms_by = {}
     for optimizer, precond in (("adam", "none"), ("uadam", "h1"),
                                ("sgd", "sobolev")):
@@ -1669,9 +1846,9 @@ def main():
             continue
         CK.counters.reset()
         h_ray = fn_ray(o, d, *geom45, coherent=False)
-        seen_ray = (CK.counters.launches, CK.counters.candidates_launches)
+        seen_ray = counts()
         h_res = fn_resort(o, d, *geom45, coherent=False)
-        seen = (CK.counters.launches, CK.counters.candidates_launches)
+        seen = counts()
         same = bool(torch.equal(h_ray.tri_id, h_res.tri_id)
                     and torch.equal(h_ray.t, h_res.t))
         ms_ray = cuda_ms(lambda: fn_ray(o, d, *geom45, coherent=False), 10)
@@ -1684,9 +1861,9 @@ def main():
         if not same:
             fail(f"routes: {qname}: the resorted route differs from the "
                  "per-ray route")
-        if seen_ray != (1, 1) or seen != (2, 2):
+        if seen_ray != (1, 1, 1) or seen != (2, 2, 2):
             fail(f"routes: {qname}: launches {seen_ray} then {seen}, "
-                 "expected (1, 1) then (2, 2)")
+                 "expected (1, 1, 1) then (2, 2, 2)")
     for qname, (o, d, coherent) in zip(("bounce1", "bounce2"), queries45):
         idx = torch.randperm(o.shape[0], generator=gen)[:BRUTE_SAMPLE].to(
             dev)
@@ -1707,7 +1884,6 @@ def main():
     t0 = time.time()
     h_init = hausdorff_distance(v20, f20, v90, f90)
     hausdorff_s = time.time() - t0
-    lod_launches = lod_cand = 0
     with tempfile.TemporaryDirectory() as ck_dir:
         info, lines, logger = {}, [], MetricsLogger()
         torch.cuda.synchronize()
@@ -1720,8 +1896,7 @@ def main():
                        device=dev)
         torch.cuda.synchronize()
         lod_s = time.time() - t0
-        lod_launches = CK.counters.launches    # main path ends here
-        lod_cand = CK.counters.candidates_launches
+        lod_launches = counts()                # main path ends here
         lod_peak = torch.cuda.max_memory_allocated()
         for ln in lines:
             print(f"lod: {ln}")
@@ -1762,11 +1937,9 @@ def main():
                                        for r in logged):
             fail(f"lod: logged losses {[r.get('loss') for r in logged]}")
         n_steps = hp_lod.num_passes * hp_lod.iters
-        if (lod_launches != n_steps * per_step
-                or lod_cand != n_steps * per_step_prepass):
-            fail(f"lod: {lod_launches} closest-hit / {lod_cand} prepass "
-                 f"launches in {n_steps} steps, expected "
-                 f"{n_steps * per_step} / {n_steps * per_step_prepass}")
+        if lod_launches != (n_steps * per_step,) * 3:
+            fail(f"lod: launches {lod_launches} in {n_steps} steps, "
+                 f"expected {n_steps * per_step} of each kernel")
         v_out, f_out = out.host_arrays()
         if not np.isfinite(v_out).all() or len(f_out) != faces_by_pass[-1]:
             fail("lod: the final mesh is not finite or not the last pass's")
@@ -1776,7 +1949,7 @@ def main():
               f"{sum(p['remesh_s'] for p in info['passes']):.2f} s, steps "
               f"{sum(p['steps_s'] for p in info['passes']):.2f} s, peak "
               f"memory {lod_peak / 2**30:.2f} GiB, "
-              f"launches {lod_launches} closest-hit, {lod_cand} prepass; "
+              f"closest-hit, prepass and packing launches {lod_launches}; "
               f"Hausdorff mean against dog_mid90k: init {h_init.mean:.4f}, "
               f"result {h_out.mean:.4f} (max {h_init.max:.3f} -> "
               f"{h_out.max:.3f}; one evaluation {hausdorff_s:.1f} s)")
@@ -1796,7 +1969,7 @@ def main():
               f"{time.time() - t0:.2f} s")
     # -- 10. the command line -------------------------------------------------
     t0 = time.time()
-    cli_launches, cli_cand, cli_times = cli_phase(
+    cli_launches, cli_times = cli_phase(
         dev, RES, os.path.join(MESH_DIR, "dog_mid90k.ply"))
     cli_times["phase_s"] = time.time() - t0
 
@@ -1806,29 +1979,29 @@ def main():
     par_b, times_b = parallel_ranks_phase(RES, hp, weights, budget, ms45,
                                           cap, one_shift)
     par_times.update(times_b, phase_s=time.time() - t0)
-    par_launches, par_cand = par_a[0] + par_b[0], par_a[1] + par_b[1]
+    par_launches = tuple(a + b for a, b in zip(par_a, par_b))
 
     # -- 12. candidate groups, t_min, a mesh above the cap -------------------
     by_group, group_times = groups_phase(dev, RES, hp, ms45, o1, d1, gen)
 
-    launches_train, cand_train = launches, cand_launches
-    launches += lod_launches + cli_launches + par_launches
-    cand_launches += lod_cand + cli_cand + par_cand
+    total = [sum(x) for x in zip(launches, lod_launches, cli_launches,
+                                 par_launches)]
 
     cam_r = results["camera"]
     pre = {k: r["prepass"] for k, r in results.items()}
     pre_r = pre["dog_mid45k bounce2"]
     pre_t = pre["camera"]
+    pack_r = results["dog_mid45k bounce2"]["pack"]
     kernels = [{
         "name": "closest_hit",
         "route": "cuda",
         "source": "drt_tpu_torch/csrc/closest_hit.cu",
         "replaces": "drt_tpu/intersect/pallas_kernel.py:118",
-        "launches": launches,
-        "launches_train": launches_train,
-        "launches_lod": lod_launches,
-        "launches_cli": cli_launches,
-        "launches_parallel": par_launches,
+        "launches": total[0],
+        "launches_train": launches[0],
+        "launches_lod": lod_launches[0],
+        "launches_cli": cli_launches[0],
+        "launches_parallel": par_launches[0],
         "launches_per_step": per_step,
         "shape": "camera rays 1280x960 on dog_mid90k",
         "max_abs_err": max(r["err"] for r in [*results.values(),
@@ -1847,12 +2020,12 @@ def main():
         "route": "cuda",
         "source": "drt_tpu_torch/csrc/candidates.cu",
         "replaces": "drt_tpu/intersect/pallas_kernel.py:359",
-        "launches": cand_launches,
-        "launches_train": cand_train,
-        "launches_lod": lod_cand,
-        "launches_cli": cli_cand,
-        "launches_parallel": par_cand,
-        "launches_per_step": per_step_prepass,
+        "launches": total[1],
+        "launches_train": launches[1],
+        "launches_lod": lod_launches[1],
+        "launches_cli": cli_launches[1],
+        "launches_parallel": par_launches[1],
+        "launches_per_step": per_step,
         "shape": "ray mode: bounce-2 rays 1280x960 on dog_mid45k, groups "
                  f"of {results['dog_mid45k bounce2']['group']} (the default)",
         "max_abs_err": max(r["err"] for r in [
@@ -1874,6 +2047,44 @@ def main():
         "group_ms": {g: r["prepass"]["ms"] for g, r in by_group.items()},
         "group_bound_ms": {g: r["prepass"]["bound_ms"]
                            for g, r in by_group.items()},
+    }, {
+        "name": "pack",
+        "route": "cuda",
+        "source": "drt_tpu_torch/csrc/pack.cu",
+        "replaces": "drt_tpu/intersect/pallas_kernel.py:291",
+        "replaces_also": ["drt_tpu/intersect/culled.py:54",
+                          "drt_tpu/intersect/culled.py:78",
+                          "drt_tpu/intersect/pallas_kernel.py:449",
+                          "drt_tpu/intersect/pallas_kernel.py:473"],
+        "launches": total[2],
+        "launches_train": launches[2],
+        "launches_lod": lod_launches[2],
+        "launches_cli": cli_launches[2],
+        "launches_parallel": par_launches[2],
+        "launches_per_step": per_step,
+        "shape": "bounce-2 rays 1280x960 on dog_mid45k, groups of "
+                 f"{results['dog_mid45k bounce2']['group']} (the default)",
+        "max_abs_err": max(r["pack"]["err"] for r in [*results.values(),
+                                                       *by_group.values()]),
+        "ms": pack_step_ms[1],
+        "ms_from": "torch.profiler's device span in phase 5's profiled "
+                   "step (its bounce-2 query)",
+        "step_ms": pack_step_ms,
+        "call_ms": pack_r["call_ms"],
+        "plain_ms": pack_r["plain_ms"],
+        "bound_ms": pack_r["bound_ms"],
+        "bound_by": pack_r["bound_by"],
+        "library_ms": None,
+        "camera_shape": "camera rays 1280x960 on dog_mid90k",
+        "camera_call_ms": results["camera"]["pack"]["call_ms"],
+        "camera_plain_ms": results["camera"]["pack"]["plain_ms"],
+        "camera_bound_ms": results["camera"]["pack"]["bound_ms"],
+        "group_shape": "bounce-2 rays 1280x960 on dog_mid90k (phase 12)",
+        "group_call_ms": {g: r["pack"]["call_ms"]
+                          for g, r in by_group.items()},
+        "group_bound_ms": {g: r["pack"]["bound_ms"]
+                           for g, r in by_group.items()},
+        "oracle_ops_per_step": oracle_ops,
     }]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,22 +1,26 @@
-"""Chunk-culled closest-hit oracle: torch stages + two hand-written CUDA
-kernels (port of drt_tpu/intersect/pallas_kernel.py, with the stages it
-takes from drt_tpu/intersect/culled.py).
+"""Chunk-culled closest-hit oracle: three hand-written CUDA kernels a query
+(port of drt_tpu/intersect/pallas_kernel.py, with the stages it takes from
+drt_tpu/intersect/culled.py).
 
 Stages:
 1. shift the scene by the mean ray origin (small coordinates keep the
-   Plücker products precise for small triangles);
-2. `_coef_packed`: the [NC,19,C] Plücker coefficient tensor of C=128
-   Morton-consecutive triangles per chunk (`_triangle_coefficients`): the
-   19 nonzero coefficients of a triangle, one chunk's rows contiguous so
-   the kernel takes them in one bulk copy (the JAX package's dense
-   [NC,10,4C] keeps zero blocks for the TPU's matrix unit);
-3. `_chunk_aabbs`: per-chunk AABBs from the current vertices, padded chunks
-   marked invalid so they are never candidates; with `group` > 1 (the
-   second level of the candidate hierarchy) `_grouped_boxes` joins `group`
-   consecutive chunks into one box, and the prepass lists groups. A mesh
+   Plücker products precise for small triangles): a torch mean, unless
+   `shift` is given;
+2. `pack`, the packing stages, one launch of csrc/pack.cu on CUDA tensors
+   (its plain version `pack_plain`, made of the torch stages below, on CPU
+   tensors): the [NC,19,C] Plücker coefficients of C=128 Morton-consecutive
+   triangles a chunk (`_coef_packed` over `_triangle_coefficients`: the 19
+   nonzero coefficients of a triangle, one chunk's rows contiguous so the
+   closest-hit kernel takes them in one bulk copy, where the JAX package's
+   dense [NC,10,4C] keeps zero blocks for the TPU's matrix unit); the chunk
+   AABBs and validity (`_chunk_aabbs`: padded chunks are invalid so they are
+   never candidates); with `group` > 1 (the second level of the candidate
+   hierarchy) the boxes of `group` consecutive chunks (`_grouped_boxes`),
+   which the prepass lists; and the ray features: shifted and padded
+   origins, directions, o x d and the guarded inverse directions. A mesh
    above MAX_CHUNKS chunks is always grouped; below it incoherent queries
    take the group measured fastest on the card (GROUP_TABLE);
-4. `candidates`, the candidate prepass, per tile of rays
+3. `candidates`, the candidate prepass, per tile of rays
    (`RAY_TILE_COHERENT` or `RAY_TILE_INCOHERENT`): a nearest-first list of
    the boxes some ray of the tile may enter, and its length. One launch of
    the kernel csrc/candidates.cu scores, sorts and counts for every tile;
@@ -24,7 +28,7 @@ Stages:
    queries slab-test every (ray, box) pair exactly (`_candidates` is the
    plain version); coherent queries bound a whole tile by interval
    arithmetic (`_candidates_tile`: a superset, cheap for camera rays);
-5. `closest_hit`: the kernel (csrc/closest_hit.cu) on CUDA tensors, its
+4. `closest_hit`: the kernel (csrc/closest_hit.cu) on CUDA tensors, its
    plain version `closest_hit_plain` on CPU tensors. A listed group stands
    for its `group` chunks, visited in order; the per-ray gate drops those a
    ray does not enter, so the hits do not depend on the group but for ties
@@ -96,9 +100,10 @@ GROUP_TABLE = os.path.join(os.path.dirname(_PKG_DIR), "reports",
 
 class LaunchCounter:
     """Counts oracle queries (`calls`) and the launches of the closest-hit
-    kernel (`launches`) and of the candidate-prepass kernel
-    (`candidates_launches`, one per query of either kind). A launch is
-    counted only where the CUDA kernel is launched."""
+    kernel (`launches`), of the candidate-prepass kernel
+    (`candidates_launches`) and of the packing kernel (`pack_launches`),
+    each one a query of either kind. A launch is counted only where the
+    CUDA kernel is launched."""
 
     def __init__(self):
         self.reset()
@@ -107,6 +112,7 @@ class LaunchCounter:
         self.calls = 0
         self.launches = 0
         self.candidates_launches = 0
+        self.pack_launches = 0
 
 
 counters = LaunchCounter()
@@ -176,6 +182,10 @@ _SIGNATURES = {
                              "stream",
     "candidates_signature": "org inv lo hi valid n_tiles ray_tile nc "
                             "tile_mode t_min cand count stream",
+    "pack_signature": "vertices vert_f64 faces faces_i64 face_valid n_faces "
+                      "shift origins org_f64 dirs dir_f64 n_rays n_groups "
+                      "group n_tiles ray_tile coef lo hi box_lo box_hi "
+                      "box_valid phi inv stream",
 }
 
 
@@ -188,6 +198,9 @@ def bind(path: str):
     lib.closest_hit_launch.restype = ci
     lib.candidates_launch.argtypes = [vp] * 5 + [ci] * 4 + [cf] + [vp] * 3
     lib.candidates_launch.restype = ci
+    lib.pack_launch.argtypes = ([vp, ci, vp, ci, vp, ci, vp, vp, ci, vp]
+                                + [ci] * 6 + [vp] * 9)
+    lib.pack_launch.restype = ci
     for name, want in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [], ctypes.c_char_p
@@ -200,7 +213,9 @@ def bind(path: str):
     for name, want in (("closest_hit_tri_chunk", TRI_CHUNK),
                        ("closest_hit_max_ray_tile", MAX_RAY_TILE),
                        ("candidates_max_ray_tile", MAX_RAY_TILE),
-                       ("candidates_max_chunks", MAX_CHUNKS)):
+                       ("candidates_max_chunks", MAX_CHUNKS),
+                       ("pack_tri_chunk", TRI_CHUNK),
+                       ("pack_n_coef", N_COEF)):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [], ci
         if fn() != want:
@@ -337,6 +352,129 @@ def _safe_inv(d):
     tiny = torch.where(d >= 0, torch.full_like(d, 1e-20),
                        torch.full_like(d, -1e-20))
     return 1.0 / torch.where(torch.abs(d) > 1e-20, d, tiny)
+
+
+class Packed(NamedTuple):
+    """What the packing stages give a query (NC = ceil(F / C) chunks, NCg
+    NC rounded up to a multiple of the group, NG = NCg / group, Np the rays
+    padded to whole tiles)."""
+    coef: torch.Tensor       # [NCg,19,C] f32
+    lo: torch.Tensor         # [NCg,3] f32 chunk boxes, closest hit's
+    hi: torch.Tensor         # [NCg,3] f32
+    box_lo: torch.Tensor     # [NG,3] f32 the boxes the prepass scores
+    box_hi: torch.Tensor     # [NG,3] f32
+    box_valid: torch.Tensor  # [NG] bool
+    phi: torch.Tensor        # [9,Np] f32: d, o x d, o (shifted origins)
+    inv: torch.Tensor        # [3,Np] f32: guarded 1/d
+
+
+@torch.no_grad()
+def pack_plain(vertices, faces, face_valid, shift, origins, dirs, *,
+               group: int, ray_tile: int) -> Packed:
+    """Plain version of csrc/pack.cu: the torch stages `_coef_packed`,
+    `_chunk_aabbs` and `_grouped_boxes` over the mesh shifted by `shift`
+    [3] f32, and the shifted rays padded to whole tiles of `ray_tile` (o = 0,
+    d = 1), their cross product and `_safe_inv`. Every zero of the chunk
+    boxes is made +0 (the kernel writes +0; torch's amin and amax keep
+    whichever zero their order meets last). face_valid None: all valid."""
+    if face_valid is None:
+        face_valid = torch.ones(faces.shape[0], dtype=torch.bool,
+                                device=faces.device)
+    coef, _ = _coef_packed(vertices, faces, face_valid, shift, TRI_CHUNK)
+    lo, hi, chunk_valid = _chunk_aabbs(vertices, faces, face_valid, shift,
+                                       TRI_CHUNK)
+    lo, hi, boxes = _grouped_boxes(lo + 0.0, hi + 0.0, chunk_valid, group)
+    o = _pad_axis0(origins.float() - shift, ray_tile)
+    d = _pad_axis0(dirs.float(), ray_tile, 1.0)
+    inv = _safe_inv(d).t().contiguous()                      # [3,Np]
+    w = torch.linalg.cross(o, d, dim=-1)
+    phi = torch.cat([d, w, o], dim=1).t().contiguous()       # [9,Np]
+    return Packed(_pad_axis0(coef, group), lo, hi, *boxes, phi, inv)
+
+
+def _check_pack_inputs(vertices, faces, face_valid, shift, origins, dirs):
+    dev = origins.device
+    for name, x, want in (("vertices", vertices, (torch.float32,
+                                                   torch.float64)),
+                          ("faces", faces, (torch.int64, torch.int32)),
+                          ("origins", origins, (torch.float32,
+                                                torch.float64)),
+                          ("dirs", dirs, (torch.float32, torch.float64))):
+        rows = origins.shape[0] if name == "dirs" else x.shape[0]
+        _check(name, x, (rows, 3), x.dtype, dev)
+        if x.dtype not in want:
+            raise ValueError(f"{name}: expected one of {want}, got {x.dtype}")
+    _check("shift", shift, (3,), torch.float32, dev)
+    if face_valid is not None:
+        _check("face_valid", face_valid, (faces.shape[0],), torch.bool, dev)
+
+
+def _pack_sizes(n_faces, n_rays, group, ray_tile):
+    """(NCg, NG, T) for F faces and N rays."""
+    if group < 1 or ray_tile < 1:
+        raise ValueError(f"group {group}, ray tile {ray_tile}: must be at "
+                         "least 1")
+    nc = -(-n_faces // TRI_CHUNK)
+    ng = -(-nc // group)
+    return ng * group, ng, -(-n_rays // ray_tile)
+
+
+def pack_cuda(vertices, faces, face_valid, shift, origins, dirs, *,
+              group: int, ray_tile: int) -> Packed:
+    """Launch csrc/pack.cu on the current stream; inputs and result as in
+    `pack_plain` (vertices, origins and dirs float32 or float64, faces
+    int64 or int32, all contiguous on one CUDA device). At group 1 the
+    prepass's boxes are the chunk boxes themselves."""
+    _check_pack_inputs(vertices, faces, face_valid, shift, origins, dirs)
+    dev = origins.device
+    if dev.type != "cuda":
+        raise ValueError("pack_cuda needs CUDA tensors")
+    F, N = faces.shape[0], origins.shape[0]
+    ncg, ng, T = _pack_sizes(F, N, group, ray_tile)
+    Np = T * ray_tile
+    lib = _load()
+    with torch.cuda.device(dev):
+        coef = torch.empty(ncg, N_COEF, TRI_CHUNK, device=dev)
+        lo = torch.empty(ncg, 3, device=dev)
+        hi = torch.empty(ncg, 3, device=dev)
+        if group == 1:
+            box_lo, box_hi = lo, hi
+        else:
+            box_lo = torch.empty(ng, 3, device=dev)
+            box_hi = torch.empty(ng, 3, device=dev)
+        box_valid = torch.empty(ng, dtype=torch.bool, device=dev)
+        phi = torch.empty(9, Np, device=dev)
+        inv = torch.empty(3, Np, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pack_launch(
+            vertices.data_ptr(), int(vertices.dtype == torch.float64),
+            faces.data_ptr(), int(faces.dtype == torch.int64),
+            None if face_valid is None else face_valid.data_ptr(), F,
+            shift.data_ptr(), origins.data_ptr(),
+            int(origins.dtype == torch.float64), dirs.data_ptr(),
+            int(dirs.dtype == torch.float64), N, ng, group, T, ray_tile,
+            coef.data_ptr(), lo.data_ptr(), hi.data_ptr(), box_lo.data_ptr(),
+            box_hi.data_ptr(), box_valid.data_ptr(), phi.data_ptr(),
+            inv.data_ptr(), stream)
+    if err != 0:
+        msg = lib.closest_hit_error_string(err).decode()
+        raise RuntimeError(f"pack launch failed: {msg} ({err})")
+    counters.pack_launches += 1
+    return Packed(coef, lo, hi, box_lo, box_hi, box_valid, phi, inv)
+
+
+def pack(vertices, faces, face_valid, shift, origins, dirs, *, group: int,
+         ray_tile: int) -> Packed:
+    """The packing kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    dev = origins.device.type
+    if dev == "cuda":
+        return pack_cuda(vertices, faces, face_valid, shift, origins, dirs,
+                         group=group, ray_tile=ray_tile)
+    if dev == "cpu":
+        return pack_plain(vertices, faces, face_valid, shift, origins, dirs,
+                          group=group, ray_tile=ray_tile)
+    raise ValueError(f"pack: unsupported device {origins.device}")
 
 
 def _sorted_candidates(score):
@@ -552,13 +690,14 @@ def chunk_lists(inp: KernelInputs):
 def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
                    coherent: bool, shift=None, t_min: float = 0.0,
                    group: int | None = None) -> KernelInputs:
-    """Stages 1-4. Coherent queries take the tile prepass; incoherent ones
-    the exact per-ray prepass, since their tile frustums straddle direction
-    signs and blow up to near-full lists; either is one launch of the
-    prepass kernel on CUDA tensors. Makes
-    no host synchronisation. `shift` [3] replaces the mean ray origin: the
-    resorted route passes the unsorted query's, since a mean summed in
-    another order differs in its last bits and t would follow.
+    """Stages 1-3: on CUDA tensors a torch mean (where no `shift` is
+    given), one launch of the packing kernel and one of the prepass kernel.
+    Coherent queries take the tile prepass; incoherent ones the exact
+    per-ray prepass, since their tile frustums straddle direction signs and
+    blow up to near-full lists. Makes no host synchronisation. `shift` [3]
+    f32 replaces the mean ray origin: the resorted route passes the
+    unsorted query's, since a mean summed in another order differs in its
+    last bits and t would follow.
 
     group: chunks a candidate group, the prepass's boxes. None takes the
     least power of two that brings the mesh to MAX_CHUNKS groups (1 below
@@ -567,19 +706,10 @@ def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
     to a multiple of it with zero coefficients and the boxes of
     `_grouped_boxes`."""
     F = faces.shape[0]
-    if face_valid is None:
-        face_valid = torch.ones(F, dtype=torch.bool, device=faces.device)
-    o = origins.float()
     if shift is None:
-        shift = o.mean(dim=0)
-    o = o - shift
-    d = dirs.float()
-
-    coef, _ = _coef_packed(vertices, faces, face_valid, shift, TRI_CHUNK)
-    lo, hi, chunk_valid = _chunk_aabbs(vertices, faces, face_valid, shift,
-                                       TRI_CHUNK)
+        shift = origins.float().mean(dim=0)
     if group is None:
-        g = _auto_group(lo.shape[0], MAX_CHUNKS)
+        g = _auto_group(-(-F // TRI_CHUNK), MAX_CHUNKS)
         if not coherent:
             # the group of the nearest measured mesh size; 1 unmeasured
             g = max(g, nearest_measured(_group_table(), F, 1))
@@ -587,20 +717,17 @@ def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
         g = int(group)
     if g < 1:
         raise ValueError(f"group {group}: must be at least 1")
-    coef = _pad_axis0(coef, g)
-    lo, hi, boxes = _grouped_boxes(lo, hi, chunk_valid, g)
     ray_tile = RAY_TILE_COHERENT if coherent else RAY_TILE_INCOHERENT
-    o = _pad_axis0(o, ray_tile)
-    d = _pad_axis0(d, ray_tile, 1.0)
-    T = o.shape[0] // ray_tile
-
-    inv = _safe_inv(d).t().contiguous()                      # [3,Np]
-    w = torch.linalg.cross(o, d, dim=-1)
-    phi = torch.cat([d, w, o], dim=1).t().contiguous()       # [9,Np]
-    cand, count = candidates(phi[6:9], inv, *boxes, T, tile=coherent,
-                             t_min=t_min)
-    return KernelInputs(phi, inv, coef, lo, hi, cand, count, g,
-                        float(t_min))
+    if face_valid is not None:
+        face_valid = face_valid.contiguous()
+    pk = pack(vertices.contiguous(), faces.contiguous(), face_valid, shift,
+              origins.contiguous(), dirs.contiguous(), group=g,
+              ray_tile=ray_tile)
+    T = pk.phi.shape[1] // ray_tile
+    cand, count = candidates(pk.phi[6:9], pk.inv, pk.box_lo, pk.box_hi,
+                             pk.box_valid, T, tile=coherent, t_min=t_min)
+    return KernelInputs(pk.phi, pk.inv, pk.coef, pk.lo, pk.hi, cand, count,
+                        g, float(t_min))
 
 
 # --- the closest-hit kernel and its plain version ---------------------------

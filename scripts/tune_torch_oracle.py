@@ -2,7 +2,7 @@
 """Measurements behind the constants of the port's oracle, on one CUDA GPU.
 
     python3 scripts/tune_torch_oracle.py [--what tiles blocks gate prepass
-                                          resort group]
+                                          resort group pack defaults]
 
 Six queries, the ones chip_smoke.py checks: the camera rays and the
 bounce-2 rays of one 1280x960 view of dog_mid90k, and the four queries of
@@ -49,10 +49,24 @@ group   candidate groups of 1, 4 and 16 chunks (`intersect_cuda(group=)`)
         reports/torch_group_ab.json (or --group-out PATH), the table that
         `intersect_cuda(group=None)` reads for incoherent queries. Not in
         the default set either: it rewrites a file of the repository.
+pack    the packing kernel (csrc/pack.cu) against its plain version (the
+        torch stages `pack_plain`, which the script swaps in for `pack`
+        itself) on the four kinds of query of a train step (camera, bounce
+        2, exit, one silhouette view) on dog_mid{20k,45k,90k}, each under a
+        capture of another mesh: hits equal bit for bit, the whole query in
+        turns (plain, kernel, kernel, plain; CUDA events), and a query's
+        device operations, their busy time and its host time; then the
+        reference-parity step (sgd + none, HyperParams() weights, 1 ray view
+        and 8 silhouette views of 1280x960) on dog_mid45k the same way
+        (host clock around synchronized steps, the median of 5 after a
+        warm-up, in turns), with its device operations in and out of the
+        oracle (torch.profiler). Writes reports/torch_pack_ab.json (or
+        --pack-out PATH). Claims nothing: both sides give the same hits.
 defaults  with --parent DIR (an unpacked tree of another commit): the six
         queries and the incoherent ones of `group` through both trees'
-        `intersect_cuda` at the defaults, hits equal bit for bit, and both
-        kernels of both trees timed in turns (parent, this, this, parent).
+        `intersect_cuda` at the defaults, hits equal bit for bit wherever
+        both trees take one group, and both kernels of both trees timed in
+        turns (parent, this, this, parent).
 Every variant's hits are also compared with the first variant's: they do
 not depend on tile or block size.
 """
@@ -61,6 +75,7 @@ import argparse
 import inspect
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -262,10 +277,11 @@ CAPTURE_OF = {"dog_mid20k": "dog_mid90k", "dog_mid45k": "dog_mid90k",
               "dog_mid90k": "dog_mid45k"}
 
 
-def incoherent_queries(dev, meshes, silhouette=False):
+def incoherent_queries(dev, meshes, silhouette=False, coherent=False):
     """{mesh: (mesh state, geom, [(name, origins, dirs)])}: the bounce-2 and
     exit queries of one 1280x960 view (and, `silhouette`, one silhouette
-    view's), recorded from the loss functions on `mesh` under a capture
+    view's; `coherent`, the camera query's too, as (name, origins, dirs,
+    coherent)), recorded from the loss functions on `mesh` under a capture
     synthesized from CAPTURE_OF[mesh]."""
     import torch
     import chip_smoke as S
@@ -296,8 +312,9 @@ def incoherent_queries(dev, meshes, silhouette=False):
                                 default_silhouette_budget(ms.num_edges),
                                 *RES)
         out[mesh] = (ms, (ms.vertices, ms.faces, ms.face_valid),
-                     [(qn, o, d) for qn, (o, d, coh) in
-                      zip(S.QUERY_NAMES, rec.queries) if not coh])
+                     [(qn, o, d, coh) if coherent else (qn, o, d)
+                      for qn, (o, d, coh) in zip(S.QUERY_NAMES, rec.queries)
+                      if coherent or not coh])
     return out
 
 
@@ -530,7 +547,7 @@ def parent_defaults(queries, incoherent, parent):
                     and torch.equal(new.tri_id, old.tri_id))
         inp_n = CK.prepare_inputs(o, d, *geom, coherent=coh)
         inp_o = P.prepare_inputs(o, d, *geom, coherent=coh)
-        if inp_n.group == 1 and not same:
+        if inp_n.group == inp_o.group and not same:
             sys.exit(f"tune_torch_oracle: {name}: hits at the defaults differ "
                      "from the parent tree's")
         S.compare_hits(f"defaults: {name} (group {inp_n.group}) vs the "
@@ -557,6 +574,168 @@ def parent_defaults(queries, incoherent, parent):
               f"{_fmt(ms['this']['prepass'])} ms", flush=True)
 
 
+def step_turns(step, state, lr, mesh, views, n=5):
+    """ms of n steps (host clock, synchronized) after a warm-up, from
+    `state` on the same views each time."""
+    import torch
+    step(state, lr, mesh, views, 0, list(range(8)))
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step(state, lr, mesh, views, 0, list(range(8)))
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def step_profile(make_step, mesh, views, lr):
+    """(device operations of one step, of them inside the oracle's ranges,
+    their busy ms) under torch.profiler, each query in a range."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    base = get_intersect_fn("auto")
+
+    def traced(*args, **kwargs):
+        with record_function("oracle query"):
+            return base(*args, **kwargs)
+    init, step = make_step(traced)
+    state = init(mesh)
+    step(state, lr, mesh, views, 0, list(range(8)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, lr, mesh, views, 0, list(range(8)))
+        torch.cuda.synchronize()
+    dev_t = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "oracle query" and e.device_type == dev_t]
+    ops = [e for e in events
+           if e.device_type == dev_t and e.name != "oracle query"]
+    inside = sum(any(a <= k.time_range.start and k.time_range.end <= b
+                     for a, b in spans) for k in ops)
+    busy = sum(k.time_range.end - k.time_range.start for k in ops) / 1e3
+    return len(ops), inside, busy
+
+
+def pack_ab(dev, card, out):
+    """The packing kernel against the plain stages it replaced, a query of
+    each kind on three meshes and a train step, in turns; writes `out`."""
+    import torch
+    import chip_smoke as S
+    from drt_tpu_torch.config import POINTGRAY_RES as RES, HyperParams
+    from drt_tpu_torch.data.synthetic import synthesize_capture
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    from drt_tpu_torch.mesh import build_mesh_state, load_ply
+    from drt_tpu_torch.optimize import (LossWeights,
+                                        default_silhouette_budget,
+                                        make_train_step)
+    kernel_pack = CK.pack
+
+    def use(side):
+        CK.pack = kernel_pack if side == "kernel" else CK.pack_plain
+
+    rows = []
+    meshes = ("dog_mid20k", "dog_mid45k", "dog_mid90k")
+    try:
+        data = incoherent_queries(dev, meshes, silhouette=True,
+                                  coherent=True)
+        for mesh, (ms, geom, queries) in data.items():
+            for qn, o, d, coh in queries:
+                hits = {}
+                for side in ("plain", "kernel"):
+                    use(side)
+                    hits[side] = CK.intersect_cuda(o, d, *geom, coherent=coh)
+                same = bool(torch.equal(hits["plain"].t, hits["kernel"].t)
+                            and torch.equal(hits["plain"].tri_id,
+                                            hits["kernel"].tri_id))
+                if not same:
+                    sys.exit(f"tune_torch_oracle: {mesh} {qn}: the packing "
+                             "kernel's hits differ from the plain stages'")
+                row = {"mesh": mesh, "capture": CAPTURE_OF[mesh],
+                       "query": qn, "coherent": coh,
+                       "rays": int(o.shape[0]), "faces": ms.num_faces,
+                       "faces_padded": int(ms.faces.shape[0]),
+                       "hits": int(hits["kernel"].hit.sum()),
+                       "group": CK.prepare_inputs(
+                           o, d, *geom, coherent=coh).group}
+                for side in ("plain", "kernel"):
+                    use(side)
+                    n_ops, busy, host = query_profile(
+                        lambda: CK.intersect_cuda(o, d, *geom, coherent=coh))
+                    row[side] = {"device_ops": n_ops,
+                                 "device_busy_ms": busy, "host_ms": host,
+                                 "query_ms": []}
+                for side in ("plain", "kernel", "kernel", "plain"):
+                    use(side)
+                    row[side]["query_ms"].append(S.cuda_ms(
+                        lambda: CK.intersect_cuda(o, d, *geom,
+                                                  coherent=coh), 10))
+                rows.append(row)
+                print(f"{mesh} {qn} (group {row['group']}): hits equal bit "
+                      f"for bit ({row['hits']} hits); " + "; ".join(
+                          f"{side}: query {_fmt(row[side]['query_ms'])} ms, "
+                          f"{row[side]['device_ops']:g} device operations "
+                          f"busy {row[side]['device_busy_ms']:.4f} ms, host "
+                          f"{row[side]['host_ms']:.4f} ms"
+                          for side in ("plain", "kernel")), flush=True)
+        del data
+        # the reference-parity step of chip_smoke.py phase 5
+        hp = HyperParams()
+        v90, f90 = load_ply(os.path.join(S.MESH_DIR, "dog_mid90k.ply"))
+        cap = synthesize_capture(v90, f90, name="dog", num_views=8,
+                                 resy=RES[0], resx=RES[1], ior=hp.ior,
+                                 ext_ior=hp.ext_ior, num_view_used=8,
+                                 device=dev)
+        ms45 = build_mesh_state(*load_ply(os.path.join(
+            S.MESH_DIR, "dog_mid45k.ply")), device=dev)
+        weights = LossWeights(ray_w=hp.ray_w, vh_w=hp.vh_w, sm_w=hp.sm_w,
+                              ior=hp.ior, ext_ior=hp.ext_ior)
+        budget = default_silhouette_budget(ms45.num_edges)
+
+        def make_step(fn):
+            init, step, _ = make_train_step(fn, weights, *RES, budget,
+                                            momentum=hp.momentum,
+                                            grad_clamp=hp.grad_clamp)
+            return init, step
+        from drt_tpu_torch.intersect.api import get_intersect_fn
+        init, step = make_step(get_intersect_fn("auto"))
+        state = init(ms45)
+        step_row = {"mesh": "dog_mid45k", "capture": "dog_mid90k, 8 views",
+                    "rays": RES[0] * RES[1], "silhouette_views": 8,
+                    "budget": budget}
+        for side in ("plain", "kernel"):
+            use(side)
+            n_ops, inside, busy = step_profile(make_step, ms45, cap.views,
+                                               hp.start_lr)
+            step_row[side] = {"device_ops": n_ops, "oracle_ops": inside,
+                              "device_busy_ms": busy, "step_ms": []}
+        for side in ("plain", "kernel", "kernel", "plain"):
+            use(side)
+            step_row[side]["step_ms"].append(step_turns(
+                step, state, hp.start_lr, ms45, cap.views))
+        for side in ("plain", "kernel"):
+            r = step_row[side]
+            r["median_ms"] = [statistics.median(x) for x in r["step_ms"]]
+            print(f"step ({side}): {r['device_ops']} device operations, "
+                  f"{r['oracle_ops']} inside the oracle, busy "
+                  f"{r['device_busy_ms']:.3f} ms; medians in turns "
+                  f"{_fmt(r['median_ms'])} ms; all "
+                  f"{[_fmt(x) for x in r['step_ms']]}", flush=True)
+    finally:
+        CK.pack = kernel_pack
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as fh:
+        json.dump({"device": card, "script":
+                   "scripts/tune_torch_oracle.py --what pack",
+                   "turns": "plain, kernel, kernel, plain",
+                   "queries": rows, "step": step_row}, fh, indent=1)
+        fh.write("\n")
+    print(f"wrote {out}")
+
+
 def _fmt(xs):
     return "/".join(f"{x:.4f}" for x in xs)
 
@@ -565,7 +744,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--what", nargs="+", default=["tiles", "blocks", "gate"],
                     choices=["tiles", "blocks", "gate", "prepass", "resort",
-                             "group", "defaults"])
+                             "group", "pack", "defaults"])
     ap.add_argument("--parent", default=None,
                     help="--what defaults: the unpacked tree to compare with")
     ap.add_argument("--prepass-out",
@@ -576,6 +755,10 @@ def main():
                     default=os.path.join(HERE, "reports",
                                          "torch_group_ab.json"),
                     help="where --what group writes its table")
+    ap.add_argument("--pack-out",
+                    default=os.path.join(HERE, "reports",
+                                         "torch_pack_ab.json"),
+                    help="where --what pack writes its times")
     ap.add_argument("--table", default=None,
                     help="where --what resort writes its table (default: "
                          "reports/torch_resort_ab.json)")
@@ -591,7 +774,9 @@ def main():
         group_ab(torch.device("cuda", 0), smi.stdout.strip(), args.group_out)
     if "resort" in args.what:
         resort_ab(torch.device("cuda", 0), smi.stdout.strip(), args.table)
-    if not set(args.what) - {"group", "resort"}:
+    if "pack" in args.what:
+        pack_ab(torch.device("cuda", 0), smi.stdout.strip(), args.pack_out)
+    if not set(args.what) - {"group", "resort", "pack"}:
         return
     queries = recorded_queries(torch.device("cuda", 0))
     if "defaults" in args.what:

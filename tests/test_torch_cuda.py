@@ -1,10 +1,11 @@
-"""The two CUDA kernels of the oracle against their plain versions, on the
-card. Marked `cuda`: it skips where torch sees no GPU. Run on a GPU machine
-with `python -m pytest tests/test_torch_cuda.py -m cuda` (add
+"""The three CUDA kernels of the oracle against their plain versions, on
+the card. Marked `cuda`: it skips where torch sees no GPU. Run on a GPU
+machine with `python -m pytest tests/test_torch_cuda.py -m cuda` (add
 `--noconftest` where JAX is not installed). The closest-hit kernel and its
 plain version round every product and sum alike, so their hits must agree
 bit for bit; the prepass kernel must give the lists and counts of
-`_candidates` (ray mode) and `_candidates_tile` (tile mode) exactly."""
+`_candidates` (ray mode) and `_candidates_tile` (tile mode) exactly; the
+packing kernel every output of `pack_plain` bit for bit (int32 views)."""
 
 import os
 
@@ -16,7 +17,7 @@ import drt_tpu_torch.intersect.cuda_kernel as CK
 from drt_tpu_torch.mesh import build_mesh_state, load_ply
 # pytest puts tests/ on sys.path; `tests.meshes` could resolve to another
 # installed package named `tests` on a GPU machine.
-from meshes import make_icosphere
+from meshes import make_cube, make_icosphere
 
 pytestmark = pytest.mark.cuda
 
@@ -305,6 +306,124 @@ def test_tie_rule_on_the_card(dev):
         assert torch.equal(id_k, id_p) and torch.equal(t_k, t_p)
         assert id_k[:3].tolist() == [38, 38, 33]
         assert t_k[:3].tolist() == [2.0, 2.0, 1.0]
+
+
+# --- the packing kernel -------------------------------------------------------
+
+def _pack_case(name, vdtype, dev, n=1000, seed=9):
+    """(vertices, faces, face_valid, shift, origins, dirs) on the card: the
+    icosphere and the cube padded to power-of-two face arrays, dog_mid20k
+    (the last chunk holds faces beyond F), dog_pillow_corrupt.ply with 1
+    face in 64 degenerate and 1 in 10 invalid, and the icosphere with -0
+    coordinates under a zero shift ("zeros"); `n` rays around the mesh,
+    every 7th direction with a +0 and every 11th a -0 component."""
+    rng = np.random.default_rng(seed)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shift = None
+    if name in ("icosphere", "cube", "zeros"):
+        v, f = (make_cube(size=80.0) if name == "cube"
+                else make_icosphere(subdivisions=3, radius=50.0))
+        ms = build_mesh_state(v, f, dtype=torch.float64, device="cpu")
+        v, f, fv = (x.numpy() for x in (ms.vertices, ms.faces,
+                                        ms.face_valid))
+        if name == "zeros":
+            v = np.where(v == 0, -0.0, v)
+            v[::5, 0] = 0.0
+            shift = torch.zeros(3, device=dev)
+    else:
+        path = (os.path.join(root, "reports", "tuning_meshes",
+                             "dog_mid20k.ply") if name == "dog20k"
+                else os.path.join(root, "tests", "fixtures",
+                                  "dog_pillow_corrupt.ply"))
+        v, f = load_ply(path)
+        f = np.asarray(f, np.int64).copy()
+        fv = np.ones(len(f), bool)
+        if name == "pillow":
+            f[::64, 2] = f[::64, 1]
+            fv = rng.uniform(size=len(f)) > 0.1
+    c, ext = v.mean(0), np.ptp(v, axis=0).max()
+    o = torch.tensor(c + rng.normal(size=(n, 3)) * ext, dtype=torch.float32,
+                     device=dev)
+    d = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32,
+                     device=dev)
+    d[::7, 1] = 0.0
+    d[::11, 2] = -0.0
+    if shift is None:
+        shift = o.mean(dim=0)
+    return (torch.tensor(v, dtype=vdtype, device=dev),
+            torch.tensor(f, device=dev), torch.tensor(fv, device=dev),
+            shift, o, d)
+
+
+def _assert_packed_equal(got, want):
+    for field in CK.Packed._fields:
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.shape == b.shape and a.dtype == b.dtype, field
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), field
+
+
+@pytest.mark.parametrize("coherent", [False, True])
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("group", [1, 4, 16])
+@pytest.mark.parametrize("name", ["icosphere", "cube", "dog20k", "pillow",
+                                  "zeros"])
+def test_pack_kernel_matches_plain(dev, name, group, vdtype, coherent):
+    """Every output of the packing kernel equals pack_plain's on the card,
+    bit for bit as int32 views, with one launch."""
+    args = _pack_case(name, vdtype, dev)
+    rt = CK.RAY_TILE_COHERENT if coherent else CK.RAY_TILE_INCOHERENT
+    before = CK.counters.pack_launches
+    got = CK.pack_cuda(*args, group=group, ray_tile=rt)
+    torch.cuda.synchronize()
+    assert CK.counters.pack_launches == before + 1
+    _assert_packed_equal(got, CK.pack_plain(*args, group=group,
+                                            ray_tile=rt))
+    assert (got.box_lo is got.lo) == (group == 1)
+
+
+def test_pack_kernel_other_input_types(dev):
+    """float64 rays, int32 faces and face_valid None (all valid) against the
+    plain version; the full 2^20-ray view of one tile size."""
+    v, f, fv, shift, o, d = _pack_case("dog20k", torch.float64, dev,
+                                       n=2 ** 20 + 5, seed=3)
+    for args in ((v, f.int(), fv, shift, o.double(), d.double()),
+                 (v.float(), f, None, shift, o, d)):
+        got = CK.pack_cuda(*args, group=4, ray_tile=128)
+        torch.cuda.synchronize()
+        _assert_packed_equal(got, CK.pack_plain(*args, group=4,
+                                                ray_tile=128))
+
+
+@pytest.mark.parametrize("coherent", [False, True])
+def test_prepare_inputs_one_pack_launch_per_query(dev, dog20k, coherent):
+    """A query launches the packing kernel once, and what it hands the
+    other two kernels is pack_plain's."""
+    ms = dog20k
+    o, d = _dog_rays(ms, 20000, 11, not coherent, dev)
+    before = CK.counters.pack_launches
+    inp = CK.prepare_inputs(o, d, ms.vertices, ms.faces, ms.face_valid,
+                            coherent=coherent)
+    assert CK.counters.pack_launches == before + 1
+    rt = CK.RAY_TILE_COHERENT if coherent else CK.RAY_TILE_INCOHERENT
+    pk = CK.pack_plain(ms.vertices, ms.faces, ms.face_valid, o.mean(dim=0),
+                       o, d, group=inp.group, ray_tile=rt)
+    for field in ("phi", "inv", "coef", "lo", "hi"):
+        assert torch.equal(getattr(inp, field).view(torch.int32),
+                           getattr(pk, field).view(torch.int32)), field
+
+
+def test_pack_kernel_raises_on_bad_input(dev):
+    v, f, fv, shift, o, d = _pack_case("cube", torch.float32, dev)
+    before = CK.counters.pack_launches
+    for args in ((v.cpu(), f, fv, shift, o, d),
+                 (v, f, fv, shift.double(), o, d),
+                 (v, f.float(), fv, shift, o, d),
+                 (v, f, fv, shift, o, d[:, :2])):
+        with pytest.raises(ValueError):
+            CK.pack_cuda(*args, group=1, ray_tile=128)
+    assert CK.counters.pack_launches == before
 
 
 def test_kernel_wrapper_raises_on_bad_input(dev):
