@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-1. build   the three kernels (closest hit; candidate prepass with its sort;
-           the packing stages) from drt_tpu_torch/csrc with nvcc, one
-           compile per source in parallel; prints each kernel's registers,
-           shared memory and spills and fails on a spill to local memory;
+1. build   the four kernels (closest hit; candidate prepass with its sort;
+           the packing stages; the row scatter-add of the step's vertex
+           gathers) from drt_tpu_torch/csrc with nvcc, one compile per
+           source in parallel; prints each entry function's registers,
+           shared memory and spills and fails on a spill to local memory
+           or a kernel missing from the library;
 2. kernel  the closest-hit kernel vs its plain PyTorch version on
            dog_mid90k (82,566 faces) at 1280x960: camera rays (coherent)
            and the bounce-2 rays of the same view (incoherent), plus a
@@ -58,7 +60,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
            step, and the packing kernel's device time in each query (its
            profiler span: the kernels line's `ms`), and fails if the oracle launched a sort, cross product,
            min/max reduction or concatenation kernel, or more than 8
-           device operations a query;
+           device operations a query. The scatter kernel: each step's
+           launches against the reckoned count (`scatters_per_step`: the
+           normals, each silhouette view's and the dihedral term's gather
+           backward, `_gather_tri9`'s backward in both bounces, 2 each on
+           its soup route); one more step's scatters recorded (rows,
+           indices, size) and each held against `scatter_rows_plain` run
+           on the CPU bit for bit (int views), run twice on the card for
+           the same bits, and timed (CUDA events) beside its bound, the
+           plain version on the card and the library calls the parent
+           path ran (`index_add_`, `index_put_(accumulate=True)`); in the
+           profiled step, each scatter call's device span, the step's
+           device time by kernel, and a failure if
+           `indexing_backward_kernel` or an `index_add_` kernel ran;
 6. steps   from dog_mid45k, 2 steps each of adam + none, uadam + h1 and
            sgd + sobolev: finite loss and vertices, and the launch counts
            reckoned from the weights (a zero weight skips its term, so h1's
@@ -159,6 +173,9 @@ phase 11's and one of phase 12's, a JSON line with the kernels' numbers
 (with their times at each group on phase 12's bounce-2 query), the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
 
+The scatter kernel also runs in phases 3, 6, 7, 9, 10 and 11 (every
+vertex gradient on the card); phase 9 prints its launches.
+
 It needs the repository around it (drt_tpu_torch/, native/remesh.cpp and
 reports/tuning_meshes/), a CUDA GPU, nvcc, g++ and PIL (to decode phase 10's
 PNGs); it imports nothing of JAX.
@@ -181,6 +198,12 @@ MESH_DIR = os.path.join(HERE, "reports", "tuning_meshes")
 FP32_PEAK = 67e12                 # H100 SXM FP32 non-tensor FLOP/s
 HBM_RATE = 3.35e12                # H100 SXM HBM3 bytes/s
 TIE_PER_1024 = 2
+# The entry functions of the four sources: closest_hit.cu, candidates.cu,
+# pack.cu and scatter.cu (its radix-sort passes and its reduction).
+BUILT_KERNELS = ("closest_hit_kernel", "candidates_kernel", "pack_kernel",
+                 "live_hist_kernel", "hist_kernel", "scan_reduce_kernel",
+                 "scan_parts_kernel", "scan_apply_kernel", "sort_kernel",
+                 "reduce_kernel")
 BRUTE_SAMPLE = 65536
 
 
@@ -756,6 +779,135 @@ def queries_per_step(weights, n_silh=8, ray_chunks=1):
     return (ray + silh,) * 3
 
 
+def scatters_per_step(weights, faces_padded, n_silh=8):
+    """Launches of the scatter kernel in one step without h1 (the normals
+    of `with_vertices`, then the backward of each silhouette view's
+    endpoint gather, of the dihedral gather, and of `_gather_tri9` in both
+    bounces: 2 each on its soup route, at most 2^16 padded faces, 1
+    above); a zero weight skips its term."""
+    from drt_tpu_torch.render.trace import _SOUP_BWD_MAX_FACES
+    tri9 = 2 if faces_padded <= _SOUP_BWD_MAX_FACES else 1
+    return (1 + (n_silh if weights.vh_w else 0) + (1 if weights.sm_w else 0)
+            + (2 * tri9 if weights.ray_w else 0))
+
+
+@contextlib.contextmanager
+def scatter_spy(calls, label=None, keep=True):
+    """For the duration, each call of the scatter kernel's wrapper appends
+    to `calls` its (rows, idx, num, out), cloned (keep), or its (R, C,
+    num); with `label`, each runs in a torch.profiler range of that name."""
+    from torch.profiler import record_function
+    from drt_tpu_torch.geometry import scatter as SC
+    real = SC.scatter_rows_cuda
+
+    def spy(rows, idx, num):
+        with record_function(label) if label else contextlib.nullcontext():
+            out = real(rows, idx, num)
+        calls.append((rows.clone(), idx.clone(), num, out.clone()) if keep
+                     else (rows.shape[0], rows.shape[1], num))
+        return out
+    SC.scatter_rows_cuda = spy
+    try:
+        yield
+    finally:
+        SC.scatter_rows_cuda = real
+
+
+def check_scatters(calls):
+    """Each recorded scatter (rows, idx, num, out) against
+    scatter_rows_plain run on the CPU bit for bit (int views), and the
+    kernel run again on the same inputs for the same bits; then its time
+    (CUDA events, the wrapper's host time included), its bound (bytes:
+    rows and indices read once, the output written once), the plain
+    version's time on the card and the library calls': `index_add_` (the
+    plain version's own call, float atomics) and `index_put_(accumulate=
+    True)` (IndexBackward0's path in the parent). Returns one dict a
+    call."""
+    import torch
+    from drt_tpu_torch.geometry import scatter as SC
+    out_rows = []
+    for i, (rows, idx, num, out) in enumerate(calls):
+        want = SC.scatter_rows_plain(rows.cpu(), idx.cpu(), num)
+        again = SC.scatter_rows_cuda(rows, idx, num)
+        torch.cuda.synchronize()
+        bits, det = same_bits(out.cpu(), want), same_bits(again, out)
+        err = float((out.cpu().double() - want.double()).abs().max()) \
+            if out.numel() else 0.0
+        R, C = rows.shape
+        live = int((rows != 0).any(dim=1).sum())
+        size = rows.element_size()
+        nbytes = R * C * size + R * 8 + num * C * size
+        bound = nbytes / HBM_RATE * 1e3
+        ms = cuda_ms(lambda: SC.scatter_rows_cuda(rows, idx, num), 20)
+        plain = cuda_ms(lambda: SC.scatter_rows_plain(rows, idx, num), 20)
+        zeros = rows.new_zeros(num, C)
+        add = cuda_ms(lambda: zeros.index_add_(0, idx, rows), 20)
+        put = cuda_ms(lambda: zeros.index_put_((idx,), rows,
+                                               accumulate=True), 20)
+        print(f"scatter {i}: {R} rows of {C} {str(rows.dtype)[6:]} ({live} "
+              f"not all zero) into {num}: the CPU plain version's bits "
+              f"{bits}, a second run's {det}; kernel {ms:.4f} ms (bound "
+              f"{bound:.4f} ms, bytes), plain on the card {plain:.4f} ms, "
+              f"index_add_ {add:.4f} ms, index_put_ accumulate {put:.4f} ms")
+        if not (bits and det):
+            fail(f"scatter {i}: the kernel differs from scatter_rows_plain "
+                 f"on the CPU ({bits}, largest difference {err:g}) or from "
+                 f"its own second run ({det})")
+        out_rows.append(dict(rows=R, cols=C, num=num, live=live, ms=ms,
+                             plain_ms=plain, index_add_ms=add,
+                             index_put_ms=put, bound_ms=bound, err=err))
+    return out_rows
+
+
+def scatter_entry(checked, prof, launches, per_step, lod_launches):
+    """The kernels line's entry of the scatter kernel: its numbers on the
+    largest scatter of phase 5's step (a bounce's [N,9] soup rows into
+    [F,9]), its device time the profiled step's span of that call."""
+    i = max(range(len(checked)), key=lambda j: (checked[j]["cols"] == 9,
+                                                 checked[j]["rows"]))
+    big = checked[i]
+    j = prof["calls"].index((big["rows"], big["cols"], big["num"]))
+    return {
+        "name": "scatter_kernel",
+        "route": "cuda",
+        "source": "drt_tpu_torch/csrc/scatter.cu",
+        "replaces": "drt_tpu/render/trace.py:164",
+        "replaces_also": ["drt_tpu/geometry/normals.py:31",
+                          "drt_tpu/render/silhouette.py:158",
+                          "drt_tpu/geometry/metrics.py:56"],
+        "launches": launches,
+        "launches_per_step": per_step,
+        "launches_lod": lod_launches,
+        "shape": f"{big['rows']} rows of {big['cols']} into {big['num']} "
+                 "(a bounce's _gather_tri9 soup backward, dog_mid45k at "
+                 "1280x960)",
+        "max_abs_err": max(c["err"] for c in checked),
+        "ms": prof["ms"][j],
+        "ms_from": "torch.profiler's device span of that call in phase 5's "
+                   "profiled step",
+        "call_ms": big["ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": big["index_add_ms"],
+        "library": "torch.Tensor.index_add_",
+        "library_index_put_ms": big["index_put_ms"],
+        "step_ms": sum(prof["ms"]),
+        "step_bound_ms": sum(c["bound_ms"] for c in checked),
+        "step_index_add_ms": sum(c["index_add_ms"] for c in checked),
+        "step_index_put_ms": sum(c["index_put_ms"] for c in checked),
+        "step_device_busy_ms": prof["busy_ms"],
+        "calls": checked,
+    }
+
+
+# Kernels of torch's scatter-adds, which the step's vertex gathers ran
+# before csrc/scatter.cu (IndexBackward0's `index_put_` with accumulate,
+# `index_add_`; lowercased): none may run in a step.
+PARENT_SCATTER_KERNELS = ("indexing_backward_kernel", "indexfunclargeindex",
+                          "indexfuncsmallindex")
+
+
 # Device operations of the packing stages before csrc/pack.cu took them
 # (lowercased substrings of their kernels' names): none may run inside an
 # oracle range.
@@ -776,9 +928,13 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
     min/max reduction, a concatenation: csrc/pack.cu does them), more than
     MAX_ORACLE_OPS device operations in a query, or if the step's
     `n_queries` queries did not each give a range with a device-side span,
-    since then the check could not see the oracle's kernels. Returns the
-    step's device operations inside the ranges and each query's packing
-    kernel device ms (its profiler span)."""
+    since then the check could not see the oracle's kernels. Each call of
+    the scatter kernel runs in a range too: its device span, the step's
+    device time by kernel, and a failure if torch's scatter-add kernels
+    (PARENT_SCATTER_KERNELS) ran anywhere in the step. Returns the step's
+    device operations inside the oracle's ranges, each query's packing
+    kernel device ms (its profiler span) and the scatter calls' shapes and
+    device ms with the step's device busy ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from drt_tpu_torch.intersect.api import get_intersect_fn
@@ -792,8 +948,10 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
                                     momentum=hp.momentum,
                                     grad_clamp=hp.grad_clamp)
     state = init(mesh)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    scatter_calls = []
+    with scatter_spy(scatter_calls, "scatter rows", keep=False), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         step(state, hp.start_lr, mesh, cap.views, 0, list(range(8)))
         torch.cuda.synchronize()
 
@@ -806,8 +964,8 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
     # kernels that ran inside one are the oracle's
     spans = [(e.time_range.start, e.time_range.end) for e in events
              if e.name == "oracle query" and e.device_type == dev_t]
-    kernels = [e for e in events
-               if e.device_type == dev_t and e.name != "oracle query"]
+    kernels = [e for e in events if e.device_type == dev_t
+               and e.name not in ("oracle query", "scatter rows")]
     per_query = [[k for k in kernels
                   if a <= k.time_range.start and k.time_range.end <= b]
                  for a, b in spans]
@@ -847,7 +1005,42 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
     if max(len(q) for q in per_query) > MAX_ORACLE_OPS:
         fail(f"profile: a query made {max(len(q) for q in per_query)} device "
              f"operations, more than {MAX_ORACLE_OPS}")
-    return len(oracle), pack_ms
+    # the scatter kernel: each call's device span, and no torch scatter-add
+    sc_spans = [(e.time_range.start, e.time_range.end) for e in events
+                if e.name == "scatter rows" and e.device_type == dev_t]
+    if len(sc_spans) != len(scatter_calls):
+        fail(f"profile: {len(sc_spans)} device spans for the step's "
+             f"{len(scatter_calls)} scatter calls")
+    sc_ms = [sum(k.time_range.end - k.time_range.start for k in kernels
+                 if a <= k.time_range.start and k.time_range.end <= b) / 1e3
+             for a, b in sc_spans]
+    parent = sorted({k.name[:80] for k in kernels
+                     if any(p in k.name.lower()
+                            for p in PARENT_SCATTER_KERNELS)})
+    ops = sorted({e.name for e in events if e.device_type == cpu_t and (
+        e.name in ("IndexBackward0", "IndexPutBackward0")
+        or e.name.startswith(("aten::index_put", "aten::index_add",
+                              "aten::_index_put")))})
+    by_name = {}
+    for k in kernels:
+        key = k.name.split("(")[0].split("<")[0][:50]
+        by_name[key] = (by_name.get(key, 0.0)
+                        + (k.time_range.end - k.time_range.start) / 1e3)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(f"profile: the step's device busy time {busy:.3f} ms in "
+          f"{len(kernels)} kernels; by name (ms) "
+          f"{[(n, round(t, 3)) for n, t in top]}")
+    print(f"profile: {len(sc_spans)} scatter calls (rows, columns, "
+          f"destinations) {scatter_calls}, device ms each "
+          f"{[round(x, 4) for x in sc_ms]}, {sum(sc_ms):.4f} ms in all; "
+          f"torch scatter-add kernels in the step: {parent or 'none'}; "
+          f"their ops on the host: {ops or 'none'}")
+    if parent:
+        fail(f"profile: the step launched torch's scatter-add kernels "
+             f"{parent} (host ops {ops})")
+    return len(oracle), pack_ms, dict(
+        calls=scatter_calls, ms=sc_ms, busy_ms=busy, kernels=len(kernels))
 
 
 def run_steps(name, step, state, lr, mesh, cap, seed, n, expect):
@@ -1584,6 +1777,7 @@ def main():
     sys.path.insert(0, HERE)
     try:
         import drt_tpu_torch  # noqa: F401
+        from drt_tpu_torch import kernels as KN
         from drt_tpu_torch.config import POINTGRAY_RES as RES, HyperParams
         from drt_tpu_torch.data.synthetic import (intrinsics, ring_cameras,
                                                   synthesize_capture)
@@ -1609,11 +1803,11 @@ def main():
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.time()
-    CK.build(force=True)
+    KN.build(force=True)
     CK._load()
-    print(f"build: {time.time() - t0:.2f} s (nvcc {' '.join(CK.NVCC_FLAGS)})")
+    print(f"build: {time.time() - t0:.2f} s (nvcc {' '.join(KN.NVCC_FLAGS)})")
     entry, n_entries = "?", 0
-    for line in CK.build_log.splitlines():
+    for line in KN.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry, n_entries = m.group(1), n_entries + 1
@@ -1623,9 +1817,14 @@ def main():
                       line)
         if m and (int(m.group(1)) or int(m.group(2))):
             fail(f"{entry} spills to local memory: {line.strip()}")
-    if n_entries < 3:
-        fail(f"ptxas reported {n_entries} kernels, expected 3:\n"
-             f"{CK.build_log}")
+    # an entry function's Itanium name starts _Z<length><name>, so a
+    # kernel's name matches only itself (hist_kernel not live_hist_kernel)
+    entries = re.findall(r"Compiling entry function '(\w+)'", KN.build_log)
+    missing = [k for k in BUILT_KERNELS
+               if not any(e.startswith(f"_Z{len(k)}{k}") for e in entries)]
+    if missing:
+        fail(f"ptxas reported no entry function for {missing} among "
+             f"{n_entries}:\n{KN.build_log}")
     print(f"ray tiles: coherent {CK.RAY_TILE_COHERENT}, incoherent "
           f"{CK.RAY_TILE_INCOHERENT}; closest-hit blocks of "
           f"{CK.BLOCK_RAYS} rays")
@@ -1693,11 +1892,13 @@ def main():
     ray_gen = cap.ray_view_generator(seed=hp.seed)
     silh_gen = cap.silh_view_generator(seed=hp.seed + 1000)
     per_step = 3 + 8                  # each kernel once a query of either kind
+    scatter_step = scatters_per_step(weights, ms45.faces.shape[0])
     times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
     CK.counters.reset()                        # main path starts here
     for it in range(3):
         calls0, seen0 = CK.counters.calls, counts()
+        sc0 = CK.counters.scatter_launches
         ray_idx = next(ray_gen)
         silh_idx = [next(silh_gen) for _ in range(8)]
         torch.cuda.synchronize()
@@ -1709,18 +1910,24 @@ def main():
         losses.append(float(loss))
         d_calls = CK.counters.calls - calls0
         d_seen = tuple(b - a for a, b in zip(seen0, counts()))
+        d_scatter = CK.counters.scatter_launches - sc0
         print(f"step {it}: {times[-1]:.1f} ms, loss {losses[-1]:.6g} "
               f"(ray {float(aux['ray']):.6g} vh {float(aux['vh']):.6g} "
               f"sm {float(aux['sm']):.6g}), valid rays "
               f"{int(aux['valid_rays'])}, max grad "
               f"{float(aux['max_grad']):.3g}, queries {d_calls}, "
-              f"closest-hit, prepass and packing launches {d_seen}")
+              f"closest-hit, prepass and packing launches {d_seen}, scatter "
+              f"launches {d_scatter}")
         if d_calls != per_step or d_seen != (per_step,) * 3:
             fail(f"step {it}: {d_calls} queries, launches {d_seen}, expected "
                  f"{per_step} of each")
+        if d_scatter != scatter_step:
+            fail(f"step {it}: {d_scatter} scatter launches, reckoned "
+                 f"{scatter_step}")
         if not math.isfinite(losses[-1]):
             fail(f"step {it}: loss is not finite")
     launches = counts()                          # main path ends here
+    scatter_launches = CK.counters.scatter_launches
     verts = final(state, ms45)
     moved = float((verts - ms45.vertices).abs().max())
     if not torch.isfinite(verts).all() or moved <= 0:
@@ -1733,8 +1940,21 @@ def main():
           f"(ray view), max vertex move {moved:.4g}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"closest-hit, prepass and packing launches {launches}")
-    oracle_ops, pack_step_ms = oracle_kernel_profile(weights, RES, budget,
-                                                     hp, ms45, cap, per_step)
+    # one more step's scatters, each against the CPU plain version
+    recorded = []
+    with scatter_spy(recorded):
+        step(state, hp.start_lr, ms45, cap.views, next(ray_gen),
+             [next(silh_gen) for _ in range(8)])
+        torch.cuda.synchronize()
+    if len(recorded) != scatter_step:
+        fail(f"recorded {len(recorded)} scatters, reckoned {scatter_step}")
+    scatter_checked = check_scatters(recorded)
+    del recorded
+    oracle_ops, pack_step_ms, scatter_prof = oracle_kernel_profile(
+        weights, RES, budget, hp, ms45, cap, per_step)
+    if len(scatter_prof["calls"]) != scatter_step:
+        fail(f"profile: {len(scatter_prof['calls'])} scatter calls, "
+             f"reckoned {scatter_step}")
 
     # -- 6. the other optimizers and preconditioners -------------------------
     per_step_all = queries_per_step(weights)
@@ -1897,6 +2117,7 @@ def main():
         torch.cuda.synchronize()
         lod_s = time.time() - t0
         lod_launches = counts()                # main path ends here
+        lod_scatters = CK.counters.scatter_launches
         lod_peak = torch.cuda.max_memory_allocated()
         for ln in lines:
             print(f"lod: {ln}")
@@ -1949,9 +2170,9 @@ def main():
               f"{sum(p['remesh_s'] for p in info['passes']):.2f} s, steps "
               f"{sum(p['steps_s'] for p in info['passes']):.2f} s, peak "
               f"memory {lod_peak / 2**30:.2f} GiB, "
-              f"closest-hit, prepass and packing launches {lod_launches}; "
-              f"Hausdorff mean against dog_mid90k: init {h_init.mean:.4f}, "
-              f"result {h_out.mean:.4f} (max {h_init.max:.3f} -> "
+              f"closest-hit, prepass and packing launches {lod_launches}, "
+              f"scatter launches {lod_scatters}; Hausdorff mean against "
+              f"dog_mid90k: init {h_init.mean:.4f}, result {h_out.mean:.4f} (max {h_init.max:.3f} -> "
               f"{h_out.max:.3f}; one evaluation {hausdorff_s:.1f} s)")
         # resume: one pass more, and only that pass
         info2 = {}
@@ -2085,7 +2306,8 @@ def main():
         "group_bound_ms": {g: r["pack"]["bound_ms"]
                            for g, r in by_group.items()},
         "oracle_ops_per_step": oracle_ops,
-    }]
+    }, scatter_entry(scatter_checked, scatter_prof, scatter_launches,
+                     scatter_step, lod_scatters)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

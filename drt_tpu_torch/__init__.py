@@ -2,8 +2,10 @@
 
 Same layout and function names as `drt_tpu`, so each module's counterpart
 is found by path. Plain tensor code is PyTorch autograd; the hand-written
-kernels are the closest-hit oracle's (`intersect/cuda_kernel.py`:
-`csrc/closest_hit.cu` and the candidate prepass `csrc/candidates.cu`).
+kernels in `csrc/`, built, bound and counted by `kernels.py`, are the
+oracle's three (`intersect/cuda_kernel.py`: `csrc/pack.cu`,
+`csrc/candidates.cu`, `csrc/closest_hit.cu`) and the row scatter-add of
+the train step (`geometry/scatter.py`: `csrc/scatter.cu`).
 Entry points that create tensors (`build_mesh_state`,
 `stack_views`, `synthesize_capture`, `load_h5_capture`, `carve_occupancy`,
 `optimize`, and the command line's `--device`) default to `"cuda"`; the
@@ -27,6 +29,7 @@ Layer map:
     remesh/     host-side isotropic remeshing (numpy + the C++ core in
                 native/) and Hausdorff evaluation
     utils/      metrics logger, profiler helper, image output (`images`)
+    kernels     nvcc build, ctypes binding and launch counters of csrc/*.cu
 """
 
 import torch

@@ -349,10 +349,6 @@ const char* closest_hit_signature() {
            "n_groups group t_min t_out id_out stream";
 }
 
-const char* closest_hit_error_string(int err) {
-    return cudaGetErrorString((cudaError_t)err);
-}
-
 // Launches on `stream` and returns cudaGetLastError(); does not synchronise.
 // cand [n_tiles, n_groups]; coef, lo, hi hold n_groups * group chunks.
 int closest_hit_launch(const float* phi, const float* inv, const float* coef,

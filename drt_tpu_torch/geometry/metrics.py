@@ -6,6 +6,7 @@ import math
 
 import torch
 
+from drt_tpu_torch.geometry.scatter import gather_rows
 from drt_tpu_torch.geometry.vec import clip, cross, dot3, safe_normalize
 
 
@@ -44,7 +45,8 @@ def edge_var(vertices, edges, edge_valid):
 def edge_face_normals(vertices, faces, edge_faces):
     """Unit normals of the two faces adjacent to each edge
     (reference edge_face_norm, DiffRender.py:149-163)."""
-    tri = vertices[faces[edge_faces]]               # [E,2,3,3]
+    ef = faces[edge_faces].reshape(-1)              # [E*2*3] vertex ids
+    tri = gather_rows(vertices, ef).reshape(*edge_faces.shape, 3, 3)
     e1 = tri[:, :, 1, :] - tri[:, :, 0, :]
     e2 = tri[:, :, 2, :] - tri[:, :, 0, :]
     n = safe_normalize(cross(e1, e2))               # [E,2,3]

@@ -44,28 +44,23 @@ test enters the chunk's box before its running best t. The JAX package's
 overlaps; the port departs from it here (csrc/closest_hit.cu says why),
 kernel and plain version alike, and both are held to the brute oracle.
 
-The kernels are built with nvcc at first use into build/ beside the package
-(one object per source in csrc/, compiled in parallel, linked into one
-shared library) and bound through ctypes (a plain C interface builds in
-seconds).
+The kernels are built, bound and counted by drt_tpu_torch/kernels.py (nvcc
+at first use, one library for every csrc/*.cu, bound through ctypes).
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import glob
 import json
 import math
 import os
-import shutil
-import subprocess
-import threading
 from typing import NamedTuple
 
 import torch
 
+from drt_tpu_torch import kernels
 from drt_tpu_torch.intersect.api import Hits, nearest_measured
+from drt_tpu_torch.kernels import counters
 
 _UV_EPS = 1e-5
 # Rays per tile (one candidate list, one block of the prepass kernel), by the
@@ -87,149 +82,31 @@ N_COEF = 19
 _GROUP_ELEMS = 2 ** 25
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE_DIR = os.path.join(_PKG_DIR, "csrc")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
-                          "drt_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The measured A/B of candidate groups on incoherent queries, written from
 # the card by `scripts/tune_torch_oracle.py --what group`.
 GROUP_TABLE = os.path.join(os.path.dirname(_PKG_DIR), "reports",
                            "torch_group_ab.json")
-
-
-class LaunchCounter:
-    """Counts oracle queries (`calls`) and the launches of the closest-hit
-    kernel (`launches`), of the candidate-prepass kernel
-    (`candidates_launches`) and of the packing kernel (`pack_launches`),
-    each one a query of either kind. A launch is counted only where the
-    CUDA kernel is launched."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.calls = 0
-        self.launches = 0
-        self.candidates_launches = 0
-        self.pack_launches = 0
-
-
-counters = LaunchCounter()
-_lib_lock = threading.Lock()
-_lib = None
-build_log = ""
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the kernels are built from "
-                           "csrc/*.cu at first use")
-    return path
-
-
-def build(force: bool = False, defines: tuple = ()) -> str:
-    """Compile every csrc/*.cu (one nvcc each, all started together) and
-    link the objects into one shared library, if it is missing or older
-    than any source; return its path. `build_log` keeps what ptxas said.
-    `defines` ("NAME=value", ...) go to nvcc as -D and make a library of
-    their own (scripts/tune_torch_oracle.py builds such variants)."""
-    global build_log
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    suffix = "".join("_" + d.replace("=", "") for d in defines)
-    out = os.path.join(_BUILD_DIR, f"libdrt_kernels{suffix}.so")
-    sources = sorted(glob.glob(os.path.join(_SOURCE_DIR, "*.cu")))
-    if not sources:
-        raise RuntimeError(f"no kernel sources in {_SOURCE_DIR}")
-    if (not force and os.path.exists(out) and os.path.getmtime(out)
-            >= max(os.path.getmtime(s) for s in sources)):
-        return out
-    nvcc, tag = _nvcc(), f"{os.getpid()}{suffix}"
-    objs = [os.path.join(_BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
-            for s in sources]
-    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
-    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", o, s],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for s, o in zip(sources, objs)]
-    logs = [p.communicate()[0] for p in procs]
-    build_log = "".join(logs)
-    try:
-        for s, p in zip(sources, procs):
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n"
-                                   f"{build_log}")
-        tmp = f"{out}.{tag}.tmp"
-        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
-                              capture_output=True, text=True)
-        build_log += link.stdout + link.stderr
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, out)
-    finally:
-        for o in objs:
-            if os.path.exists(o):
-                os.remove(o)
-    return out
-
-
-# The argument lists `bind` types, as each source's *_signature() names them.
-_SIGNATURES = {
-    "closest_hit_signature": "phi inv coef lo hi cand count n_tiles ray_tile "
-                             "block_rays n_groups group t_min t_out id_out "
-                             "stream",
-    "candidates_signature": "org inv lo hi valid n_tiles ray_tile nc "
-                            "tile_mode t_min cand count stream",
-    "pack_signature": "vertices vert_f64 faces faces_i64 face_valid n_faces "
-                      "shift origins org_f64 dirs dir_f64 n_rays n_groups "
-                      "group n_tiles ray_tile coef lo hi box_lo box_hi "
-                      "box_valid phi inv stream",
-}
-
-
-def bind(path: str):
-    """The library at `path` (from `build`) with its C interface typed and
-    its constants checked against this module's."""
-    lib = ctypes.CDLL(path)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.closest_hit_launch.argtypes = [vp] * 7 + [ci] * 5 + [cf] + [vp] * 3
-    lib.closest_hit_launch.restype = ci
-    lib.candidates_launch.argtypes = [vp] * 5 + [ci] * 4 + [cf] + [vp] * 3
-    lib.candidates_launch.restype = ci
-    lib.pack_launch.argtypes = ([vp, ci, vp, ci, vp, ci, vp, vp, ci, vp]
-                                + [ci] * 6 + [vp] * 9)
-    lib.pack_launch.restype = ci
-    for name, want in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = [], ctypes.c_char_p
-        if fn().decode() != want:
-            raise RuntimeError(f"csrc: {name}() is {fn().decode()!r}, "
-                               f"cuda_kernel.py passes {want!r}")
-    lib.closest_hit_error_string.argtypes = [ci]
-    lib.closest_hit_error_string.restype = ctypes.c_char_p
-    lib.candidates_block.argtypes, lib.candidates_block.restype = [], ci
-    for name, want in (("closest_hit_tri_chunk", TRI_CHUNK),
-                       ("closest_hit_max_ray_tile", MAX_RAY_TILE),
-                       ("candidates_max_ray_tile", MAX_RAY_TILE),
-                       ("candidates_max_chunks", MAX_CHUNKS),
-                       ("pack_tri_chunk", TRI_CHUNK),
-                       ("pack_n_coef", N_COEF)):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = [], ci
-        if fn() != want:
-            raise RuntimeError(f"csrc: {name}() is {fn()}, "
-                               f"cuda_kernel.py expects {want}")
-    return lib
+_checked_lib = None
 
 
 def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            _lib = bind(build())
-    return _lib
+    """The kernels' library (drt_tpu_torch/kernels.py), its constants
+    checked against this module's once per library."""
+    global _checked_lib
+    lib = kernels.load()
+    if lib is not _checked_lib:
+        for name, want in (("closest_hit_tri_chunk", TRI_CHUNK),
+                           ("closest_hit_max_ray_tile", MAX_RAY_TILE),
+                           ("candidates_max_ray_tile", MAX_RAY_TILE),
+                           ("candidates_max_chunks", MAX_CHUNKS),
+                           ("pack_tri_chunk", TRI_CHUNK),
+                           ("pack_n_coef", N_COEF)):
+            if getattr(lib, name)() != want:
+                raise RuntimeError(f"csrc: {name}() is "
+                                   f"{getattr(lib, name)()}, cuda_kernel.py "
+                                   f"expects {want}")
+        _checked_lib = lib
+    return lib
 
 
 # --- stages feeding the kernel ---------------------------------------------
@@ -456,9 +333,7 @@ def pack_cuda(vertices, faces, face_valid, shift, origins, dirs, *,
             coef.data_ptr(), lo.data_ptr(), hi.data_ptr(), box_lo.data_ptr(),
             box_hi.data_ptr(), box_valid.data_ptr(), phi.data_ptr(),
             inv.data_ptr(), stream)
-    if err != 0:
-        msg = lib.closest_hit_error_string(err).decode()
-        raise RuntimeError(f"pack launch failed: {msg} ({err})")
+    kernels.check(lib, err, "pack")
     counters.pack_launches += 1
     return Packed(coef, lo, hi, box_lo, box_hi, box_valid, phi, inv)
 
@@ -627,9 +502,7 @@ def candidates_cuda(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool,
             org.data_ptr(), inv.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             chunk_valid.data_ptr(), n_tiles, ray_tile, NC, int(tile),
             float(t_min), cand.data_ptr(), count.data_ptr(), stream)
-    if err != 0:
-        msg = lib.closest_hit_error_string(err).decode()
-        raise RuntimeError(f"candidates launch failed: {msg} ({err})")
+    kernels.check(lib, err, "candidates")
     counters.candidates_launches += 1
     return cand, count
 
@@ -769,9 +642,7 @@ def closest_hit_cuda(inp: KernelInputs):
             inp.count.data_ptr(), T, ray_tile,
             math.gcd(ray_tile, BLOCK_RAYS), NC // inp.group, inp.group,
             inp.t_min, t_out.data_ptr(), id_out.data_ptr(), stream)
-    if err != 0:
-        msg = lib.closest_hit_error_string(err).decode()
-        raise RuntimeError(f"closest_hit launch failed: {msg} ({err})")
+    kernels.check(lib, err, "closest_hit")
     counters.launches += 1
     return t_out, id_out
 

@@ -1,0 +1,187 @@
+"""Build, bind and count the port's hand-written CUDA kernels.
+
+Every csrc/*.cu is compiled with nvcc at first use (one object per source,
+all started together) and linked into one shared library under build/
+beside the package, bound through ctypes (a plain C interface builds in
+seconds). Each source exports `<name>_launch`, which launches on a given
+stream and returns cudaGetLastError(), and `<name>_signature()`, the names
+of its arguments: `bind` types every entry point (`_ENTRIES`) and checks
+each signature against `_SIGNATURES`, so a source and its wrapper cannot
+drift apart unnoticed.
+
+The wrappers:
+- intersect/cuda_kernel.py: csrc/pack.cu, csrc/candidates.cu and
+  csrc/closest_hit.cu, the three kernels of an oracle query;
+- geometry/scatter.py: csrc/scatter.cu, the row scatter-add.
+
+`counters` counts each kernel's launches; a wrapper adds one only where it
+launches its kernel (never on the plain version's path).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_SOURCE_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "drt_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class LaunchCounter:
+    """Counts oracle queries (`calls`) and the launches of the closest-hit
+    kernel (`launches`), of the candidate-prepass kernel
+    (`candidates_launches`) and of the packing kernel (`pack_launches`),
+    each one a query of either kind, and of the row scatter-add
+    (`scatter_launches`, one a `scatter_rows` call on CUDA tensors)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.calls = 0
+        self.launches = 0
+        self.candidates_launches = 0
+        self.pack_launches = 0
+        self.scatter_launches = 0
+
+
+counters = LaunchCounter()
+_lib_lock = threading.Lock()
+_lib = None
+build_log = ""
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the kernels are built from "
+                           "csrc/*.cu at first use")
+    return path
+
+
+def build(force: bool = False, defines: tuple = ()) -> str:
+    """Compile every csrc/*.cu (one nvcc each, all started together) and
+    link the objects into one shared library, if it is missing or older
+    than any source; return its path. `build_log` keeps what ptxas said.
+    `defines` ("NAME=value", ...) go to nvcc as -D and make a library of
+    their own (scripts/tune_torch_oracle.py builds such variants)."""
+    global build_log
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    suffix = "".join("_" + d.replace("=", "") for d in defines)
+    out = os.path.join(BUILD_DIR, f"libdrt_kernels{suffix}.so")
+    sources = sorted(glob.glob(os.path.join(_SOURCE_DIR, "*.cu")))
+    if not sources:
+        raise RuntimeError(f"no kernel sources in {_SOURCE_DIR}")
+    if (not force and os.path.exists(out) and os.path.getmtime(out)
+            >= max(os.path.getmtime(s) for s in sources)):
+        return out
+    nvcc, tag = _nvcc(), f"{os.getpid()}{suffix}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in sources]
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    try:
+        for s, p in zip(sources, procs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n"
+                                   f"{build_log}")
+        tmp = f"{out}.{tag}.tmp"
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return out
+
+
+_VP, _CI, _CF, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_longlong)
+# The C interface of every source: name -> (argument types, result type).
+_ENTRIES = {
+    # closest_hit.cu
+    "closest_hit_launch": ([_VP] * 7 + [_CI] * 5 + [_CF] + [_VP] * 3, _CI),
+    "closest_hit_tri_chunk": ([], _CI),
+    "closest_hit_max_ray_tile": ([], _CI),
+    # candidates.cu
+    "candidates_launch": ([_VP] * 5 + [_CI] * 4 + [_CF] + [_VP] * 3, _CI),
+    "candidates_max_ray_tile": ([], _CI),
+    "candidates_max_chunks": ([], _CI),
+    "candidates_block": ([], _CI),
+    # pack.cu
+    "pack_launch": ([_VP, _CI, _VP, _CI, _VP, _CI, _VP, _VP, _CI, _VP]
+                    + [_CI] * 6 + [_VP] * 9, _CI),
+    "pack_tri_chunk": ([], _CI),
+    "pack_n_coef": ([], _CI),
+    # scatter.cu
+    "scatter_launch": ([_VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP, _VP], _CI),
+    "scatter_scratch_ints": ([_LL], _LL),
+    "scatter_max_cols": ([], _CI),
+    # errors.cu
+    "drt_error_string": ([_CI], ctypes.c_char_p),
+}
+
+# The argument lists the wrappers pass, as each source's *_signature()
+# names them.
+_SIGNATURES = {
+    "closest_hit_signature": "phi inv coef lo hi cand count n_tiles ray_tile "
+                             "block_rays n_groups group t_min t_out id_out "
+                             "stream",
+    "candidates_signature": "org inv lo hi valid n_tiles ray_tile nc "
+                            "tile_mode t_min cand count stream",
+    "pack_signature": "vertices vert_f64 faces faces_i64 face_valid n_faces "
+                      "shift origins org_f64 dirs dir_f64 n_rays n_groups "
+                      "group n_tiles ray_tile coef lo hi box_lo box_hi "
+                      "box_valid phi inv stream",
+    "scatter_signature": "rows rows_f64 idx n_rows n_cols n_out out scratch "
+                         "stream",
+}
+
+
+def bind(path: str):
+    """The library at `path` (from `build`) with every entry point typed and
+    every signature checked."""
+    lib = ctypes.CDLL(path)
+    for name, (args, res) in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
+    for name, want in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [], ctypes.c_char_p
+        if fn().decode() != want:
+            raise RuntimeError(f"csrc: {name}() is {fn().decode()!r}, "
+                               f"the wrapper passes {want!r}")
+    return lib
+
+
+def load():
+    """The bound library, built at first use."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = bind(build())
+    return _lib
+
+
+def check(lib, err: int, what: str):
+    """Raise if a `*_launch` returned a CUDA error."""
+    if err != 0:
+        msg = lib.drt_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")

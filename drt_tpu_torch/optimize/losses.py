@@ -19,6 +19,7 @@ from typing import Callable, NamedTuple, Sequence
 import torch
 
 from drt_tpu_torch.geometry.metrics import dihedral_cos
+from drt_tpu_torch.geometry.scatter import scatter_rows
 from drt_tpu_torch.geometry.vec import clip, safe_normalize
 from drt_tpu_torch.render.chunked import auto_ray_chunk, chunked_sum
 from drt_tpu_torch.render.silhouette import primary_visibility
@@ -63,11 +64,11 @@ def ray_loss(mesh, view, intersect_fn: Callable, ior: float,
         w = valid & res.valid
         stats = dict(res.stats)
         if collect_evidence:
-            ev = torch.zeros(mesh.vertices.shape[0], device=w.device)
-            wf = w.float()[:, None].expand(-1, 3).reshape(-1)
-            for tri in res.tris:
-                ev.index_add_(0, mesh.faces[tri].reshape(-1), wf)
-            stats["vertex_evidence"] = ev
+            # both bounces' rows in one scatter, in the order JAX adds them
+            wf = w.float()[:, None].expand(-1, 3).reshape(-1, 1)
+            idx = torch.cat([mesh.faces[tri].reshape(-1) for tri in res.tris])
+            stats["vertex_evidence"] = scatter_rows(
+                wf.repeat(len(res.tris), 1), idx, mesh.vertices.shape[0])[:, 0]
         s = torch.where(w[:, None], diff * diff,
                         torch.zeros_like(diff)).sum(1)
         if huber:

@@ -14,6 +14,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from drt_tpu_torch.geometry.scatter import gather_rows
 from drt_tpu_torch.geometry.vec import cross
 from drt_tpu_torch.render.camera import CameraM, project_vertices
 
@@ -107,7 +108,8 @@ def primary_visibility(mesh, camera: CameraM, cam_origin,
         budget - edge_idx.shape[0])])
     sel_valid = torch.arange(budget, device=silh.device) < silh_count
 
-    V = mesh.vertices[mesh.edges[edge_idx].reshape(-1)]      # [2K,3]
+    V = gather_rows(mesh.vertices,
+                    mesh.edges[edge_idx].reshape(-1))        # [2K,3]
     E_pos = project_vertices(camera, V, detach_depth=detach_depth)
     E_pos = E_pos.reshape(budget, 2, 2)
 

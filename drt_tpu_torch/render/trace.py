@@ -15,6 +15,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from drt_tpu_torch.geometry.mt import moller_trumbore_verts
+from drt_tpu_torch.geometry.scatter import scatter_rows
 from drt_tpu_torch.geometry.vec import clip, dot3, fresnel_dielectric, refract
 
 
@@ -77,23 +78,43 @@ def refract_ray(origin, direction, t, n, int_ior, ext_ior,
     return torch.logical_not(tir), new_origin, wt
 
 
+# Backward-scatter route threshold of the JAX package
+# (drt_tpu/render/trace.py:149-155): at or below it the [N,9] cotangent is
+# summed into [F,9] per face first, then [3F,3] into [V,3]; above it one
+# direct [3N,3] -> [V,3] scatter. It fixes which sums are taken, so it is
+# kept for parity in the order of the sums.
+_SOUP_BWD_MAX_FACES = 2 ** 16
+
+
 class _GatherTri9(torch.autograd.Function):
     """[N,9] per-ray triangle rows (the 9 coordinates of each ray's matched
-    triangle). Backward is one index_add of the [3N,3] cotangent rows into
-    [V,3]."""
+    triangle), with the JAX package's `_gather_tri9` routes. Forward: the
+    [F,9] triangle soup, then its rows, when N >= F; the [3N,3] vertex rows
+    otherwise (the same bits either way; the soup is the faster on the card
+    at N >= F, `scripts/tune_torch_oracle.py --what scatter`). Backward:
+    `scatter_rows` of the [N,9] cotangent into [F,9] by safe_id, then
+    [3F,3] into [V,3] by faces, at or below _SOUP_BWD_MAX_FACES faces; the
+    direct [3N,3] -> [V,3] above."""
 
     @staticmethod
     def forward(ctx, vertices, faces, safe_id):
-        idx3 = faces[safe_id].reshape(-1)
-        ctx.save_for_backward(idx3)
+        ctx.save_for_backward(faces, safe_id)
         ctx.num_vertices = vertices.shape[0]
-        return vertices[idx3].reshape(-1, 9)
+        if safe_id.shape[0] >= faces.shape[0]:
+            tri9 = vertices[faces.reshape(-1)].reshape(-1, 9)
+            return tri9[safe_id]
+        return vertices[faces[safe_id].reshape(-1)].reshape(-1, 9)
 
     @staticmethod
     def backward(ctx, g9):
-        (idx3,) = ctx.saved_tensors
-        dv = g9.new_zeros((ctx.num_vertices, 3)).index_add_(
-            0, idx3, g9.reshape(-1, 3))
+        faces, safe_id = ctx.saved_tensors
+        V = ctx.num_vertices
+        if faces.shape[0] <= _SOUP_BWD_MAX_FACES:
+            df9 = scatter_rows(g9, safe_id, faces.shape[0])
+            dv = scatter_rows(df9.reshape(-1, 3), faces.reshape(-1), V)
+        else:
+            dv = scatter_rows(g9.reshape(-1, 3), faces[safe_id].reshape(-1),
+                              V)
         return dv, None, None
 
 

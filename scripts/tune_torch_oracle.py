@@ -2,7 +2,8 @@
 """Measurements behind the constants of the port's oracle, on one CUDA GPU.
 
     python3 scripts/tune_torch_oracle.py [--what tiles blocks gate prepass
-                                          resort group pack defaults]
+                                          resort group pack scatter
+                                          defaults]
 
 Six queries, the ones chip_smoke.py checks: the camera rays and the
 bounce-2 rays of one 1280x960 view of dog_mid90k, and the four queries of
@@ -62,6 +63,23 @@ pack    the packing kernel (csrc/pack.cu) against its plain version (the
         warm-up, in turns), with its device operations in and out of the
         oracle (torch.profiler). Writes reports/torch_pack_ab.json (or
         --pack-out PATH). Claims nothing: both sides give the same hits.
+scatter the row scatter-add kernel (csrc/scatter.cu) against the parent's
+        path, swapped in by the script: the step's vertex gathers as
+        advanced indexing (IndexBackward0, `index_put_` with accumulate),
+        `_GatherTri9`'s backward as one direct `index_add_`, the normals'
+        `index_add`. The reference-parity step of `pack` on dog_mid45k in
+        turns (parent, kernel, kernel, parent; 5 steps a turn after a
+        warm-up, host clock, synchronized), each side's device operations,
+        device busy time and peak memory, and whether two steps from one
+        state give the same bits (default algorithms, no
+        `torch.use_deterministic_algorithms`); then `_GatherTri9`'s two
+        backward routes through the kernel (soup: [N,9] -> [F,9] -> [V,3]; direct:
+        [3N,3] -> [V,3]) and the parent's direct `index_add_`, on both
+        bounces' recorded cotangents of a 1280x960 view of dog_mid{20k,45k,
+        90k} (Fp 32,768 / 65,536 / 131,072), each under a capture of
+        another mesh, in turns (soup, direct, direct, soup; CUDA events).
+        Writes reports/torch_scatter_ab.json (or --scatter-out PATH).
+        Claims nothing.
 defaults  with --parent DIR (an unpacked tree of another commit): the six
         queries and the incoherent ones of `group` through both trees'
         `intersect_cuda` at the defaults, hits equal bit for bit wherever
@@ -214,9 +232,10 @@ def prepass_blocks(queries, card, out):
     query; writes the times to `out`."""
     import torch
     import chip_smoke as S
+    from drt_tpu_torch import kernels as KN
     from drt_tpu_torch.intersect import cuda_kernel as CK
     default = CK._load()
-    libs = {b: CK.bind(CK.build(defines=(f"PREPASS_BLOCK={b}",)))
+    libs = {b: KN.bind(KN.build(defines=(f"PREPASS_BLOCK={b}",)))
             for b in (128, 256)}
     for b, lib in libs.items():
         if lib.candidates_block() != b:
@@ -232,7 +251,7 @@ def prepass_blocks(queries, card, out):
         ms = {128: [], 256: []}
         try:
             for block in (128, 256, 256, 128):
-                CK._lib = libs[block]
+                KN._lib = libs[block]
                 got = CK.candidates_cuda(*args, tile=coh)
                 if not (torch.equal(got[0], want[0])
                         and torch.equal(got[1], want[1])):
@@ -242,7 +261,7 @@ def prepass_blocks(queries, card, out):
                 ms[block].append(S.cuda_ms(lambda: CK.candidates_cuda(
                     *args, tile=coh), 20))
         finally:
-            CK._lib = default
+            KN._lib = default
         bound, bound_by = S.prepass_bound(args[0].shape[1], T, NC,
                                           int(cv.sum()), coh, want[1])
         for b in ms:
@@ -736,6 +755,240 @@ def pack_ab(dev, card, out):
     print(f"wrote {out}")
 
 
+def scatter_ab(dev, card, out):
+    """The scatter kernel against the parent's path: the step in turns, and
+    `_GatherTri9`'s two forward and two backward routes on three meshes;
+    writes `out`."""
+    import torch
+    import chip_smoke as S
+    import drt_tpu_torch.render.trace as TR
+    from drt_tpu_torch.config import POINTGRAY_RES as RES, HyperParams
+    from drt_tpu_torch.data.synthetic import synthesize_capture
+    from drt_tpu_torch.geometry.scatter import scatter_rows
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.mesh import build_mesh_state, load_ply
+    from drt_tpu_torch.optimize import (LossWeights,
+                                        default_silhouette_budget,
+                                        make_train_step)
+    from drt_tpu_torch.optimize.losses import ray_loss
+    import drt_tpu_torch.geometry.metrics as M
+    import drt_tpu_torch.geometry.normals as N
+    import drt_tpu_torch.geometry.scatter as SC
+    import drt_tpu_torch.optimize.losses as L
+    import drt_tpu_torch.render.silhouette as SIL
+
+    class ParentGatherTri9(torch.autograd.Function):
+        """The parent's `_GatherTri9`: one direct `index_add_` of the [3N,3]
+        cotangent rows (float atomics on the card)."""
+
+        @staticmethod
+        def forward(ctx, vertices, faces, safe_id):
+            idx3 = faces[safe_id].reshape(-1)
+            ctx.save_for_backward(idx3)
+            ctx.num_vertices = vertices.shape[0]
+            return vertices[idx3].reshape(-1, 9)
+
+        @staticmethod
+        def backward(ctx, g9):
+            (idx3,) = ctx.saved_tensors
+            return g9.new_zeros((ctx.num_vertices, 3)).index_add_(
+                0, idx3, g9.reshape(-1, 3)), None, None
+
+    def parent_scatter(rows, idx, num):
+        return rows.new_zeros((num, rows.shape[1])).index_add(0, idx, rows)
+
+    kernel_tri9 = TR._GatherTri9
+
+    def use(side):
+        """Point the step's gathers and scatters at the kernel (the modules
+        as they are) or at the parent's torch path: advanced indexing and
+        `index_add`."""
+        kernel = side == "kernel"
+        gather = SC.gather_rows if kernel else (lambda x, idx: x[idx])
+        scatter = SC.scatter_rows if kernel else parent_scatter
+        M.gather_rows = SIL.gather_rows = N.gather_rows = gather
+        N.scatter_rows = L.scatter_rows = scatter
+        TR._GatherTri9 = kernel_tri9 if kernel else ParentGatherTri9
+
+    hp = HyperParams()
+    caps = {}
+
+    def capture(src, views):
+        if (src, views) not in caps:
+            v, f = load_ply(os.path.join(S.MESH_DIR, f"{src}.ply"))
+            caps[(src, views)] = synthesize_capture(
+                v, f, name="dog", num_views=views, resy=RES[0], resx=RES[1],
+                ior=hp.ior, ext_ior=hp.ext_ior, num_view_used=views,
+                device=dev)
+        return caps[(src, views)]
+
+    try:
+        # the reference-parity step of chip_smoke.py phase 5
+        cap = capture("dog_mid90k", 8)
+        ms45 = build_mesh_state(*load_ply(os.path.join(
+            S.MESH_DIR, "dog_mid45k.ply")), device=dev)
+        weights = LossWeights(ray_w=hp.ray_w, vh_w=hp.vh_w, sm_w=hp.sm_w,
+                              ior=hp.ior, ext_ior=hp.ext_ior)
+        budget = default_silhouette_budget(ms45.num_edges)
+
+        def make_step(fn):
+            init, step, _ = make_train_step(fn, weights, *RES, budget,
+                                            momentum=hp.momentum,
+                                            grad_clamp=hp.grad_clamp)
+            return init, step
+        init, step = make_step(get_intersect_fn("auto"))
+        state = init(ms45)
+        step_row = {"mesh": "dog_mid45k", "capture": "dog_mid90k, 8 views",
+                    "rays": RES[0] * RES[1], "silhouette_views": 8,
+                    "budget": budget,
+                    "faces_padded": int(ms45.faces.shape[0])}
+        for side in ("parent", "kernel"):
+            use(side)
+            n_ops, inside, busy = step_profile(make_step, ms45, cap.views,
+                                               hp.start_lr)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            CK.counters.reset()
+            new, _, _ = step(state, hp.start_lr, ms45, cap.views, 0,
+                             list(range(8)))
+            torch.cuda.synchronize()
+            step_row[side] = {
+                "device_ops": n_ops, "oracle_ops": inside,
+                "device_busy_ms": busy,
+                "scatter_launches": CK.counters.scatter_launches,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "step_ms": []}
+            twice, _, _ = step(state, hp.start_lr, ms45, cap.views, 0,
+                               list(range(8)))
+            step_row[side]["two_steps_same_bits"] = bool(
+                torch.equal(new["m"], twice["m"])
+                and torch.equal(new["params"], twice["params"]))
+            step_row[side]["m"] = new["m"]
+        dm = step_row["kernel"].pop("m") - step_row["parent"].pop("m")
+        step_row["update_max_abs_diff"] = float(dm.abs().max())
+        for side in ("parent", "kernel", "kernel", "parent"):
+            use(side)
+            step_row[side]["step_ms"].append(step_turns(
+                step, state, hp.start_lr, ms45, cap.views))
+        for side in ("parent", "kernel"):
+            r = step_row[side]
+            r["median_ms"] = [statistics.median(x) for x in r["step_ms"]]
+            print(f"step ({side}): {r['device_ops']} device operations, "
+                  f"busy {r['device_busy_ms']:.3f} ms, "
+                  f"{r['scatter_launches']} scatter launches, two steps "
+                  f"from one state give the same bits "
+                  f"{r['two_steps_same_bits']}, peak "
+                  f"{r['peak_gib']:.2f} GiB; medians in turns "
+                  f"{_fmt(r['median_ms'])} ms; all "
+                  f"{[_fmt(x) for x in r['step_ms']]}", flush=True)
+        print(f"step: the momentum after one step differs by "
+              f"{step_row['update_max_abs_diff']:g} at most between the "
+              "two paths", flush=True)
+        use("kernel")
+        del state
+
+        # _GatherTri9's routes on both bounces' inputs and cotangents
+        routes = []
+        base = kernel_tri9
+        for mesh in ("dog_mid20k", "dog_mid45k", "dog_mid90k"):
+            rec, fwd = [], []
+
+            class Recording(base):
+                @staticmethod
+                def forward(ctx, vertices, faces, safe_id):
+                    fwd.append(vertices.detach().clone())
+                    return base.forward(ctx, vertices, faces, safe_id)
+
+                @staticmethod
+                def backward(ctx, g9):
+                    faces, safe_id = ctx.saved_tensors
+                    rec.append((g9.detach().clone(), faces, safe_id,
+                                ctx.num_vertices))
+                    return base.backward(ctx, g9)
+            ms = build_mesh_state(*load_ply(os.path.join(
+                S.MESH_DIR, f"{mesh}.ply")), device=dev)
+            view = capture(CAPTURE_OF[mesh], 1).views.take(0)
+            TR._GatherTri9 = Recording
+            try:
+                v = ms.vertices.clone().requires_grad_(True)
+                loss, _ = ray_loss(ms.with_vertices(v), view,
+                                   get_intersect_fn("auto"), hp.ior,
+                                   hp.ext_ior)
+                loss.backward()
+            finally:
+                TR._GatherTri9 = base
+            for b, ((g9, faces, safe_id, V), verts) in enumerate(
+                    zip(rec, reversed(fwd))):       # backward runs last first
+                F = faces.shape[0]
+
+                def fwd_soup():
+                    return verts[faces.reshape(-1)].reshape(-1, 9)[safe_id]
+
+                def fwd_direct():
+                    return verts[faces[safe_id].reshape(-1)].reshape(-1, 9)
+
+                def soup():
+                    return scatter_rows(scatter_rows(g9, safe_id, F)
+                                        .reshape(-1, 3), faces.reshape(-1), V)
+
+                def direct():
+                    return scatter_rows(g9.reshape(-1, 3),
+                                        faces[safe_id].reshape(-1), V)
+
+                def parent():
+                    return g9.new_zeros((V, 3)).index_add_(
+                        0, faces[safe_id].reshape(-1), g9.reshape(-1, 3))
+                d_s, d_d = soup(), direct()
+                row = {"mesh": mesh, "capture": CAPTURE_OF[mesh],
+                       "backward": b, "rays": int(g9.shape[0]),
+                       "faces_padded": int(F), "vertices_padded": int(V),
+                       "live_rows": int((g9 != 0).any(dim=1).sum()),
+                       "route_taken": "soup" if F <= TR._SOUP_BWD_MAX_FACES
+                       else "direct",
+                       "soup_direct_same_bits": bool(torch.equal(d_s, d_d)),
+                       "soup_direct_max_abs_diff":
+                           float((d_s - d_d).abs().max()),
+                       "soup_ms": [], "direct_ms": [],
+                       "parent_index_add_ms": S.cuda_ms(parent, 20),
+                       "forward_route_taken": "soup" if g9.shape[0] >= F
+                       else "direct",
+                       "forward_same_bits": bool(torch.equal(
+                           fwd_soup(), fwd_direct())),
+                       "forward_soup_ms": [], "forward_direct_ms": []}
+                for side in ("soup", "direct", "direct", "soup"):
+                    row[f"{side}_ms"].append(S.cuda_ms(
+                        soup if side == "soup" else direct, 20))
+                    row[f"forward_{side}_ms"].append(S.cuda_ms(
+                        fwd_soup if side == "soup" else fwd_direct, 20))
+                routes.append(row)
+                print(f"{mesh} backward {b} (Fp {F}, {row['live_rows']} of "
+                      f"{row['rays']} cotangent rows not zero, takes "
+                      f"{row['route_taken']}): soup "
+                      f"{_fmt(row['soup_ms'])} ms, direct "
+                      f"{_fmt(row['direct_ms'])} ms in turns, the parent's "
+                      f"index_add_ {row['parent_index_add_ms']:.4f} ms; "
+                      f"the routes' gradients same bits "
+                      f"{row['soup_direct_same_bits']}, max |diff| "
+                      f"{row['soup_direct_max_abs_diff']:g}; forward "
+                      f"(takes {row['forward_route_taken']}) soup "
+                      f"{_fmt(row['forward_soup_ms'])} ms, direct "
+                      f"{_fmt(row['forward_direct_ms'])} ms in turns, same "
+                      f"bits {row['forward_same_bits']}", flush=True)
+            del ms, rec, fwd
+    finally:
+        use("kernel")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as fh:
+        json.dump({"device": card, "script":
+                   "scripts/tune_torch_oracle.py --what scatter",
+                   "turns": "parent, kernel, kernel, parent (step); soup, "
+                            "direct, direct, soup (routes)",
+                   "step": step_row, "routes": routes}, fh, indent=1)
+        fh.write("\n")
+    print(f"wrote {out}")
+
+
 def _fmt(xs):
     return "/".join(f"{x:.4f}" for x in xs)
 
@@ -744,7 +997,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--what", nargs="+", default=["tiles", "blocks", "gate"],
                     choices=["tiles", "blocks", "gate", "prepass", "resort",
-                             "group", "pack", "defaults"])
+                             "group", "pack", "scatter", "defaults"])
     ap.add_argument("--parent", default=None,
                     help="--what defaults: the unpacked tree to compare with")
     ap.add_argument("--prepass-out",
@@ -759,6 +1012,10 @@ def main():
                     default=os.path.join(HERE, "reports",
                                          "torch_pack_ab.json"),
                     help="where --what pack writes its times")
+    ap.add_argument("--scatter-out",
+                    default=os.path.join(HERE, "reports",
+                                         "torch_scatter_ab.json"),
+                    help="where --what scatter writes its times")
     ap.add_argument("--table", default=None,
                     help="where --what resort writes its table (default: "
                          "reports/torch_resort_ab.json)")
@@ -776,7 +1033,10 @@ def main():
         resort_ab(torch.device("cuda", 0), smi.stdout.strip(), args.table)
     if "pack" in args.what:
         pack_ab(torch.device("cuda", 0), smi.stdout.strip(), args.pack_out)
-    if not set(args.what) - {"group", "resort", "pack"}:
+    if "scatter" in args.what:
+        scatter_ab(torch.device("cuda", 0), smi.stdout.strip(),
+                   args.scatter_out)
+    if not set(args.what) - {"group", "resort", "pack", "scatter"}:
         return
     queries = recorded_queries(torch.device("cuda", 0))
     if "defaults" in args.what:

@@ -600,3 +600,124 @@ def test_cli_render_on_the_card(dev, tmp_path, capsys):
     assert sorted(os.listdir(tmp_path / "img")) == [
         "ball_exitdir.png", "ball_mask.png", "ball_valid.png"]
     assert "wrote ball_mask/valid/exitdir.png" in capsys.readouterr().out
+
+
+def _scatter_inputs(n_rows, n_cols, num, dtype, seed, heavy):
+    """rows [R,C], idx [R] int64 on the CPU from a numpy seed. heavy: half
+    of the rows on destination 0, 90% of the rows all +0 or all -0 (the
+    dead lanes of a view), some entries -0, the last destination empty."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, max(num - 1, 1), n_rows)
+    rows = rng.standard_normal((n_rows, n_cols))
+    if heavy:
+        idx[rng.random(n_rows) < 0.5] = 0
+        zero = rng.random(n_rows) < 0.9
+        rows[zero] = np.where(rng.random((int(zero.sum()), 1)) < 0.5, 0.0,
+                              -0.0)
+        rows[rng.random((n_rows, n_cols)) < 0.05] = -0.0
+    return (torch.from_numpy(rows).to(dtype), torch.from_numpy(idx))
+
+
+def _same_bits(a, b):
+    view = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("heavy", [False, True])
+@pytest.mark.parametrize("shape", [(5000, 3, 700), (300000, 9, 65536),
+                                   (200000, 3, 70000), (4096, 1, 300),
+                                   (0, 3, 10), (7, 9, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scatter_kernel_matches_cpu_plain(dev, dtype, shape, heavy):
+    """The scatter kernel against scatter_rows_plain run on the CPU, bit for
+    bit (int views): 1, 2 and 3 radix passes (700, 65,536 and 70,000
+    destinations), many tiles, random and duplicate-heavy indices, C = 1, 3,
+    9, no rows; one launch counted; a second run gives the same bits."""
+    from drt_tpu_torch.geometry.scatter import (scatter_rows,
+                                                scatter_rows_plain)
+    n_rows, n_cols, num = shape
+    rows, idx = _scatter_inputs(n_rows, n_cols, num, dtype, 4, heavy)
+    want = scatter_rows_plain(rows, idx, num)
+    before = CK.counters.scatter_launches
+    got = scatter_rows(rows.to(dev), idx.to(dev), num)
+    again = scatter_rows(rows.to(dev), idx.to(dev), num)
+    torch.cuda.synchronize()
+    assert CK.counters.scatter_launches == before + 2
+    assert _same_bits(got.cpu(), want)
+    assert _same_bits(again, got)
+
+
+def test_scatter_kernel_raises_on_bad_input(dev):
+    from drt_tpu_torch.geometry.scatter import scatter_rows_cuda
+    rows = torch.ones(8, 3, device=dev)
+    idx = torch.zeros(8, dtype=torch.int64, device=dev)
+    for bad_rows, bad_idx in ((rows.half(), idx), (rows, idx.int()),
+                              (rows[:, 0], idx), (rows, idx[:5]),
+                              (rows.t(), idx), (torch.ones(8, 17, device=dev),
+                                                idx), (rows, idx.cpu())):
+        with pytest.raises(ValueError):
+            scatter_rows_cuda(bad_rows, bad_idx, 4)
+
+
+@pytest.mark.parametrize("bad", [4, 1000, -1, -4])
+def test_scatter_kernel_raises_on_index_out_of_range(dev, bad):
+    """An index outside [0, num), negative or too large, raises on the card
+    as in the CPU plain version (`index_add_`), whether its row is live or
+    all zeros; the launch is counted, and a good call after it runs."""
+    from drt_tpu_torch.geometry.scatter import (gather_rows, scatter_rows,
+                                                scatter_rows_plain)
+    rows, idx = _scatter_inputs(5000, 3, 4, torch.float32, 5, True)
+    idx[[17, 4000]] = bad
+    with pytest.raises(RuntimeError, match="out of bounds"):
+        scatter_rows_plain(rows, idx, 4)
+    before = CK.counters.scatter_launches
+    for r in (rows, torch.zeros_like(rows)):
+        with pytest.raises(RuntimeError, match="out of bounds"):
+            scatter_rows(r.to(dev), idx.to(dev), 4)
+    assert CK.counters.scatter_launches == before + 2
+    # gather_rows wraps a negative index forward, as x[idx] does, and its
+    # backward raises on it on both devices
+    x = torch.ones(4, 3, dtype=torch.float64, requires_grad=True)
+    for d in ("cpu", dev):
+        if bad < 0:
+            y = gather_rows(x.to(d), idx.to(d))
+            with pytest.raises(RuntimeError, match="out of bounds"):
+                y.sum().backward()
+    good = idx.clamp(0, 3)
+    assert _same_bits(scatter_rows(rows.to(dev), good.to(dev), 4).cpu(),
+                      scatter_rows_plain(rows, good, 4))
+
+
+def test_step_scatters_match_cpu_plain(dev, sphere_capture):
+    """Every scatter of one sgd + none step on the card (the normals, the
+    silhouette and dihedral gathers' backward, both bounces' `_gather_tri9`
+    backward on its soup route), recorded and held against scatter_rows_plain
+    on the CPU bit for bit; the launches counted are the recorded calls; the
+    step makes no other vertex scatter than these."""
+    from drt_tpu_torch.geometry import scatter as S
+    from drt_tpu_torch.intersect import get_intersect_fn
+    from drt_tpu_torch.optimize import LossWeights, make_train_step
+    _, _, cap = sphere_capture
+    v0, f0 = make_icosphere(subdivisions=3, radius=47.0)
+    ms = build_mesh_state(v0, f0, device=dev)
+    w = LossWeights(ray_w=40.0, vh_w=2e-3, sm_w=0.08, ior=1.5)
+    init, step, _ = make_train_step(get_intersect_fn("auto"), w, 96, 128,
+                                    1024)
+    calls, real = [], S.scatter_rows_cuda
+
+    def spy(rows, idx, num):
+        out = real(rows, idx, num)
+        calls.append((rows.clone(), idx.clone(), num, out.clone()))
+        return out
+    S.scatter_rows_cuda = spy
+    try:
+        CK.counters.reset()
+        step(init(ms), 0.1, ms, cap.views, 1, [0, 1, 2, 3])
+        torch.cuda.synchronize()
+    finally:
+        S.scatter_rows_cuda = real
+    # normals 1, silhouette 4, dihedral 1, two bounces x 2 (soup route)
+    assert len(calls) == CK.counters.scatter_launches == 1 + 4 + 1 + 2 * 2
+    for rows, idx, num, out in calls:
+        assert _same_bits(out.cpu(), S.scatter_rows_plain(rows.cpu(),
+                                                          idx.cpu(), num))
