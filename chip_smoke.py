@@ -6,10 +6,12 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 1. build   the four kernels (closest hit; candidate prepass with its sort;
            the packing stages; the row scatter-add of the step's vertex
-           gathers) from drt_tpu_torch/csrc with nvcc, one compile per
+           gathers, its cluster route's one kernel and its grid route's
+           three) from drt_tpu_torch/csrc with nvcc, one compile per
            source in parallel; prints each entry function's registers,
            shared memory and spills and fails on a spill to local memory
-           or a kernel missing from the library;
+           or a kernel missing from the library; prints the scatter
+           cluster route's cluster size (cudaOccupancyMaxActiveClusters);
 2. kernel  the closest-hit kernel vs its plain PyTorch version on
            dog_mid90k (82,566 faces) at 1280x960: camera rays (coherent)
            and the bounce-2 rays of the same view (incoherent), plus a
@@ -64,14 +66,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
            launches against the reckoned count (`scatters_per_step`: the
            normals, each silhouette view's and the dihedral term's gather
            backward, `_gather_tri9`'s backward in both bounces, 2 each on
-           its soup route); one more step's scatters recorded (rows,
-           indices, size) and each held against `scatter_rows_plain` run
-           on the CPU bit for bit (int views), run twice on the card for
-           the same bits, and timed (CUDA events) beside its bound, the
-           plain version on the card and the library calls the parent
-           path ran (`index_add_`, `index_put_(accumulate=True)`); in the
-           profiled step, each scatter call's device span, the step's
-           device time by kernel, and a failure if
+           its soup route), and both of its routes launched by the steps
+           (the cluster route for the silhouette views, the grid route for
+           the rest); one more step's scatters recorded (rows, indices,
+           size, route) and each held against `scatter_rows_plain` run on
+           the CPU bit for bit (int views), run again on its route and,
+           where it took the cluster route, on the grid route too, for the
+           same bits; then, on the same inputs under torch.profiler, the
+           device time, span and operations of each route and of
+           `index_add_`, each route's call with its wrapper (CUDA events),
+           its bound, the plain version on the card and
+           `index_put_(accumulate=True)`; in the profiled step, each
+           scatter call's device time and device operations (failing
+           above 2 on the cluster route or 6 on the grid route), the
+           step's device time by kernel, and a failure if
            `indexing_backward_kernel` or an `index_add_` kernel ran;
 6. steps   from dog_mid45k, 2 steps each of adam + none, uadam + h1 and
            sgd + sobolev: finite loss and vertices, and the launch counts
@@ -199,11 +207,11 @@ FP32_PEAK = 67e12                 # H100 SXM FP32 non-tensor FLOP/s
 HBM_RATE = 3.35e12                # H100 SXM HBM3 bytes/s
 TIE_PER_1024 = 2
 # The entry functions of the four sources: closest_hit.cu, candidates.cu,
-# pack.cu and scatter.cu (its radix-sort passes and its reduction).
+# pack.cu and scatter.cu (its cluster route's one kernel; its grid route's
+# upfront, pass and reduce kernels).
 BUILT_KERNELS = ("closest_hit_kernel", "candidates_kernel", "pack_kernel",
-                 "live_hist_kernel", "hist_kernel", "scan_reduce_kernel",
-                 "scan_parts_kernel", "scan_apply_kernel", "sort_kernel",
-                 "reduce_kernel")
+                 "scatter_cluster_kernel", "scatter_upfront_kernel",
+                 "scatter_pass_kernel", "scatter_reduce_kernel")
 BRUTE_SAMPLE = 65536
 
 
@@ -232,6 +240,57 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_spans(calls, reps=5):
+    """Each of `calls` (name -> fn) run `reps` times in turns under
+    torch.profiler, each run in a range of its own. Per name, the medians
+    over its runs of: `ms`, the device time (the sum of the durations of
+    the device operations inside the run's range: kernels, memsets,
+    copies); `span_ms`, the range's device span, first start to last end;
+    `ops`, its device operations (the largest count of any run); `by_op`,
+    each operation's name (to its first parenthesis or template bracket)
+    and its median time over the runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    labels = {f"{name} run {r}": (name, r) for name in calls
+              for r in range(reps)}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for r in range(reps):
+            for name, fn in calls.items():
+                with record_function(f"{name} run {r}"):
+                    fn()
+        torch.cuda.synchronize()
+    dev_t = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == dev_t]
+    ranges = {e.name: (e.time_range.start, e.time_range.end)
+              for e in events if e.name in labels}
+    ops = [e for e in events if e.name not in labels]
+    runs = {name: [] for name in calls}
+    by_op = {name: {} for name in calls}
+    for label, (name, _) in labels.items():
+        if label not in ranges:
+            fail(f"profile: no device span for {label!r}")
+        a, b = ranges[label]
+        inside = [k for k in ops
+                  if a <= k.time_range.start and k.time_range.end <= b]
+        for k in inside:
+            key = k.name.split("(")[0].split("<")[0][:40]
+            by_op[name].setdefault(key, []).append(
+                (k.time_range.end - k.time_range.start) / 1e3)
+        runs[name].append((
+            sum(k.time_range.end - k.time_range.start for k in inside) / 1e3,
+            (b - a) / 1e3, len(inside)))
+    return {name: dict(ms=statistics.median(x[0] for x in rs),
+                       span_ms=statistics.median(x[1] for x in rs),
+                       ops=max(x[2] for x in rs),
+                       by_op={k: statistics.median(v)
+                              for k, v in by_op[name].items()})
+            for name, rs in runs.items()}
 
 
 def t_conditioning(o, d, geom, ids):
@@ -794,17 +853,19 @@ def scatters_per_step(weights, faces_padded, n_silh=8):
 @contextlib.contextmanager
 def scatter_spy(calls, label=None, keep=True):
     """For the duration, each call of the scatter kernel's wrapper appends
-    to `calls` its (rows, idx, num, out), cloned (keep), or its (R, C,
-    num); with `label`, each runs in a torch.profiler range of that name."""
+    to `calls` its (rows, idx, num, out, route), cloned (keep), or its (R,
+    C, num, route), `route` the one the call took; with `label`, each runs
+    in a torch.profiler range of that name."""
     from torch.profiler import record_function
     from drt_tpu_torch.geometry import scatter as SC
     real = SC.scatter_rows_cuda
 
-    def spy(rows, idx, num):
+    def spy(rows, idx, num, route=None):
+        taken = route or SC.scatter_route(rows.shape[0], rows.shape[1], num)
         with record_function(label) if label else contextlib.nullcontext():
-            out = real(rows, idx, num)
-        calls.append((rows.clone(), idx.clone(), num, out.clone()) if keep
-                     else (rows.shape[0], rows.shape[1], num))
+            out = real(rows, idx, num, route=route)
+        calls.append((rows.clone(), idx.clone(), num, out.clone(), taken)
+                     if keep else (rows.shape[0], rows.shape[1], num, taken))
         return out
     SC.scatter_rows_cuda = spy
     try:
@@ -813,24 +874,56 @@ def scatter_spy(calls, label=None, keep=True):
         SC.scatter_rows_cuda = real
 
 
-def check_scatters(calls):
-    """Each recorded scatter (rows, idx, num, out) against
+def scatter_kinds(shapes, mesh, budget, n_rays):
+    """The kind of each of a step's scatter calls, from its (rows, cols,
+    destinations) and the mesh's padded sizes: "normals" (the first [3F,3]
+    call, in the forward), "silhouette" ([2 budget,3]), "dihedral"
+    ([6E,3]), "soup" (a bounce's [N,9] into [F,9]), "second stage" (the
+    soup's [3F,3] into [V,3], in the backward), "direct" (a bounce's
+    [3N,3] into [V,3] above 2^16 faces)."""
+    F, E = mesh.faces.shape[0], mesh.edges.shape[0]
+    kinds, seen_3f = [], False
+    for R, C, _ in shapes:
+        if C == 9:
+            kinds.append("soup")
+        elif R == 2 * budget:
+            kinds.append("silhouette")
+        elif R == 6 * E:
+            kinds.append("dihedral")
+        elif R == 3 * F:
+            kinds.append("second stage" if seen_3f else "normals")
+            seen_3f = True
+        elif R == 3 * n_rays:
+            kinds.append("direct")
+        else:
+            kinds.append("other")
+    return kinds
+
+
+def check_scatters(calls, kinds):
+    """Each recorded scatter (rows, idx, num, out, route) against
     scatter_rows_plain run on the CPU bit for bit (int views), and the
-    kernel run again on the same inputs for the same bits; then its time
-    (CUDA events, the wrapper's host time included), its bound (bytes:
-    rows and indices read once, the output written once), the plain
-    version's time on the card and the library calls': `index_add_` (the
-    plain version's own call, float atomics) and `index_put_(accumulate=
-    True)` (IndexBackward0's path in the parent). Returns one dict a
-    call."""
+    kernel run again on the same inputs on the route the call took for the
+    same bits; where it took the cluster route, the grid route too, for the
+    same bits. Then on the same inputs, in turns under torch.profiler
+    (`device_spans`), the device time, span and operations of each route
+    run and of `index_add_` (zeros and the add: the same function); each
+    route's call with its wrapper (CUDA events, the flag's wait included);
+    its bound (bytes: rows and indices read once, the output written once);
+    the plain version's time on the card and `index_put_(accumulate=True)`
+    (IndexBackward0's path before the kernel). Returns one dict a call."""
     import torch
     from drt_tpu_torch.geometry import scatter as SC
     out_rows = []
-    for i, (rows, idx, num, out) in enumerate(calls):
+    for i, ((rows, idx, num, out, route), kind) in enumerate(zip(calls,
+                                                                  kinds)):
         want = SC.scatter_rows_plain(rows.cpu(), idx.cpu(), num)
-        again = SC.scatter_rows_cuda(rows, idx, num)
+        routes = ("cluster", "grid") if route == "cluster" else ("grid",)
+        again = {r: SC.scatter_rows_cuda(rows, idx, num, route=r)
+                 for r in routes}
         torch.cuda.synchronize()
-        bits, det = same_bits(out.cpu(), want), same_bits(again, out)
+        bits = same_bits(out.cpu(), want)
+        det = all(same_bits(o, out) for o in again.values())
         err = float((out.cpu().double() - want.double()).abs().max()) \
             if out.numel() else 0.0
         R, C = rows.shape
@@ -838,35 +931,81 @@ def check_scatters(calls):
         size = rows.element_size()
         nbytes = R * C * size + R * 8 + num * C * size
         bound = nbytes / HBM_RATE * 1e3
-        ms = cuda_ms(lambda: SC.scatter_rows_cuda(rows, idx, num), 20)
+        timed = {r: (lambda r=r: SC.scatter_rows_cuda(rows, idx, num,
+                                                      route=r))
+                 for r in routes}
+        dev = device_spans({**timed, "index_add_": lambda: rows.new_zeros(
+            num, C).index_add_(0, idx, rows)})
+        call_ms = {r: cuda_ms(fn, 20) for r, fn in timed.items()}
         plain = cuda_ms(lambda: SC.scatter_rows_plain(rows, idx, num), 20)
         zeros = rows.new_zeros(num, C)
-        add = cuda_ms(lambda: zeros.index_add_(0, idx, rows), 20)
         put = cuda_ms(lambda: zeros.index_put_((idx,), rows,
                                                accumulate=True), 20)
-        print(f"scatter {i}: {R} rows of {C} {str(rows.dtype)[6:]} ({live} "
-              f"not all zero) into {num}: the CPU plain version's bits "
-              f"{bits}, a second run's {det}; kernel {ms:.4f} ms (bound "
-              f"{bound:.4f} ms, bytes), plain on the card {plain:.4f} ms, "
-              f"index_add_ {add:.4f} ms, index_put_ accumulate {put:.4f} ms")
+        print(f"scatter {i} ({kind}): {R} rows of {C} "
+              f"{str(rows.dtype)[6:]} ({live} not all zero) into {num}, "
+              f"route {route}: the CPU plain version's bits {bits}, the "
+              f"reruns' (routes {', '.join(routes)}) {det}; device ms "
+              f"(span, operations) "
+              + ", ".join(f"{k} {d['ms']:.4f} ({d['span_ms']:.4f}, "
+                          f"{d['ops']})" for k, d in dev.items())
+              + f"; bound {bound:.4f} ms (bytes); with the wrapper "
+              + ", ".join(f"{k} {t:.4f}" for k, t in call_ms.items())
+              + f" ms; plain on the card {plain:.4f} ms, index_put_ "
+              f"accumulate {put:.4f} ms")
         if not (bits and det):
             fail(f"scatter {i}: the kernel differs from scatter_rows_plain "
                  f"on the CPU ({bits}, largest difference {err:g}) or from "
-                 f"its own second run ({det})")
-        out_rows.append(dict(rows=R, cols=C, num=num, live=live, ms=ms,
-                             plain_ms=plain, index_add_ms=add,
-                             index_put_ms=put, bound_ms=bound, err=err))
+                 f"its reruns on routes {routes} ({det})")
+        out_rows.append(dict(
+            kind=kind, rows=R, cols=C, num=num, live=live, route=route,
+            ms=dev[route]["ms"], span_ms=dev[route]["span_ms"],
+            ops=dev[route]["ops"], call_ms=call_ms[route],
+            grid_ms=dev["grid"]["ms"], grid_span_ms=dev["grid"]["span_ms"],
+            grid_call_ms=call_ms["grid"], plain_ms=plain,
+            index_add_ms=dev["index_add_"]["ms"],
+            index_add_span_ms=dev["index_add_"]["span_ms"],
+            index_add_ops=dev["index_add_"]["ops"], index_put_ms=put,
+            bound_ms=bound, err=err))
     return out_rows
 
 
-def scatter_entry(checked, prof, launches, per_step, lod_launches):
+# Device operations a scatter call may make, by route: the cluster route's
+# one kernel and the flag's read; the grid route's clear, upfront kernel, 2
+# passes (up to 65,536 destinations), reduce and the flag's read.
+MAX_SCATTER_OPS = {"cluster": 2, "grid": 6}
+
+
+def scatter_entry(checked, prof, launches, per_step, lod_launches,
+                  route_launches):
     """The kernels line's entry of the scatter kernel: its numbers on the
     largest scatter of phase 5's step (a bounce's [N,9] soup rows into
-    [F,9]), its device time the profiled step's span of that call."""
+    [F,9], the grid route), its device time the profiled step's of that
+    call, `index_add_`'s device time on the same input; then each route,
+    the cluster size, and per call kind its numbers (the median over the
+    step's calls of that kind)."""
+    from drt_tpu_torch.geometry import scatter as SC
     i = max(range(len(checked)), key=lambda j: (checked[j]["cols"] == 9,
                                                  checked[j]["rows"]))
     big = checked[i]
-    j = prof["calls"].index((big["rows"], big["cols"], big["num"]))
+    by_kind = {}
+    for j, c in enumerate(checked):
+        by_kind.setdefault(c["kind"], []).append((c, prof["ms"][j],
+                                                  prof["ops"][j]))
+    kinds = []
+    for kind, cs in by_kind.items():
+        def med(key):
+            return statistics.median(c[key] for c, _, _ in cs)
+        kinds.append({
+            "kind": kind, "calls": len(cs), "rows": cs[0][0]["rows"],
+            "cols": cs[0][0]["cols"], "num": cs[0][0]["num"],
+            "route": cs[0][0]["route"],
+            "step_ms": statistics.median(m for _, m, _ in cs),
+            "step_ops": max(o for _, _, o in cs),
+            "ms": med("ms"), "span_ms": med("span_ms"),
+            "call_ms": med("call_ms"), "grid_ms": med("grid_ms"),
+            "bound_ms": med("bound_ms"), "index_add_ms": med("index_add_ms"),
+            "index_add_span_ms": med("index_add_span_ms"),
+            "plain_ms": med("plain_ms")})
     return {
         "name": "scatter_kernel",
         "route": "cuda",
@@ -878,25 +1017,38 @@ def scatter_entry(checked, prof, launches, per_step, lod_launches):
         "launches": launches,
         "launches_per_step": per_step,
         "launches_lod": lod_launches,
+        "routes": {"cluster": {"kernel": "scatter_cluster_kernel",
+                               "launches": route_launches[0],
+                               "max_rows": SC.CLUSTER_MAX_ROWS,
+                               "max_out": SC.CLUSTER_MAX_OUT},
+                   "grid": {"kernels": ["scatter_upfront_kernel",
+                                        "scatter_pass_kernel",
+                                        "scatter_reduce_kernel"],
+                            "launches": route_launches[1]}},
+        "cluster_size": SC.cluster_size(),
         "shape": f"{big['rows']} rows of {big['cols']} into {big['num']} "
                  "(a bounce's _gather_tri9 soup backward, dog_mid45k at "
-                 "1280x960)",
+                 "1280x960, the grid route)",
         "max_abs_err": max(c["err"] for c in checked),
-        "ms": prof["ms"][j],
-        "ms_from": "torch.profiler's device span of that call in phase 5's "
-                   "profiled step",
-        "call_ms": big["ms"],
+        "ms": prof["ms"][i],
+        "ms_from": "torch.profiler: the device time of that call's "
+                   "operations in phase 5's profiled step",
+        "call_ms": big["call_ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
         "bound_by": "bytes",
         "library_ms": big["index_add_ms"],
-        "library": "torch.Tensor.index_add_",
+        "library": "torch.Tensor.index_add_ on zeros (its device time, "
+                   "torch.profiler, on the same input)",
         "library_index_put_ms": big["index_put_ms"],
         "step_ms": sum(prof["ms"]),
+        "step_ops": sum(prof["ops"]),
         "step_bound_ms": sum(c["bound_ms"] for c in checked),
         "step_index_add_ms": sum(c["index_add_ms"] for c in checked),
         "step_index_put_ms": sum(c["index_put_ms"] for c in checked),
         "step_device_busy_ms": prof["busy_ms"],
+        "step_device_ops": prof["kernels"],
+        "kinds": kinds,
         "calls": checked,
     }
 
@@ -1011,9 +1163,14 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
     if len(sc_spans) != len(scatter_calls):
         fail(f"profile: {len(sc_spans)} device spans for the step's "
              f"{len(scatter_calls)} scatter calls")
-    sc_ms = [sum(k.time_range.end - k.time_range.start for k in kernels
-                 if a <= k.time_range.start and k.time_range.end <= b) / 1e3
+    sc_in = [[k for k in kernels
+              if a <= k.time_range.start and k.time_range.end <= b]
              for a, b in sc_spans]
+    sc_ms = [sum(k.time_range.end - k.time_range.start for k in ks) / 1e3
+             for ks in sc_in]
+    sc_ops = [len(ks) for ks in sc_in]
+    over = [(call, n) for call, n in zip(scatter_calls, sc_ops)
+            if n > MAX_SCATTER_OPS[call[3]]]
     parent = sorted({k.name[:80] for k in kernels
                      if any(p in k.name.lower()
                             for p in PARENT_SCATTER_KERNELS)})
@@ -1032,15 +1189,21 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
           f"{len(kernels)} kernels; by name (ms) "
           f"{[(n, round(t, 3)) for n, t in top]}")
     print(f"profile: {len(sc_spans)} scatter calls (rows, columns, "
-          f"destinations) {scatter_calls}, device ms each "
+          f"destinations, route) {scatter_calls}, device ms each "
           f"{[round(x, 4) for x in sc_ms]}, {sum(sc_ms):.4f} ms in all; "
-          f"torch scatter-add kernels in the step: {parent or 'none'}; "
-          f"their ops on the host: {ops or 'none'}")
+          f"device operations each {sc_ops}, {sum(sc_ops)} in all (at most "
+          f"{MAX_SCATTER_OPS} a call by route); torch scatter-add kernels "
+          f"in the step: {parent or 'none'}; their ops on the host: "
+          f"{ops or 'none'}")
     if parent:
         fail(f"profile: the step launched torch's scatter-add kernels "
              f"{parent} (host ops {ops})")
+    if over:
+        fail(f"profile: scatter calls (rows, columns, destinations, route) "
+             f"with more device operations than their route allows: {over}")
     return len(oracle), pack_ms, dict(
-        calls=scatter_calls, ms=sc_ms, busy_ms=busy, kernels=len(kernels))
+        calls=scatter_calls, ms=sc_ms, ops=sc_ops, busy_ms=busy,
+        kernels=len(kernels))
 
 
 def run_steps(name, step, state, lr, mesh, cap, seed, n, expect):
@@ -1781,6 +1944,7 @@ def main():
         from drt_tpu_torch.config import POINTGRAY_RES as RES, HyperParams
         from drt_tpu_torch.data.synthetic import (intrinsics, ring_cameras,
                                                   synthesize_capture)
+        from drt_tpu_torch.geometry import scatter as SC
         from drt_tpu_torch.intersect import cuda_kernel as CK
         from drt_tpu_torch.intersect.api import get_intersect_fn
         from drt_tpu_torch.mesh import build_mesh_state, load_ply
@@ -1825,6 +1989,10 @@ def main():
     if missing:
         fail(f"ptxas reported no entry function for {missing} among "
              f"{n_entries}:\n{KN.build_log}")
+    print(f"scatter: the cluster route's cluster holds {SC.cluster_size()} "
+          f"CTAs (cudaOccupancyMaxActiveClusters); it takes up to "
+          f"{SC.CLUSTER_MAX_ROWS} rows into {SC.CLUSTER_MAX_OUT} output "
+          "elements, the grid route the rest")
     print(f"ray tiles: coherent {CK.RAY_TILE_COHERENT}, incoherent "
           f"{CK.RAY_TILE_INCOHERENT}; closest-hit blocks of "
           f"{CK.BLOCK_RAYS} rays")
@@ -1928,6 +2096,11 @@ def main():
             fail(f"step {it}: loss is not finite")
     launches = counts()                          # main path ends here
     scatter_launches = CK.counters.scatter_launches
+    scatter_route_launches = (CK.counters.scatter_cluster_launches,
+                              CK.counters.scatter_grid_launches)
+    if min(scatter_route_launches) < 1:
+        fail(f"the steps launched the scatter kernel's cluster and grid "
+             f"routes {scatter_route_launches} times: both must run")
     verts = final(state, ms45)
     moved = float((verts - ms45.vertices).abs().max())
     if not torch.isfinite(verts).all() or moved <= 0:
@@ -1948,7 +2121,13 @@ def main():
         torch.cuda.synchronize()
     if len(recorded) != scatter_step:
         fail(f"recorded {len(recorded)} scatters, reckoned {scatter_step}")
-    scatter_checked = check_scatters(recorded)
+    kinds = scatter_kinds([(r.shape[0], r.shape[1], num)
+                           for r, _, num, _, _ in recorded], ms45, budget,
+                          RES[0] * RES[1])
+    print(f"scatter: cluster size {SC.cluster_size()} CTAs; the steps' "
+          f"launches by route (cluster, grid) {scatter_route_launches}; "
+          f"a step's calls {list(zip(kinds, (c[4] for c in recorded)))}")
+    scatter_checked = check_scatters(recorded, kinds)
     del recorded
     oracle_ops, pack_step_ms, scatter_prof = oracle_kernel_profile(
         weights, RES, budget, hp, ms45, cap, per_step)
@@ -2307,7 +2486,7 @@ def main():
                            for g, r in by_group.items()},
         "oracle_ops_per_step": oracle_ops,
     }, scatter_entry(scatter_checked, scatter_prof, scatter_launches,
-                     scatter_step, lod_scatters)]
+                     scatter_step, lod_scatters, scatter_route_launches)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

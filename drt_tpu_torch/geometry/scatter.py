@@ -7,8 +7,12 @@ of its vertex gathers. On CPU tensors it runs the plain version
 `scatter_rows_plain` (`index_add_`, which on the CPU sums each
 destination's rows in ascending row order, as JAX's CPU scatter does); on
 CUDA tensors the kernel, which sums in that same order, each add rounded on
-its own, so both give the same bits on every run. No fallback: a CUDA
-tensor launches the kernel or raises.
+its own, so both give the same bits on every run. The kernel has two
+routes, which `scatter_route` chooses from the call's sizes: "cluster", one
+launch of one thread-block cluster, for calls up to 65,536 rows (the
+step's silhouette views), and "grid", a single-sweep radix sort over the
+whole card, for the rest. No fallback: a CUDA tensor launches its route
+or raises; no route gives way to the other.
 
 `gather_rows(x, idx)` is x[idx] with `scatter_rows` as its backward, so the
 step's vertex gathers no longer differentiate through advanced indexing
@@ -23,6 +27,39 @@ from drt_tpu_torch import kernels
 
 _ROW_DTYPES = (torch.float32, torch.float64)
 _INT32_MAX = 2 ** 31 - 1
+
+ROUTES = ("cluster", "grid")          # csrc/scatter.cu's route 0 and 1
+# The cluster route takes a call of at most CLUSTER_MAX_ROWS rows into at
+# most CLUSTER_MAX_OUT output elements. One cluster runs on 16 of the
+# card's 132 multiprocessors, so its time grows with the rows faster than
+# the grid route's: measured on every call of the step on dog_mid{20k,45k,
+# 90k} (scripts/tune_torch_oracle.py --what scatter-routes), the cluster
+# route is the faster up to 65,536 rows (the silhouette views) and ties or
+# loses above (the soups' second stages from 98,304 rows, the normals, the
+# dihedral term). The output bound keeps the zeroing of a large output
+# (2^24 destinations) on the whole card.
+CLUSTER_MAX_ROWS = 2 ** 16
+CLUSTER_MAX_OUT = 2 ** 20
+
+
+def scatter_route(n_rows: int, n_cols: int, n_out: int) -> str:
+    """The route of csrc/scatter.cu that a call of n_rows rows of n_cols
+    into n_out destinations takes: "cluster" up to CLUSTER_MAX_ROWS rows
+    and CLUSTER_MAX_OUT output elements, "grid" above."""
+    if n_rows <= CLUSTER_MAX_ROWS and n_out * n_cols <= CLUSTER_MAX_OUT:
+        return "cluster"
+    return "grid"
+
+
+def cluster_size() -> int:
+    """The CTAs of the cluster route's one cluster on this card (16 where
+    the card schedules it, from cudaOccupancyMaxActiveClusters at the
+    first call); raises if the card schedules none."""
+    n = kernels.load().scatter_cluster_size()
+    if n < 1:
+        raise RuntimeError("scatter: the card schedules no cluster of the "
+                           "cluster route's CTAs")
+    return n
 
 
 def scatter_rows_plain(rows, idx, num: int):
@@ -50,9 +87,10 @@ def _check(rows, idx, num: int):
                          "kernel's int32 sizes")
 
 
-def scatter_rows_cuda(rows, idx, num: int):
+def scatter_rows_cuda(rows, idx, num: int, route: str | None = None):
     """Launch csrc/scatter.cu on the current stream: inputs and result as in
-    `scatter_rows_plain`, contiguous on one CUDA device, 1 <= C <= 16. Rows
+    `scatter_rows_plain`, contiguous on one CUDA device, 1 <= C <= 16, on
+    `route` ("cluster" or "grid"; by default `scatter_route`'s). Rows
     whose every entry is +-0 are skipped (the same bits). An index outside
     [0, num) raises, as in the plain version: the kernel flags it and the
     wrapper reads the flag, which waits for the launch to finish."""
@@ -60,21 +98,32 @@ def scatter_rows_cuda(rows, idx, num: int):
     if rows.device.type != "cuda":
         raise ValueError("scatter_rows_cuda needs CUDA tensors")
     lib = kernels.load()
-    n_cols = rows.shape[1]
+    n_rows, n_cols = rows.shape
     if not 1 <= n_cols <= lib.scatter_max_cols():
         raise ValueError(f"{n_cols} columns: the kernel takes 1 to "
                          f"{lib.scatter_max_cols()}")
+    if route is None:
+        route = scatter_route(n_rows, n_cols, num)
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r}: expected one of {ROUTES}")
+    code = ROUTES.index(route)
     with torch.cuda.device(rows.device):
+        if route == "cluster":
+            cluster_size()
         out = torch.empty((num, n_cols), dtype=rows.dtype, device=rows.device)
-        scratch = torch.empty(lib.scatter_scratch_ints(rows.shape[0]),
+        scratch = torch.empty(lib.scatter_scratch_ints(n_rows, num, code),
                               dtype=torch.int32, device=rows.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.scatter_launch(
             rows.data_ptr(), int(rows.dtype == torch.float64),
-            idx.data_ptr(), rows.shape[0], n_cols, num, out.data_ptr(),
+            idx.data_ptr(), n_rows, n_cols, num, code, out.data_ptr(),
             scratch.data_ptr(), stream)
-    kernels.check(lib, err, "scatter")
+    kernels.check(lib, err, f"scatter ({route} route)")
     kernels.counters.scatter_launches += 1
+    if route == "cluster":
+        kernels.counters.scatter_cluster_launches += 1
+    else:
+        kernels.counters.scatter_grid_launches += 1
     if scratch[-1].item():
         raise RuntimeError(f"scatter_rows: an index is out of bounds for "
                            f"{num} destinations")

@@ -39,7 +39,9 @@ class LaunchCounter:
     kernel (`launches`), of the candidate-prepass kernel
     (`candidates_launches`) and of the packing kernel (`pack_launches`),
     each one a query of either kind, and of the row scatter-add
-    (`scatter_launches`, one a `scatter_rows` call on CUDA tensors)."""
+    (`scatter_launches`, one a `scatter_rows` call on CUDA tensors, of
+    which `scatter_cluster_launches` took the cluster route and
+    `scatter_grid_launches` the grid route)."""
 
     def __init__(self):
         self.reset()
@@ -50,6 +52,8 @@ class LaunchCounter:
         self.candidates_launches = 0
         self.pack_launches = 0
         self.scatter_launches = 0
+        self.scatter_cluster_launches = 0
+        self.scatter_grid_launches = 0
 
 
 counters = LaunchCounter()
@@ -131,9 +135,11 @@ _ENTRIES = {
     "pack_tri_chunk": ([], _CI),
     "pack_n_coef": ([], _CI),
     # scatter.cu
-    "scatter_launch": ([_VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP, _VP], _CI),
-    "scatter_scratch_ints": ([_LL], _LL),
+    "scatter_launch": ([_VP, _CI, _VP, _CI, _CI, _CI, _CI, _VP, _VP, _VP],
+                       _CI),
+    "scatter_scratch_ints": ([_LL, _LL, _CI], _LL),
     "scatter_max_cols": ([], _CI),
+    "scatter_cluster_size": ([], _CI),
     # errors.cu
     "drt_error_string": ([_CI], ctypes.c_char_p),
 }
@@ -150,8 +156,8 @@ _SIGNATURES = {
                       "shift origins org_f64 dirs dir_f64 n_rays n_groups "
                       "group n_tiles ray_tile coef lo hi box_lo box_hi "
                       "box_valid phi inv stream",
-    "scatter_signature": "rows rows_f64 idx n_rows n_cols n_out out scratch "
-                         "stream",
+    "scatter_signature": "rows rows_f64 idx n_rows n_cols n_out route out "
+                         "scratch stream",
 }
 
 

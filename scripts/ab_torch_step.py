@@ -1,0 +1,156 @@
+#!/usr/bin/env python3
+"""The port's reference-parity train step on one CUDA GPU, this tree against
+another (a parent commit unpacked with `git archive`), in turns.
+
+    python3 scripts/ab_torch_step.py --parent DIR [--steps 5] [--out PATH]
+
+Each turn is a process of its own that imports `drt_tpu_torch` from one
+tree only (the trees share the package's name) and builds that tree's
+kernels into the tree's own build/: parent, this, this, parent. A turn
+synthesizes the capture of chip_smoke.py's phase 5 (8 views of dog_mid90k
+at 1280x960, Pointgray), runs one warm-up sgd + none step from dog_mid45k
+(HyperParams() weights, float32, 1 ray view and 8 silhouette views), then
+`--steps` steps on the host clock between synchronizations, then 3 steps
+under torch.profiler: each one's device busy time (the sum of its device
+operations' durations: kernels, memsets, copies) and its device operation
+count. Prints one JSON line a turn and a summary a tree (median and
+spread of each), with the card's name and power limit, and writes them to
+`--out` (default reports/torch_step_ab.json). Claims nothing: the step is
+host-bound, so its wall time moves with the host as much as with the code.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def turn(tree, steps):
+    """One turn in this process: the step of `tree`'s package."""
+    sys.path.insert(0, tree)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import drt_tpu_torch
+    from drt_tpu_torch.config import POINTGRAY_RES as RES, HyperParams
+    from drt_tpu_torch.data.synthetic import synthesize_capture
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.mesh import build_mesh_state, load_ply
+    from drt_tpu_torch.optimize import (LossWeights,
+                                        default_silhouette_budget,
+                                        make_train_step)
+    if os.path.dirname(os.path.dirname(os.path.abspath(
+            drt_tpu_torch.__file__))) != os.path.abspath(tree):
+        sys.exit(f"ab_torch_step: imported {drt_tpu_torch.__file__}, not "
+                 f"the package of {tree}")
+    dev = torch.device("cuda", 0)
+    meshes = os.path.join(tree, "reports", "tuning_meshes")
+    hp = HyperParams()
+    v90, f90 = load_ply(os.path.join(meshes, "dog_mid90k.ply"))
+    cap = synthesize_capture(v90, f90, name="dog", num_views=8, resy=RES[0],
+                             resx=RES[1], ior=hp.ior, ext_ior=hp.ext_ior,
+                             num_view_used=8, device=dev)
+    mesh = build_mesh_state(*load_ply(os.path.join(meshes,
+                                                   "dog_mid45k.ply")),
+                            device=dev)
+    weights = LossWeights(ray_w=hp.ray_w, vh_w=hp.vh_w, sm_w=hp.sm_w,
+                          ior=hp.ior, ext_ior=hp.ext_ior)
+    init, step, _ = make_train_step(
+        get_intersect_fn("auto"), weights, *RES,
+        default_silhouette_budget(mesh.num_edges), momentum=hp.momentum,
+        grad_clamp=hp.grad_clamp)
+    state = init(mesh)
+    ray_gen = cap.ray_view_generator(seed=hp.seed)
+    silh_gen = cap.silh_view_generator(seed=hp.seed + 1000)
+
+    def one():
+        return step(state, hp.start_lr, mesh, cap.views, next(ray_gen),
+                    [next(silh_gen) for _ in range(8)])
+    one()
+    torch.cuda.synchronize()
+    wall = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    busy, ops = [], []
+    dev_t = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == dev_t
+                  and not e.is_user_annotation]
+        busy.append(sum(e.time_range.end - e.time_range.start
+                        for e in device) / 1e3)
+        ops.append(len(device))
+    print(json.dumps({"tree": tree, "step_ms": wall, "device_busy_ms": busy,
+                      "device_ops": ops}))
+
+
+def spread(xs):
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", help="the other tree (unpacked)")
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--out", default=os.path.join(HERE, "reports",
+                                                  "torch_step_ab.json"))
+    ap.add_argument("--turn", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.turn:
+        turn(args.turn, args.steps)
+        return
+    if not args.parent:
+        sys.exit("ab_torch_step: --parent DIR is needed")
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("ab_torch_step: needs a CUDA GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi)
+    trees = {"parent": os.path.abspath(args.parent), "this": HERE}
+    turns = []
+    for side in ("parent", "this", "this", "parent"):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--turn", trees[side], "--steps",
+                              str(args.steps)], capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode != 0:
+            sys.exit(f"ab_torch_step: the {side} turn failed:\n"
+                     f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        row["side"] = side
+        turns.append(row)
+        print(json.dumps(row), flush=True)
+    summary = {}
+    for side in ("parent", "this"):
+        rows = [r for r in turns if r["side"] == side]
+        summary[side] = {
+            "step_ms_turn_medians": [statistics.median(r["step_ms"])
+                                     for r in rows],
+            "step_ms": spread([x for r in rows for x in r["step_ms"]]),
+            "device_busy_ms": spread([x for r in rows
+                                      for x in r["device_busy_ms"]]),
+            "device_ops": spread([x for r in rows for x in r["device_ops"]])}
+        print(f"{side}: {json.dumps(summary[side])}", flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump({"device": smi, "script": "scripts/ab_torch_step.py",
+                   "turns_order": "parent, this, this, parent",
+                   "summary": summary, "turns": turns}, fh, indent=1)
+        fh.write("\n")
+    print(f"wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

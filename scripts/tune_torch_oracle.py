@@ -3,6 +3,7 @@
 
     python3 scripts/tune_torch_oracle.py [--what tiles blocks gate prepass
                                           resort group pack scatter
+                                          scatter-routes scatter-trace
                                           defaults]
 
 Six queries, the ones chip_smoke.py checks: the camera rays and the
@@ -80,6 +81,17 @@ scatter the row scatter-add kernel (csrc/scatter.cu) against the parent's
         another mesh, in turns (soup, direct, direct, soup; CUDA events).
         Writes reports/torch_scatter_ab.json (or --scatter-out PATH).
         Claims nothing.
+scatter-routes  the scatter kernel's cluster and grid routes and
+        `index_add_` on every scatter call of that step on dog_mid{20k,
+        45k,90k} (recorded from the step), in turns under torch.profiler:
+        device time, span and operations of each, both routes' calls with
+        the wrapper, the route `scatter_route` takes and the call's bound.
+        Writes reports/torch_scatter_routes.json (or --scatter-routes-out
+        PATH).
+scatter-trace  the cluster route built with -DSCATTER_TRACE=1 (a library
+        of its own under build/): the SM cycles of each phase of one
+        launch (CTA 0's clock64() stamps) on a silhouette-, a second-stage-
+        and a normals-sized call, medians of 20 launches.
 defaults  with --parent DIR (an unpacked tree of another commit): the six
         queries and the incoherent ones of `group` through both trees'
         `intersect_cuda` at the defaults, hits equal bit for bit wherever
@@ -93,6 +105,7 @@ import argparse
 import inspect
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -989,6 +1002,178 @@ def scatter_ab(dev, card, out):
     print(f"wrote {out}")
 
 
+def scatter_routes(dev, card, out):
+    """The scatter kernel's two routes on every scatter call of the
+    reference-parity step (sgd + none, 1 ray view + 8 silhouette views of
+    1280x960) on dog_mid{20k,45k,90k}, each mesh under an 8-view capture of
+    another: the calls recorded from the step itself, then on each call
+    both routes and `index_add_` (zeros and the add, the same function) in
+    turns under torch.profiler (device time, span and device operations, 5
+    runs each), both routes' calls with the wrapper (CUDA events), the
+    route `scatter_route` takes, and the call's bound (bytes: rows and
+    indices read once, output written once). The routes must give the same
+    bits. Writes `out`."""
+    import torch
+    import chip_smoke as S
+    from drt_tpu_torch.config import POINTGRAY_RES as RES, HyperParams
+    from drt_tpu_torch.data.synthetic import synthesize_capture
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.mesh import build_mesh_state, load_ply
+    from drt_tpu_torch.optimize import (LossWeights,
+                                        default_silhouette_budget,
+                                        make_train_step)
+    import drt_tpu_torch.geometry.scatter as SC
+
+    hp = HyperParams()
+    weights = LossWeights(ray_w=hp.ray_w, vh_w=hp.vh_w, sm_w=hp.sm_w,
+                          ior=hp.ior, ext_ior=hp.ext_ior)
+    rows_out = []
+    for mesh in ("dog_mid20k", "dog_mid45k", "dog_mid90k"):
+        v, f = load_ply(os.path.join(S.MESH_DIR, f"{CAPTURE_OF[mesh]}.ply"))
+        cap = synthesize_capture(v, f, name="dog", num_views=8, resy=RES[0],
+                                 resx=RES[1], ior=hp.ior, ext_ior=hp.ext_ior,
+                                 num_view_used=8, device=dev)
+        ms = build_mesh_state(*load_ply(os.path.join(
+            S.MESH_DIR, f"{mesh}.ply")), device=dev)
+        budget = default_silhouette_budget(ms.num_edges)
+        init, step, _ = make_train_step(get_intersect_fn("auto"), weights,
+                                        *RES, budget, momentum=hp.momentum,
+                                        grad_clamp=hp.grad_clamp)
+        state = init(ms)
+        step(state, hp.start_lr, ms, cap.views, 0, list(range(8)))
+        recorded = []
+        with S.scatter_spy(recorded):
+            step(state, hp.start_lr, ms, cap.views, 1, list(range(8)))
+            torch.cuda.synchronize()
+        del cap, state
+        for i, (rows, idx, num, _, _) in enumerate(recorded):
+            R, C = rows.shape
+            calls = {r: (lambda r=r: SC.scatter_rows_cuda(rows, idx, num,
+                                                          route=r))
+                     for r in SC.ROUTES}
+            calls["index_add_"] = lambda: rows.new_zeros(num, C).index_add_(
+                0, idx, rows)
+            spans = S.device_spans(calls)
+            outs = {r: calls[r]() for r in SC.ROUTES}
+            same = S.same_bits(outs["cluster"], outs["grid"])
+            if not same:
+                sys.exit(f"scatter routes: {mesh} call {i} differs between "
+                         "the routes")
+            size = rows.element_size()
+            live_idx = idx[(rows != 0).any(dim=1)]
+            runs = torch.bincount(live_idx, minlength=1) if live_idx.numel() \
+                else torch.zeros(1, dtype=torch.int64, device=dev)
+            row = {"mesh": mesh, "call": i, "rows": R, "cols": C, "num": num,
+                   "live": int(live_idx.numel()),
+                   "longest_run": int(runs.max()),
+                   "runs": int((runs > 0).sum()),
+                   "route_taken": SC.scatter_route(R, C, num),
+                   "bound_ms": (R * C * size + R * 8 + num * C * size)
+                   / S.HBM_RATE * 1e3, "routes_same_bits": same,
+                   "device": spans,
+                   "call_ms": {r: S.cuda_ms(calls[r], 20)
+                               for r in SC.ROUTES}}
+            rows_out.append(row)
+            print(f"{mesh} call {i}: {R} rows of {C} ({row['live']} live, "
+                  f"{row['runs']} runs, the longest {row['longest_run']}) "
+                  f"into {num}, takes {row['route_taken']}, bound "
+                  f"{row['bound_ms']:.4f} ms; device ms (span, ops) "
+                  + ", ".join(f"{k} {d['ms']:.4f} ({d['span_ms']:.4f}, "
+                              f"{d['ops']})" for k, d in spans.items())
+                  + "; grid route by operation "
+                  + ", ".join(f"{k} {t:.4f}" for k, t in
+                              spans["grid"]["by_op"].items())
+                  + "; with the wrapper "
+                  + ", ".join(f"{k} {t:.4f}"
+                              for k, t in row["call_ms"].items()),
+                  flush=True)
+        del ms, recorded
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as fh:
+        json.dump({"device": card, "script":
+                   "scripts/tune_torch_oracle.py --what scatter-routes",
+                   "cluster_size": SC.cluster_size(),
+                   "cluster_max_rows": SC.CLUSTER_MAX_ROWS,
+                   "cluster_max_out": SC.CLUSTER_MAX_OUT,
+                   "calls": rows_out}, fh, indent=1)
+        fh.write("\n")
+    print(f"wrote {out}")
+
+
+# (rows, live share, destinations) of the scatter-trace cases: a
+# silhouette view, a soup's second stage, the normals (dog_mid45k), and one
+# run of 4,096 rows (the fold's cost a window of a long run)
+TRACE_CASES = ((32768, 0.034, 32768), (196608, 0.06, 32768),
+               (196608, 0.6, 32768), (4096, 1.0, 1))
+TRACE_PHASES = ("zero and key", "syncthreads_or", "count", "warp prefix",
+                "cluster.sync A", "cluster prefix", "place",
+                "cluster.sync B")
+
+
+def scatter_trace(dev, card, reps=20):
+    """Where a launch of the scatter kernel's cluster route spends its
+    time: a library built with -DSCATTER_TRACE=1 stamps clock64() at each
+    phase boundary of CTA 0's thread 0; on TRACE_CASES (float32, 3
+    columns, seeded), the median over `reps` launches of each phase's
+    cycles, and the SM clock nvidia-smi reads beside them."""
+    import ctypes
+    import numpy as np
+    import torch
+    from drt_tpu_torch import kernels
+    from drt_tpu_torch.geometry.scatter import ROUTES
+    lib = kernels.bind(kernels.build(defines=("SCATTER_TRACE=1",)))
+    entry = "?"
+    for line in kernels.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        if "scatter" in entry and ("registers" in line or "stack" in line):
+            print(f"ptxas {entry[:40]}: {line.strip()}")
+    lib.scatter_trace_read.argtypes = [ctypes.c_void_p]
+    stamps = np.zeros(64, dtype=np.int64)
+    rng = np.random.default_rng(0)
+    for n_rows, live, num in TRACE_CASES:
+        rows = rng.standard_normal((n_rows, 3)).astype(np.float32)
+        rows[rng.random(n_rows) >= live] = 0.0
+        rows = torch.from_numpy(rows).to(dev)
+        idx = torch.from_numpy(rng.integers(0, num, n_rows)).to(dev)
+        out = torch.empty((num, 3), device=dev)
+        code = ROUTES.index("cluster")
+        scratch = torch.empty(lib.scatter_scratch_ints(n_rows, num, code),
+                              dtype=torch.int32, device=dev)
+        runs = []
+        for _ in range(reps + 1):
+            lib.scatter_trace_clear()
+            err = lib.scatter_launch(rows.data_ptr(), 0, idx.data_ptr(),
+                                     n_rows, 3, num, code, out.data_ptr(),
+                                     scratch.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
+            kernels.check(lib, err, "scatter (traced)")
+            torch.cuda.synchronize()
+            lib.scatter_trace_read(stamps.ctypes.data)
+            runs.append(stamps.copy())
+        runs = np.stack(runs[1:])
+        last = int(np.flatnonzero(runs[0, :32])[-1])
+        steps = np.diff(runs[:, :last + 1], axis=1)
+        names = ["zero and key", "syncthreads_or"] + [
+            f"pass {p} {n}" for p in range((last - 3) // 6)
+            for n in TRACE_PHASES[2:]]
+        names += ["fold"]
+        med = np.median(steps, axis=0)
+        fold = np.median(runs[:, 32:64], axis=0).reshape(8, 4)
+        windows = [(int(f[1] - f[0]), int(f[2] - f[1]), int(f[3] - f[2]))
+                   for f in fold if f[0] and f[3]]
+        print(f"scatter-trace: {n_rows} rows ({live:.0%} live) into {num}: "
+              f"{int(np.median(runs[:, last] - runs[:, 0]))} cycles; "
+              + ", ".join(f"{n} {int(c)}" for n, c in zip(names, med))
+              + f"; the fold's first windows in block 0 (load, sum, rest) "
+              f"{windows}", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(f"scatter-trace: {card}; SM clock now, max: {smi.stdout.strip()}")
+
+
 def _fmt(xs):
     return "/".join(f"{x:.4f}" for x in xs)
 
@@ -997,7 +1182,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--what", nargs="+", default=["tiles", "blocks", "gate"],
                     choices=["tiles", "blocks", "gate", "prepass", "resort",
-                             "group", "pack", "scatter", "defaults"])
+                             "group", "pack", "scatter", "scatter-routes",
+                             "scatter-trace", "defaults"])
     ap.add_argument("--parent", default=None,
                     help="--what defaults: the unpacked tree to compare with")
     ap.add_argument("--prepass-out",
@@ -1016,6 +1202,10 @@ def main():
                     default=os.path.join(HERE, "reports",
                                          "torch_scatter_ab.json"),
                     help="where --what scatter writes its times")
+    ap.add_argument("--scatter-routes-out",
+                    default=os.path.join(HERE, "reports",
+                                         "torch_scatter_routes.json"),
+                    help="where --what scatter-routes writes its times")
     ap.add_argument("--table", default=None,
                     help="where --what resort writes its table (default: "
                          "reports/torch_resort_ab.json)")
@@ -1036,7 +1226,13 @@ def main():
     if "scatter" in args.what:
         scatter_ab(torch.device("cuda", 0), smi.stdout.strip(),
                    args.scatter_out)
-    if not set(args.what) - {"group", "resort", "pack", "scatter"}:
+    if "scatter-routes" in args.what:
+        scatter_routes(torch.device("cuda", 0), smi.stdout.strip(),
+                       args.scatter_routes_out)
+    if "scatter-trace" in args.what:
+        scatter_trace(torch.device("cuda", 0), smi.stdout.strip())
+    if not set(args.what) - {"group", "resort", "pack", "scatter",
+                             "scatter-routes", "scatter-trace"}:
         return
     queries = recorded_queries(torch.device("cuda", 0))
     if "defaults" in args.what:

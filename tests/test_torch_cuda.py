@@ -721,3 +721,137 @@ def test_step_scatters_match_cpu_plain(dev, sphere_capture):
     for rows, idx, num, out in calls:
         assert _same_bits(out.cpu(), S.scatter_rows_plain(rows.cpu(),
                                                           idx.cpu(), num))
+
+
+def _scatter_both_routes(rows, idx, num, dev):
+    """The kernel's output on each route (forced through `route`), each
+    launch counted once on its route's counter."""
+    from drt_tpu_torch.geometry.scatter import ROUTES, scatter_rows_cuda
+    c = CK.counters
+    outs = {}
+    for route in ROUTES:
+        before = (c.scatter_launches, c.scatter_cluster_launches,
+                  c.scatter_grid_launches)
+        outs[route] = scatter_rows_cuda(rows.to(dev), idx.to(dev), num,
+                                        route=route)
+        torch.cuda.synchronize()
+        after = (c.scatter_launches, c.scatter_cluster_launches,
+                 c.scatter_grid_launches)
+        assert after == (before[0] + 1,
+                         before[1] + (route == "cluster"),
+                         before[2] + (route == "grid"))
+    return outs
+
+
+def _plain_cpu(rows, idx, num):
+    from drt_tpu_torch.geometry.scatter import scatter_rows_plain
+    return scatter_rows_plain(rows, idx, num)
+
+
+@pytest.mark.parametrize("heavy", [False, True])
+@pytest.mark.parametrize("num", [1, 256, 257, 65536, 65537, 2 ** 24])
+@pytest.mark.parametrize("n_cols", [1, 3, 9, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scatter_routes_match_cpu_plain(dev, dtype, n_cols, num, heavy):
+    """Both routes of the scatter kernel, forced through `route`, against
+    scatter_rows_plain on the CPU bit for bit (int views): 1, 2 and 3 radix
+    passes (up to 256, 65,536 and 2^24 destinations), C = 1 to 16, 40,000
+    rows over 10 tiles of the grid route and every CTA of the cluster,
+    random and duplicate-heavy indices; the last destination gets no row,
+    so zeros are written too."""
+    rows, idx = _scatter_inputs(40000, n_cols, num, dtype, 6, heavy)
+    want = _plain_cpu(rows, idx, num)
+    for route, got in _scatter_both_routes(rows, idx, num, dev).items():
+        assert _same_bits(got.cpu(), want), route
+
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_scatter_routes_at_the_cap(dev, delta):
+    """At CLUSTER_MAX_ROWS - 1, CLUSTER_MAX_ROWS and CLUSTER_MAX_ROWS + 1
+    rows: `scatter_route` takes the cluster route up to the cap and the
+    grid route above it, the default call counts a launch on that route,
+    and both routes give the CPU plain version's bits."""
+    from drt_tpu_torch.geometry.scatter import (CLUSTER_MAX_ROWS,
+                                                scatter_route, scatter_rows)
+    n_rows = CLUSTER_MAX_ROWS + delta
+    rows, idx = _scatter_inputs(n_rows, 3, 32768, torch.float32, 7, True)
+    want = _plain_cpu(rows, idx, 32768)
+    route = scatter_route(n_rows, 3, 32768)
+    assert route == ("grid" if delta > 0 else "cluster")
+    c = CK.counters
+    before = (c.scatter_cluster_launches, c.scatter_grid_launches)
+    got = scatter_rows(rows.to(dev), idx.to(dev), 32768)
+    torch.cuda.synchronize()
+    assert (c.scatter_cluster_launches - before[0],
+            c.scatter_grid_launches - before[1]) == (
+        (0, 1) if route == "grid" else (1, 0))
+    assert _same_bits(got.cpu(), want)
+    for r, out in _scatter_both_routes(rows, idx, 32768, dev).items():
+        assert _same_bits(out.cpu(), want), r
+
+
+@pytest.mark.parametrize("case", ["all dead", "nan and -0", "heavy"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scatter_routes_dead_nan_and_signed_zeros(dev, dtype, case):
+    """Both routes on rows that are all +-0 (every output element +0), on
+    rows with NaN entries (live: the NaN reaches its destination) and -0
+    entries, and on `_scatter_inputs(heavy=True)`: the CPU plain version's
+    bits, and the same bits from each route and from a second run."""
+    rows, idx = _scatter_inputs(70000, 9, 3000, dtype, 8, True)
+    if case == "all dead":
+        rows = torch.where(torch.rand(rows.shape[0], 1,
+                                      generator=torch.Generator()
+                                      .manual_seed(1)) < 0.5,
+                           torch.zeros_like(rows), -torch.zeros_like(rows))
+    elif case == "nan and -0":
+        rng = np.random.default_rng(9)
+        nan = torch.from_numpy(rng.random(rows.shape) < 0.001)
+        rows = torch.where(nan, torch.full_like(rows, float("nan")), rows)
+        rows[::97] = -0.0
+    want = _plain_cpu(rows, idx, 3000)
+    if case == "all dead":
+        assert _same_bits(want, torch.zeros_like(want))
+    if case == "nan and -0":
+        assert torch.isnan(want).any()
+    first = _scatter_both_routes(rows, idx, 3000, dev)
+    again = _scatter_both_routes(rows, idx, 3000, dev)
+    for route in first:
+        assert _same_bits(first[route].cpu(), want), route
+        assert _same_bits(again[route], first[route]), route
+
+
+@pytest.mark.parametrize("route", ["cluster", "grid"])
+@pytest.mark.parametrize("bad", [4, 1000, -1, -4])
+def test_scatter_routes_raise_on_index_out_of_range(dev, route, bad):
+    """An index outside [0, num) raises on either route, whether its row is
+    live or all zeros; the launch is counted; a good call on the same route
+    after it gives the plain version's bits (the cluster route writes its
+    flag with no clear before it, on fresh scratch every call)."""
+    from drt_tpu_torch.geometry.scatter import scatter_rows_cuda
+    rows, idx = _scatter_inputs(5000, 3, 4, torch.float32, 5, True)
+    idx[[17, 4000]] = bad
+    before = CK.counters.scatter_launches
+    for r in (rows, torch.zeros_like(rows)):
+        with pytest.raises(RuntimeError, match="out of bounds"):
+            scatter_rows_cuda(r.to(dev), idx.to(dev), 4, route=route)
+    assert CK.counters.scatter_launches == before + 2
+    good = idx.clamp(0, 3)
+    for _ in range(3):
+        got = scatter_rows_cuda(rows.to(dev), good.to(dev), 4, route=route)
+        assert _same_bits(got.cpu(), _plain_cpu(rows, good, 4))
+
+
+def test_scatter_cluster_size_and_unknown_route(dev):
+    """The cluster route's CTAs a cluster (a power of two up to 16, from
+    the card's occupancy), and a route the kernel lacks raises before any
+    launch."""
+    from drt_tpu_torch.geometry.scatter import cluster_size, scatter_rows_cuda
+    n = cluster_size()
+    assert n in (1, 2, 4, 8, 16)
+    rows = torch.ones(8, 3, device=dev)
+    idx = torch.zeros(8, dtype=torch.int64, device=dev)
+    before = CK.counters.scatter_launches
+    with pytest.raises(ValueError, match="route"):
+        scatter_rows_cuda(rows, idx, 4, route="atomics")
+    assert CK.counters.scatter_launches == before

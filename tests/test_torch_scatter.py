@@ -26,12 +26,15 @@ from drt_tpu.optimize.losses import smooth_loss as j_smooth
 from drt_tpu.render.trace import _gather_tri9 as j_gather_tri9
 from drt_tpu_torch.data.synthetic import intrinsics, look_at_extrinsic
 from drt_tpu_torch.geometry.normals import vertex_normals
-from drt_tpu_torch.geometry.scatter import (gather_rows, scatter_rows,
-                                            scatter_rows_cuda,
+from drt_tpu_torch.geometry.scatter import (CLUSTER_MAX_OUT,
+                                            CLUSTER_MAX_ROWS, ROUTES,
+                                            gather_rows, scatter_route,
+                                            scatter_rows, scatter_rows_cuda,
                                             scatter_rows_plain)
 from drt_tpu_torch.intersect import cuda_kernel as CK
 from drt_tpu_torch.intersect import get_intersect_fn
 from drt_tpu_torch.mesh import build_mesh_state, load_ply
+from drt_tpu_torch.optimize import default_silhouette_budget
 from drt_tpu_torch.optimize.losses import smooth_loss
 from drt_tpu_torch.render.trace import _SOUP_BWD_MAX_FACES, _gather_tri9
 from tests.meshes import make_icosphere
@@ -319,3 +322,141 @@ def test_gather_rows_backward_matches_advanced_indexing():
     assert not g1[49].any()
     assert torch.autograd.gradgradcheck(lambda x: gather_rows(x, idx[:40]),
                                         (x1,))
+
+
+# --- the kernel's routes (csrc/scatter.cu): which one a call takes --------
+
+N_RAYS = 1280 * 960            # one Pointgray view, the step's ray view
+
+
+def _step_scatter_shapes(faces_padded, edges_padded, budget, n_rays,
+                         n_silh=8):
+    """(kind, rows, columns, destinations into V) of every scatter call of
+    one step with every loss weight on, in no particular order: the
+    normals ([3F,3]), each silhouette view's endpoint gather (2 budget
+    rows), the dihedral term ([6E,3]), and `_gather_tri9`'s backward in
+    both bounces, on its soup route up to 2^16 padded faces (the [N,9]
+    soup into F, then [3F,3]) and direct above ([3N,3])."""
+    F, E = faces_padded, edges_padded
+    calls = [("normals", 3 * F, 3, "V"), ("dihedral", 6 * E, 3, "V")]
+    calls += [("silhouette", 2 * budget, 3, "V")] * n_silh
+    if F <= _SOUP_BWD_MAX_FACES:
+        calls += [("soup", n_rays, 9, F), ("second stage", 3 * F, 3, "V")] * 2
+    else:
+        calls += [("direct", 3 * n_rays, 3, "V")] * 2
+    return calls
+
+
+def test_step_scatter_shapes_match_a_recorded_step(monkeypatch):
+    """The reckoning above against the scatter calls one sgd + none step
+    really makes on the CPU (HyperParams() weights, a 20x24 view, 2
+    silhouette views, an icosphere mesh): the same multiset of (rows,
+    columns, destinations)."""
+    from drt_tpu_torch.config import HyperParams
+    from drt_tpu_torch.data.synthetic import synthesize_capture
+    from drt_tpu_torch.geometry import scatter as SC
+    from drt_tpu_torch.optimize import (LossWeights,
+                                        default_silhouette_budget,
+                                        make_train_step)
+    hp = HyperParams()
+    gt_v, gt_f = make_icosphere(subdivisions=3, radius=20.0)
+    cap = synthesize_capture(gt_v, gt_f, name="ball", num_views=2, resy=20,
+                             resx=24, ior=hp.ior, ext_ior=hp.ext_ior,
+                             num_view_used=2, device="cpu")
+    v0, f0 = make_icosphere(subdivisions=2, radius=19.0)
+    ms = build_mesh_state(v0, f0, device="cpu")
+    budget = default_silhouette_budget(ms.num_edges)
+    w = LossWeights(ray_w=hp.ray_w, vh_w=hp.vh_w, sm_w=hp.sm_w, ior=hp.ior,
+                    ext_ior=hp.ext_ior)
+    init, step, _ = make_train_step(get_intersect_fn("auto"), w, 20, 24,
+                                    budget)
+    calls, real = [], SC.scatter_rows_plain
+
+    def spy(rows, idx, num):
+        calls.append((rows.shape[0], rows.shape[1], num))
+        return real(rows, idx, num)
+    monkeypatch.setattr(SC, "scatter_rows_plain", spy)
+    step(init(ms), hp.start_lr, ms, cap.views, 0, [0, 1])
+    V = ms.vertices.shape[0]
+    want = [(r, c, V if n == "V" else n) for _, r, c, n in
+            _step_scatter_shapes(ms.faces.shape[0], ms.edges.shape[0],
+                                 budget, 20 * 24, n_silh=2)]
+    assert sorted(calls) == sorted(want)
+
+
+@pytest.mark.parametrize("mesh", ["dog_mid20k", "dog_mid45k", "dog_mid90k"])
+def test_scatter_route_on_the_step_calls(mesh):
+    """`scatter_route` on every scatter call of the reference-parity step
+    (1280x960, 8 silhouette views) on the three dog meshes: the cluster
+    route for every call up to CLUSTER_MAX_ROWS rows and CLUSTER_MAX_OUT
+    output elements, which takes every silhouette view on all three (16,384,
+    32,768 and 65,536 rows); the grid route for the bounces' soup and direct
+    scatters (1,228,800 rows of 9, 3,686,400 of 3) and every call above the
+    cap (where the grid route measured as fast or faster)."""
+    path = os.path.join(os.path.dirname(DOG90), f"{mesh}.ply")
+    ms = build_mesh_state(*load_ply(path), device="cpu")
+    budget = default_silhouette_budget(ms.num_edges)
+    V = ms.vertices.shape[0]
+    calls = _step_scatter_shapes(ms.faces.shape[0], ms.edges.shape[0],
+                                 budget, N_RAYS)
+    assert len(calls) == (14 if ms.faces.shape[0] <= 2 ** 16 else 12)
+    for kind, rows, cols, num in calls:
+        num = V if num == "V" else num
+        route = scatter_route(rows, cols, num)
+        fits = rows <= CLUSTER_MAX_ROWS and num * cols <= CLUSTER_MAX_OUT
+        assert route == ("cluster" if fits else "grid"), (kind, rows)
+        if kind == "silhouette":
+            assert route == "cluster"
+        if kind in ("soup", "direct"):
+            assert route == "grid"
+
+
+def test_scatter_route_at_and_above_the_cap():
+    """The cluster route up to the cap in rows and in output elements, the
+    grid route one above either, and at 2^24 destinations."""
+    assert scatter_route(CLUSTER_MAX_ROWS, 3, 100) == "cluster"
+    assert scatter_route(CLUSTER_MAX_ROWS + 1, 3, 100) == "grid"
+    assert scatter_route(0, 3, 10) == "cluster"
+    assert scatter_route(1000, 16, CLUSTER_MAX_OUT // 16) == "cluster"
+    assert scatter_route(1000, 16, CLUSTER_MAX_OUT // 16 + 1) == "grid"
+    assert scatter_route(1000, 1, 2 ** 24) == "grid"
+    assert scatter_route(2 ** 24, 9, 65536) == "grid"
+    assert set(ROUTES) == {"cluster", "grid"}
+
+
+def test_scatter_signature_and_routes_match_the_source():
+    """csrc/scatter.cu read as text: its scatter_signature() is the
+    argument list the binding passes (kernels._SIGNATURES, one ctypes type
+    an argument in kernels._ENTRIES), its route numbers are the wrapper's
+    ROUTES in order, and MAX_COLS is 16."""
+    import re
+    from drt_tpu_torch import kernels
+    src = open(os.path.join(os.path.dirname(kernels.__file__), "csrc",
+                            "scatter.cu")).read()
+    sig = re.search(r'scatter_signature\(\) \{\s*return "([^"]*)";', src)
+    assert sig and sig.group(1) == kernels._SIGNATURES["scatter_signature"]
+    assert len(sig.group(1).split()) == len(
+        kernels._ENTRIES["scatter_launch"][0])
+    for i, route in enumerate(ROUTES):
+        assert re.search(rf"#define ROUTE_{route.upper()} {i}\b", src)
+    assert re.search(r"#define MAX_COLS 16\b", src)
+
+
+def test_scatter_kinds_label_the_step_calls():
+    """chip_smoke.py's `scatter_kinds`, which names each recorded call of
+    the profiled step, on the reckoned calls of dog_mid45k (the soup
+    route) and a mesh above 2^16 padded faces (the direct route), in the
+    order the step makes them (normals first, the second stages after
+    their soups)."""
+    import types
+    import chip_smoke
+    for F, E, budget in ((65536, 65536, 16384), (131072, 131072, 32768)):
+        calls = _step_scatter_shapes(F, E, budget, N_RAYS)
+        order = ([calls[0]] + [c for c in calls if c[0] == "silhouette"]
+                 + [calls[1]] + [c for c in calls if c[0] in (
+                     "soup", "second stage", "direct")])
+        mesh = types.SimpleNamespace(faces=torch.zeros(F, 3),
+                                     edges=torch.zeros(E, 2))
+        kinds = chip_smoke.scatter_kinds([(r, c, n) for _, r, c, n in order],
+                                         mesh, budget, N_RAYS)
+        assert kinds == [k for k, _, _, _ in order]
