@@ -176,10 +176,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
            `intersect_cuda(group=None)`: the group it took (the least power
            of two that fits), one launch of each kernel, the same checks,
            its time and the phase's seconds.
+13. graph  the train step as one CUDA graph (optimize/loop.py
+           `GraphedTrainStep`, which `optimize` runs every pass on the card;
+           phases 9 and 10 already went through it, their launch counts
+           being each replay's recorded launches): (a) phase 5's eager
+           step, once with device view indices and a 0-d lr as the graph
+           takes them and once with ints, inside the scatters' deferred
+           bounds scope under torch.cuda.set_sync_debug_mode("error"):
+           any synchronizing operation fails the run; (b) for sgd + none,
+           adam + none, uadam + h1 and sgd + sobolev, 3 eager steps and 3
+           graphed steps (the warm-up, the capture, 2 replays) from one
+           state on the same views: params, m, v and the loss equal bit
+           for bit after every step, and the graphed run's launches of
+           every kernel equal the eager run's; (c) phase 5's step timed in
+           turns (eager, graph, graph, eager), 5 steps a turn on the host
+           clock between synchronizations, with the launches of each
+           graph turn counted from 0 (11 of each oracle kernel and the
+           reckoned scatters a step, its warm-up and its replays); (d)
+           one replay and one eager step under torch.profiler: device
+           busy time and device operations; and the warm-up, capture and
+           instantiate seconds and the graph's memory pool.
 Then it prints the timings, a JSON line of phase 10's times, a JSON line of
-phase 11's and one of phase 12's, a JSON line with the kernels' numbers
-(with their times at each group on phase 12's bounce-2 query), the card's
-name and power limit, and as its last line {"ok": true, "device": {...}}.
+phase 11's, one of phase 12's, one of phase 13's, a JSON line with the
+kernels' numbers (with their times at each group on phase 12's bounce-2
+query), the card's name and power limit, and as its last line
+{"ok": true, "device": {...}}.
 
 The scatter kernel also runs in phases 3, 6, 7, 9, 10 and 11 (every
 vertex gradient on the card); phase 9 prints its launches.
@@ -242,6 +263,24 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# Profiles taken for one measurement before a range that lacks its device
+# span fails the run. Kineto builds a range's device span (its GPU user
+# annotation) from CUPTI's correlation records, and on the H100 a profile
+# now and then comes back with a range's span missing although the
+# range's operations ran.
+PROFILE_TRIES = 3
+
+
+def profile_again(attempt, why):
+    """After profile `attempt` (1-based) lacked a device span (`why`): True,
+    with a note on stderr, while another profile may be taken."""
+    if attempt >= PROFILE_TRIES:
+        return False
+    print(f"chip_smoke: profile {attempt} of {PROFILE_TRIES}: {why}; "
+          f"profiling again", file=sys.stderr)
+    return True
+
+
 def device_spans(calls, reps=5):
     """Each of `calls` (name -> fn) run `reps` times in turns under
     torch.profiler, each run in a range of its own. Per name, the medians
@@ -250,7 +289,9 @@ def device_spans(calls, reps=5):
     copies); `span_ms`, the range's device span, first start to last end;
     `ops`, its device operations (the largest count of any run); `by_op`,
     each operation's name (to its first parenthesis or template bracket)
-    and its median time over the runs."""
+    and its median time over the runs. Each call also runs once inside the
+    profile before the ranges, and a profile in which a range has no
+    device span is taken again (`profile_again`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     for fn in calls.values():
@@ -258,23 +299,33 @@ def device_spans(calls, reps=5):
     torch.cuda.synchronize()
     labels = {f"{name} run {r}": (name, r) for name in calls
               for r in range(reps)}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for r in range(reps):
-            for name, fn in calls.items():
-                with record_function(f"{name} run {r}"):
-                    fn()
-        torch.cuda.synchronize()
     dev_t = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.events() if e.device_type == dev_t]
-    ranges = {e.name: (e.time_range.start, e.time_range.end)
-              for e in events if e.name in labels}
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for fn in calls.values():
+                fn()
+            torch.cuda.synchronize()
+            for r in range(reps):
+                for name, fn in calls.items():
+                    with record_function(f"{name} run {r}"):
+                        fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == dev_t]
+        ranges = {e.name: (e.time_range.start, e.time_range.end)
+                  for e in events if e.name in labels}
+        missing = [label for label in labels if label not in ranges]
+        if not missing or not profile_again(
+                attempt, f"no device span for {len(missing)} of "
+                f"{len(labels)} ranges, the first {missing[0]!r}"):
+            break
     ops = [e for e in events if e.name not in labels]
     runs = {name: [] for name in calls}
     by_op = {name: {} for name in calls}
     for label, (name, _) in labels.items():
         if label not in ranges:
-            fail(f"profile: no device span for {label!r}")
+            fail(f"profile: no device span for {label!r} in "
+                 f"{PROFILE_TRIES} profiles")
         a, b = ranges[label]
         inside = [k for k in ops
                   if a <= k.time_range.start and k.time_range.end <= b]
@@ -1080,7 +1131,8 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
     min/max reduction, a concatenation: csrc/pack.cu does them), more than
     MAX_ORACLE_OPS device operations in a query, or if the step's
     `n_queries` queries did not each give a range with a device-side span,
-    since then the check could not see the oracle's kernels. Each call of
+    since then the check could not see the oracle's kernels (a profile
+    that lacks a range's span is taken again, `profile_again`). Each call of
     the scatter kernel runs in a range too: its device span, the step's
     device time by kernel, and a failure if torch's scatter-add kernels
     (PARENT_SCATTER_KERNELS) ran anywhere in the step. Returns the step's
@@ -1100,22 +1152,30 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
                                     momentum=hp.momentum,
                                     grad_clamp=hp.grad_clamp)
     state = init(mesh)
-    scatter_calls = []
-    with scatter_spy(scatter_calls, "scatter rows", keep=False), \
-            profile(activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
-        step(state, hp.start_lr, mesh, cap.views, 0, list(range(8)))
-        torch.cuda.synchronize()
-
     cpu_t, dev_t = (torch.autograd.DeviceType.CPU,
                     torch.autograd.DeviceType.CUDA)
-    events = prof.events()
-    n_ranges = sum(e.name == "oracle query" and e.device_type == cpu_t
-                   for e in events)
-    # each range's device-side span (kineto's GPU user annotation): the
-    # kernels that ran inside one are the oracle's
-    spans = [(e.time_range.start, e.time_range.end) for e in events
-             if e.name == "oracle query" and e.device_type == dev_t]
+    for attempt in range(1, PROFILE_TRIES + 1):
+        scatter_calls = []
+        with scatter_spy(scatter_calls, "scatter rows", keep=False), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
+            step(state, hp.start_lr, mesh, cap.views, 0, list(range(8)))
+            torch.cuda.synchronize()
+        events = prof.events()
+        n_ranges = sum(e.name == "oracle query" and e.device_type == cpu_t
+                       for e in events)
+        # each range's device-side span (kineto's GPU user annotation): the
+        # kernels that ran inside one are the oracle's
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == "oracle query" and e.device_type == dev_t]
+        sc_spans = [(e.time_range.start, e.time_range.end) for e in events
+                    if e.name == "scatter rows" and e.device_type == dev_t]
+        if (len(spans) == n_ranges and len(sc_spans) == len(scatter_calls)
+                or not profile_again(
+                    attempt, f"{len(spans)} device spans for {n_ranges} "
+                    f"oracle ranges, {len(sc_spans)} for "
+                    f"{len(scatter_calls)} scatter ranges")):
+            break
     kernels = [e for e in events if e.device_type == dev_t
                and e.name not in ("oracle query", "scatter rows")]
     per_query = [[k for k in kernels
@@ -1158,8 +1218,6 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
         fail(f"profile: a query made {max(len(q) for q in per_query)} device "
              f"operations, more than {MAX_ORACLE_OPS}")
     # the scatter kernel: each call's device span, and no torch scatter-add
-    sc_spans = [(e.time_range.start, e.time_range.end) for e in events
-                if e.name == "scatter rows" and e.device_type == dev_t]
     if len(sc_spans) != len(scatter_calls):
         fail(f"profile: {len(sc_spans)} device spans for the step's "
              f"{len(scatter_calls)} scatter calls")
@@ -1930,6 +1988,222 @@ def parallel_ranks_phase(res, hp, weights, budget, mesh, cap, shift):
             for k in range(3)], times
 
 
+# The optimizer and preconditioner pairs phase 13 holds graphed against
+# eager: phase 5's and phase 6's, each with its lr.
+GRAPH_PAIRS = (("sgd", "none"), ("adam", "none"), ("uadam", "h1"),
+               ("sgd", "sobolev"))
+
+
+def graph_phase(res, hp, weights, budget, mesh, cap, per_step,
+                scatter_step):
+    """Phase 13: the train step as one CUDA graph (GraphedTrainStep, as
+    `optimize` runs each pass on the card). Returns (the phase's launches
+    of the three oracle kernels, its scatter launches, its numbers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from drt_tpu_torch.geometry.scatter import deferred_bounds_check
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.optimize import make_train_step
+    from drt_tpu_torch.optimize.loop import GraphedTrainStep
+    dev = mesh.vertices.device
+    t_phase = time.time()
+    out = {}
+
+    def make(optimizer="sgd", precond="none"):
+        return make_train_step(
+            get_intersect_fn("auto"), weights, *res, budget,
+            momentum=hp.momentum, optimizer=optimizer, precond=precond,
+            precond_lambda=hp.precond_lambda, cg_iters=hp.cg_iters,
+            grad_clamp=hp.grad_clamp)
+
+    def drawn(n, seed):
+        ray_gen = cap.ray_view_generator(seed=seed)
+        silh_gen = cap.silh_view_generator(seed=seed + 1000)
+        return ([[next(ray_gen)] for _ in range(n)],
+                [[next(silh_gen) for _ in range(8)] for _ in range(n)])
+
+    def graphed(step, state, lr, ray, silh):
+        return GraphedTrainStep(step, state, lr, mesh, cap.views,
+                                torch.tensor(ray, device=dev),
+                                torch.tensor(silh, device=dev))
+
+    # (a) the census: phase 5's eager step inside the scatters' deferred
+    # bounds scope under sync debug mode "error", once with the graph's
+    # device indices and a 0-d lr and once with ints and a float
+    init, step, _ = make()
+    state = init(mesh)
+    word = torch.zeros(1, dtype=torch.int32, device=dev)
+    lr_t = torch.full((), hp.start_lr, dtype=state["params"].dtype,
+                      device=dev)
+    ray, silh = drawn(1, hp.seed)
+    ray_t, silh_t = (torch.tensor(ray[0], device=dev),
+                     torch.tensor(silh[0], device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with deferred_bounds_check(word):
+            step(state, lr_t, mesh, cap.views, ray_t, silh_t)
+            step(state, hp.start_lr, mesh, cap.views, ray[0][0], silh[0])
+    except RuntimeError as e:
+        fail(f"graph: the eager step made a synchronizing operation inside "
+             f"the deferred bounds scope: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if int(word):
+        fail("graph: the census steps flagged an index out of bounds")
+    print("graph: census: phase 5's eager step, with device and with host "
+          "view indices, made 0 synchronizing operations inside the "
+          "deferred bounds scope (sync debug mode \"error\")")
+
+    # (b) 3 eager and 3 graphed steps (the warm-up, the capture, 2 replays)
+    # from one state: the same bits after every step; the graphed run's
+    # launches those of the eager run
+    out["bitwise"] = {}
+    for optimizer, precond in GRAPH_PAIRS:
+        name = f"{optimizer} + {precond}"
+        lr = hp.start_lr if optimizer == "sgd" else 0.01
+        init_o, step_o, _ = make(optimizer, precond)
+        state0 = init_o(mesh)
+        ray, silh = drawn(3, hp.seed + 7)
+        eager, st = [], state0
+        CK.counters.reset()
+        for r, s in zip(ray, silh):
+            st, loss, _ = step_o(st, lr, mesh, cap.views, r[0], s)
+            eager.append((loss.clone(), {k: v.clone() for k, v in
+                                         st.items()}))
+        want = CK.counters.snapshot()
+        CK.counters.reset()
+        run = graphed(step_o, state0, lr, ray, silh)
+        for it, (loss_e, st_e) in enumerate(eager):
+            loss, _ = run()
+            diff = [k for k in ("params", "m", "v", "v_per", "count",
+                                "silh_max")
+                    if not torch.equal(run.state[k], st_e[k])]
+            if diff or not torch.equal(loss, loss_e):
+                fail(f"graph: {name} step {it}: the graphed step differs "
+                     f"from the eager step in {diff or ['loss']}")
+        got = CK.counters.snapshot()
+        run.close()
+        if got != want or got["launches"] != 3 * per_step:
+            fail(f"graph: {name}: launches {got} in 3 graphed steps, "
+                 f"{want} in 3 eager steps")
+        if int(run.bounds_word):
+            fail(f"graph: {name}: a scatter index was out of bounds")
+        out["bitwise"][name] = {"steps": 3, "equal": True,
+                                "setup": run.setup,
+                                "scatter_launches": got["scatter_launches"]}
+        print(f"graph: {name}: 3 graphed steps (warm-up, capture, 2 "
+              f"replays) equal 3 eager steps bit for bit (params, m, v, "
+              f"loss); launches {got['launches']} closest-hit, "
+              f"{got['scatter_launches']} scatter in both; capture "
+              f"{run.setup['capture_s']:.3f} s, instantiate "
+              f"{run.setup['instantiate_s']:.3f} s, pool "
+              f"{run.setup['pool_bytes'] / 2**20:.0f} MiB")
+        del run, eager, st, state0
+
+    # (c) the step's time in turns: eager, graph, graph, eager; 5 timed
+    # steps a turn after its warm-up (and, in a graph turn, the capture)
+    n = 5
+    turns = []
+    graph_launches, graph_scatters = (0, 0, 0), 0
+    for kind in ("eager", "graph", "graph", "eager"):
+        ray, silh = drawn(2 + n, hp.seed + len(turns))
+        st = init(mesh)
+        ms_ = []
+        if kind == "eager":
+            for it in range(1 + n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, _, _ = step(st, hp.start_lr, mesh, cap.views,
+                                ray[it][0], silh[it])
+                torch.cuda.synchronize()
+                if it:
+                    ms_.append((time.perf_counter() - t0) * 1e3)
+        else:
+            run = graphed(step, st, hp.start_lr, ray, silh)
+            CK.counters.reset()              # the graph's path starts here
+            for it in range(2 + n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                if it >= 2:
+                    ms_.append((time.perf_counter() - t0) * 1e3)
+            launched = counts()              # and ends here
+            sc = CK.counters.scatter_launches
+            graph_launches = tuple(a + b for a, b in zip(graph_launches,
+                                                         launched))
+            graph_scatters += sc
+            if launched != (per_step * (2 + n),) * 3 \
+                    or sc != scatter_step * (2 + n):
+                fail(f"graph: {2 + n} graphed steps launched {launched} "
+                     f"oracle kernels and {sc} scatters, reckoned "
+                     f"{per_step * (2 + n)} and {scatter_step * (2 + n)}")
+            setup = dict(run.setup)
+            run.close()
+        turns.append({"kind": kind, "step_ms": ms_})
+        print(f"graph: turn {len(turns)} ({kind}): step ms "
+              f"{[round(x, 2) for x in ms_]}")
+    if min(graph_launches) < 1 or graph_scatters < 1:
+        fail(f"graph: the graphed steps launched {graph_launches} oracle "
+             f"kernels and {graph_scatters} scatters")
+    for kind in ("eager", "graph"):
+        xs = [x for t in turns if t["kind"] == kind for x in t["step_ms"]]
+        out[f"{kind}_step_ms"] = {
+            "median": statistics.median(xs), "min": min(xs), "max": max(xs),
+            "turn_medians": [statistics.median(t["step_ms"]) for t in turns
+                             if t["kind"] == kind]}
+    out["turns"] = turns
+    out["setup"] = setup
+
+    # (d) one replay and one eager step under torch.profiler: device busy
+    # time and device operations
+    dev_t = torch.autograd.DeviceType.CUDA
+    ray, silh = drawn(3, hp.seed + 20)
+    run = graphed(step, init(mesh), hp.start_lr, ray, silh)
+    for _ in range(2):                       # the warm-up, the capture
+        run()
+    prof_out = {}
+    for kind in ("graph", "eager"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if kind == "graph":
+                run()
+            else:
+                step(state, hp.start_lr, mesh, cap.views, ray[0][0], silh[0])
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == dev_t
+               and not e.is_user_annotation]
+        prof_out[kind] = {
+            "device_busy_ms": sum(e.time_range.end - e.time_range.start
+                                  for e in ops) / 1e3,
+            "device_ops": len(ops)}
+    run.close()
+    out["profile"] = prof_out
+    if prof_out["graph"]["device_ops"] < 1:
+        fail("graph: torch.profiler saw no device operation in a replay")
+    g, e = out["graph_step_ms"], out["eager_step_ms"]
+    print(f"graph: phase 5's step in turns (eager, graph, graph, eager), "
+          f"{n} steps a turn: eager {e['median']:.2f} ms ({e['min']:.2f}-"
+          f"{e['max']:.2f}, turn medians "
+          f"{[round(x, 2) for x in e['turn_medians']]}), graph "
+          f"{g['median']:.2f} ms ({g['min']:.2f}-{g['max']:.2f}, turn "
+          f"medians {[round(x, 2) for x in g['turn_medians']]}); a replay "
+          f"{prof_out['graph']['device_busy_ms']:.3f} ms device busy in "
+          f"{prof_out['graph']['device_ops']} device operations, an eager "
+          f"step {prof_out['eager']['device_busy_ms']:.3f} ms in "
+          f"{prof_out['eager']['device_ops']}; warm-up "
+          f"{setup['warmup_s']:.3f} s (1 step), capture "
+          f"{setup['capture_s']:.3f} s, instantiate "
+          f"{setup['instantiate_s']:.3f} s, pool "
+          f"{setup['pool_bytes'] / 2**20:.1f} MiB; launches {graph_launches}"
+          f", scatter launches {graph_scatters}")
+    out["phase_s"] = time.time() - t_phase
+    return graph_launches, graph_scatters, out
+
+
 def main():
     # cuBLAS's fixed workspace, which torch.use_deterministic_algorithms
     # (phase 11a) asks for; it is read when cuBLAS starts
@@ -2314,7 +2588,11 @@ def main():
                   f"{ms_ck.faces.shape[0]}, {ms_ck.faces.shape[0] // C} "
                   f"chunks, incoherent route {route}), silhouette budget "
                   f"{p['budget']}, remesh {p['remesh_s']:.2f} s, "
-                  f"{hp_lod.iters} steps {p['steps_s']:.2f} s")
+                  f"{hp_lod.iters} steps {p['steps_s']:.2f} s, graph: "
+                  f"warm-up {p['graph']['warmup_s']:.3f} s, capture "
+                  f"{p['graph']['capture_s']:.3f} s, instantiate "
+                  f"{p['graph']['instantiate_s']:.3f} s, pool "
+                  f"{p['graph']['pool_bytes'] / 2**20:.0f} MiB")
             if p["faces"] != ms_ck.num_faces:
                 fail(f"lod: pass {i} ran on {p['faces']} faces, its "
                      f"checkpoint has {ms_ck.num_faces}")
@@ -2384,8 +2662,12 @@ def main():
     # -- 12. candidate groups, t_min, a mesh above the cap -------------------
     by_group, group_times = groups_phase(dev, RES, hp, ms45, o1, d1, gen)
 
+    # -- 13. the train step as one CUDA graph -------------------------------
+    graph_launches, graph_scatters, graph_out = graph_phase(
+        RES, hp, weights, budget, ms45, cap, per_step, scatter_step)
+
     total = [sum(x) for x in zip(launches, lod_launches, cli_launches,
-                                 par_launches)]
+                                 par_launches, graph_launches)]
 
     cam_r = results["camera"]
     pre = {k: r["prepass"] for k, r in results.items()}
@@ -2402,6 +2684,7 @@ def main():
         "launches_lod": lod_launches[0],
         "launches_cli": cli_launches[0],
         "launches_parallel": par_launches[0],
+        "launches_graph": graph_launches[0],
         "launches_per_step": per_step,
         "shape": "camera rays 1280x960 on dog_mid90k",
         "max_abs_err": max(r["err"] for r in [*results.values(),
@@ -2425,6 +2708,7 @@ def main():
         "launches_lod": lod_launches[1],
         "launches_cli": cli_launches[1],
         "launches_parallel": par_launches[1],
+        "launches_graph": graph_launches[1],
         "launches_per_step": per_step,
         "shape": "ray mode: bounce-2 rays 1280x960 on dog_mid45k, groups "
                  f"of {results['dog_mid45k bounce2']['group']} (the default)",
@@ -2461,6 +2745,7 @@ def main():
         "launches_lod": lod_launches[2],
         "launches_cli": cli_launches[2],
         "launches_parallel": par_launches[2],
+        "launches_graph": graph_launches[2],
         "launches_per_step": per_step,
         "shape": "bounce-2 rays 1280x960 on dog_mid45k, groups of "
                  f"{results['dog_mid45k bounce2']['group']} (the default)",
@@ -2487,10 +2772,12 @@ def main():
         "oracle_ops_per_step": oracle_ops,
     }, scatter_entry(scatter_checked, scatter_prof, scatter_launches,
                      scatter_step, lod_scatters, scatter_route_launches)]
+    kernels[-1]["launches_graph"] = graph_scatters
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(json.dumps({"cli": cli_times}))
+    print(json.dumps({"graph": graph_out}))
     print(json.dumps({"parallel": par_times}))
     print(json.dumps({"groups": group_times}))
     print(json.dumps({"kernels": kernels}))

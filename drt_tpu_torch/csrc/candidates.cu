@@ -420,6 +420,18 @@ __global__ void __launch_bounds__(MAX_BLOCK) candidates_kernel(
     if (tid == 0) count[tile] = n_fin;
 }
 
+// Dynamic shared memory of a launch: the tile's rays staged twice, the
+// sort keys and the list of valid chunks.
+static size_t prepass_smem(int ray_tile, int nc) {
+    return 2 * (size_t)ray_tile * sizeof(float4)
+           + (size_t)pow2_at_least(nc) * sizeof(u64) + (size_t)nc * sizeof(int);
+}
+
+// Set once: the first launch above the default 48 KB allows the most any
+// launch takes, so no later launch sets the attribute again (none inside a
+// CUDA graph capture).
+static bool g_smem_allowed = false;
+
 extern "C" {
 
 int candidates_max_ray_tile() { return MAX_RAY_TILE; }
@@ -443,14 +455,14 @@ int candidates_launch(const float* org, const float* inv, const float* lo,
     if (ray_tile < 1 || ray_tile > MAX_RAY_TILE || nc > MAX_CHUNKS)
         return (int)cudaErrorInvalidValue;
     if (n_tiles > 0 && nc > 0) {
-        const size_t smem = 2 * (size_t)ray_tile * sizeof(float4)
-                            + (size_t)pow2_at_least(nc) * sizeof(u64)
-                            + (size_t)nc * sizeof(int);
-        if (smem > 48 * 1024) {
+        const size_t smem = prepass_smem(ray_tile, nc);
+        if (smem > 48 * 1024 && !g_smem_allowed) {
             const cudaError_t e = cudaFuncSetAttribute(
                 candidates_kernel,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)prepass_smem(MAX_RAY_TILE, MAX_CHUNKS));
             if (e != cudaSuccess) return (int)e;
+            g_smem_allowed = true;
         }
         candidates_kernel<<<n_tiles, PREPASS_BLOCK, smem,
                             (cudaStream_t)stream>>>(

@@ -26,15 +26,35 @@ class ViewBatch(NamedTuple):
     R_inv: torch.Tensor         # [V,4,4]
     K_inv: torch.Tensor         # [V,3,3]
 
-    def take(self, v: int):
+    def take(self, v, rays: bool = True):
         """One view as (screen_pixel, valid, mask, origin, ray_dir, camera);
-        compact [1,3] origins are broadcast back to per-pixel."""
-        cam = CameraM(self.R[v], self.K[v], self.R_inv[v], self.K_inv[v])
-        origin = self.origin[v]
-        if origin.shape[0] == 1 and self.ray_dir.shape[1] != 1:
-            origin = origin.expand(self.ray_dir[v].shape)
-        return (self.screen_pixel[v], self.valid[v], self.mask[v],
-                origin, self.ray_dir[v], cam)
+        compact [1,3] origins are broadcast back to per-pixel.
+
+        v: an int, or a one-element int64 tensor on the views' device (a
+        CUDA graph selects its views by device index): the same bits, taken
+        by `index_select` without a host read (indexing by a 0-d tensor
+        would read it). rays=False leaves out what only the ray loss reads:
+        screen_pixel, valid and ray_dir are None and origin is the view's
+        first [1,3] row, all a silhouette view needs."""
+        if isinstance(v, torch.Tensor):
+            i = v.reshape(1)
+
+            def pick(x):
+                return x.index_select(0, i)[0]
+        else:
+            def pick(x):
+                return x[v]
+        cam = CameraM(pick(self.R), pick(self.K), pick(self.R_inv),
+                      pick(self.K_inv))
+        if not rays:
+            return (None, None, pick(self.mask), pick(self.origin[:, :1]),
+                    None, cam)
+        origin = pick(self.origin)
+        ray_dir = pick(self.ray_dir)
+        if origin.shape[0] == 1 and ray_dir.shape[0] != 1:
+            origin = origin.expand(ray_dir.shape)
+        return (pick(self.screen_pixel), pick(self.valid), pick(self.mask),
+                origin, ray_dir, cam)
 
 
 @dataclasses.dataclass

@@ -17,9 +17,18 @@ or raises; no route gives way to the other.
 `gather_rows(x, idx)` is x[idx] with `scatter_rows` as its backward, so the
 step's vertex gathers no longer differentiate through advanced indexing
 (IndexBackward0, a sort-based `index_put_` with accumulate on the card).
+
+An index outside [0, num) raises `RuntimeError`. A call on its own reads
+the kernel's flag and raises at once, which waits for the launch. Inside
+`deferred_bounds_check(word)` (the scope of a CUDA graph of the train
+step) a call ORs its flag into `word` on the device and reads nothing; the
+word's owner reads it once, later, and raises then
+(`raise_if_out_of_bounds`).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -40,6 +49,36 @@ ROUTES = ("cluster", "grid")          # csrc/scatter.cu's route 0 and 1
 # (2^24 destinations) on the whole card.
 CLUSTER_MAX_ROWS = 2 ** 16
 CLUSTER_MAX_OUT = 2 ** 20
+
+# The device word of the open `deferred_bounds_check` scope, or None. A
+# module variable, not a thread-local: the backward's scatters run on the
+# autograd engine's own thread.
+_deferred_word = None
+
+
+@contextlib.contextmanager
+def deferred_bounds_check(word: torch.Tensor):
+    """For the duration, each `scatter_rows_cuda` call ORs its out-of-range
+    flag into `word` ([1] int32 on the card) instead of reading it, so the
+    call never waits on the host. Scopes do not nest."""
+    global _deferred_word
+    if word.dtype != torch.int32 or word.shape != (1,):
+        raise ValueError(f"word: expected [1] int32, got "
+                         f"{tuple(word.shape)} {word.dtype}")
+    if _deferred_word is not None:
+        raise RuntimeError("deferred_bounds_check: a scope is already open")
+    _deferred_word = word
+    try:
+        yield word
+    finally:
+        _deferred_word = None
+
+
+def raise_if_out_of_bounds(flag, num=None):
+    """Raise the out-of-range error if `flag` (a host number) is set."""
+    if flag:
+        into = f" for {num} destinations" if num is not None else ""
+        raise RuntimeError(f"scatter_rows: an index is out of bounds{into}")
 
 
 def scatter_route(n_rows: int, n_cols: int, n_out: int) -> str:
@@ -93,7 +132,9 @@ def scatter_rows_cuda(rows, idx, num: int, route: str | None = None):
     `route` ("cluster" or "grid"; by default `scatter_route`'s). Rows
     whose every entry is +-0 are skipped (the same bits). An index outside
     [0, num) raises, as in the plain version: the kernel flags it and the
-    wrapper reads the flag, which waits for the launch to finish."""
+    wrapper reads the flag, which waits for the launch to finish; inside
+    `deferred_bounds_check` the flag is ORed into the scope's word on the
+    device and nothing waits."""
     _check(rows, idx, num)
     if rows.device.type != "cuda":
         raise ValueError("scatter_rows_cuda needs CUDA tensors")
@@ -124,9 +165,14 @@ def scatter_rows_cuda(rows, idx, num: int, route: str | None = None):
         kernels.counters.scatter_cluster_launches += 1
     else:
         kernels.counters.scatter_grid_launches += 1
-    if scratch[-1].item():
-        raise RuntimeError(f"scatter_rows: an index is out of bounds for "
-                           f"{num} destinations")
+    word = _deferred_word
+    if word is None:
+        raise_if_out_of_bounds(scratch[-1].item(), num)
+    elif word.device != rows.device:
+        raise ValueError(f"the deferred bounds word is on {word.device}, "
+                         f"rows on {rows.device}")
+    else:
+        word.bitwise_or_(scratch[-1:])
     return out
 
 

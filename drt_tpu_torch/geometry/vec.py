@@ -6,23 +6,61 @@ with `torch.maximum`/`torch.minimum` against tensors, whose backward splits
 the gradient evenly at a tie exactly as JAX's `clip` does (`torch.clamp`
 passes all of it), so degenerate inputs (cos_i = +-1) give the same
 gradients as the JAX package.
+
+The bounds are device tensors made once per (value, dtype, device) by
+`constant` and kept: a Python number turned into a CUDA tensor on every
+call is a copy from pageable host memory, which waits for the stream and
+which a CUDA graph capture refuses.
 """
 
 from __future__ import annotations
 
 import torch
 
+_CONSTANTS: dict = {}
 
-def _c(x: torch.Tensor, value) -> torch.Tensor:
-    return torch.as_tensor(value, dtype=x.dtype, device=x.device)
+
+def constant(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """`value` (a number, or a tuple of numbers for a 1-d tensor) as a
+    tensor of `dtype` on `device`, the bits `torch.as_tensor` gives. Made
+    once per (value, dtype, device) by device fills, never a host copy, and
+    kept for every later call; callers must not write to it. On a card the
+    first call for a value must come before any stream capture (a graph's
+    warm-up makes it): a constant filled inside a capture would hold its
+    value only once the graph has run."""
+    device = torch.device(device)
+    key = (repr(value), dtype, device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"constant {value!r} ({dtype}) first asked "
+                               "for inside a CUDA graph capture: make it "
+                               "before the capture (in its warm-up)")
+        values = value if isinstance(value, tuple) else (value,)
+        with torch.inference_mode(False):
+            t = torch.empty(len(values), dtype=dtype, device=device)
+            for i, v in enumerate(values):
+                t[i].fill_(v)
+        if not isinstance(value, tuple):
+            t = t[0]
+        _CONSTANTS[key] = t
+    return t
+
+
+def const_like(x: torch.Tensor, value) -> torch.Tensor:
+    """`value` in x's dtype on x's device: a tensor cast, a number from
+    `constant`."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=x.dtype, device=x.device)
+    return constant(value, x.dtype, x.device)
 
 
 def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
     """`jnp.clip` with JAX's gradient convention at the bounds."""
     if lo is not None:
-        x = torch.maximum(x, _c(x, lo))
+        x = torch.maximum(x, const_like(x, lo))
     if hi is not None:
-        x = torch.minimum(x, _c(x, hi))
+        x = torch.minimum(x, const_like(x, hi))
     return x
 
 
@@ -57,7 +95,7 @@ def refract(wo: torch.Tensor, n: torch.Tensor, eta,
     wt [...,3]); TIR lanes carry a finite garbage direction.
     compat_cos_from_incident=True reproduces the reference's cosThetaT from
     sin²θI (DiffRender.py:42)."""
-    eta = torch.as_tensor(eta, dtype=wo.dtype, device=wo.device)
+    eta = const_like(wo, eta)
     if eta.ndim:
         eta = eta[..., None]
     cos_i = dot3(n, wo, keepdims=True)

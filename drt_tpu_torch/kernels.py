@@ -15,7 +15,9 @@ The wrappers:
 - geometry/scatter.py: csrc/scatter.cu, the row scatter-add.
 
 `counters` counts each kernel's launches; a wrapper adds one only where it
-launches its kernel (never on the plain version's path).
+launches its kernel (never on the plain version's path). A CUDA graph's
+replay adds the launches its capture recorded (optimize/loop.py
+`GraphedTrainStep`).
 """
 
 from __future__ import annotations
@@ -54,6 +56,17 @@ class LaunchCounter:
         self.scatter_launches = 0
         self.scatter_cluster_launches = 0
         self.scatter_grid_launches = 0
+
+    def snapshot(self) -> dict:
+        """Every count, by name."""
+        return dict(vars(self))
+
+    def add(self, delta: dict, times: int = 1):
+        """Add `times` x `delta` (counts by name) to the counts: a CUDA
+        graph's replay adds the launches its capture recorded, and the
+        capture, which launched nothing, takes its own back."""
+        for name, n in delta.items():
+            setattr(self, name, getattr(self, name) + times * n)
 
 
 counters = LaunchCounter()

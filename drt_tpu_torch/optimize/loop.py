@@ -10,9 +10,14 @@ schedules for remesh length and learning rate, and the gradient limit hook
 One step: vertices from the parameters, vertex normals
 (MeshState.with_vertices), total_loss, backward to the [V,3] gradient, the
 preconditioner, the limit hook and the optimizer update. The state is a
-dict of device tensors and a step reads nothing back to the host; `optimize`
-reads once a pass (the running silhouette-edge maximum) and on logged
-iterations. Per-pass state is checkpointed as a PLY mesh, which gives the
+dict of device tensors. On the card `optimize` runs each pass's steps as
+one CUDA graph (`GraphedTrainStep`), captured once a pass and replayed
+every iteration, the counterpart of the JAX package's jitted step: no step
+reads anything back to the host, and `optimize` reads once a pass (the
+running silhouette-edge maximum and the scatters' out-of-range word, in
+one read) and on logged iterations. On the CPU it runs the eager step of
+`make_train_step`, whose scatters check their indices at every call.
+Per-pass state is checkpointed as a PLY mesh, which gives the
 restart-from-pass capability the reference lacks. Remeshing is an injectable
 callable (the in-process isotropic remesher of drt_tpu_torch.remesh stands
 in for the reference's meshlabserver subprocess).
@@ -29,8 +34,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from drt_tpu_torch import kernels
 from drt_tpu_torch.config import HyperParams
 from drt_tpu_torch.data.views import CaptureData
+from drt_tpu_torch.geometry.scatter import (deferred_bounds_check,
+                                            raise_if_out_of_bounds)
 from drt_tpu_torch.intersect.api import get_intersect_fn
 from drt_tpu_torch.mesh.ply import load_ply, save_ply
 from drt_tpu_torch.mesh.state import MeshState, build_mesh_state
@@ -38,6 +46,7 @@ from drt_tpu_torch.mesh.topology import build_topology, morton_order_faces
 from drt_tpu_torch.optimize.losses import LossWeights, total_loss
 from drt_tpu_torch.optimize.precondition import sobolev_apply, sobolev_solve
 from drt_tpu_torch.optimize.schedules import interp_reciprocal
+from drt_tpu_torch.render.trace import debug_enabled
 
 
 def limit_grad(g: torch.Tensor, max_abs: float = 1.0) -> torch.Tensor:
@@ -263,7 +272,173 @@ def make_train_step(intersect_fn: Callable, weights: LossWeights,
                                  maxiter=4 * cg_iters, tol=1e-8)
         return state["init_v"] + state["params"]
 
+    step.ray_mesh = ray_mesh          # GraphedTrainStep refuses a sharded step
     return init_state, step, final_vertices
+
+
+# Eager steps a pass's graph runs before its capture: one builds the
+# kernels and makes every lazy thing of the step (the constants of
+# geometry/vec.py, the cached tables, cuBLAS's workspace on the side
+# stream, the autograd engine's thread), so that the capture meets none.
+GRAPH_WARMUP_STEPS = 1
+# One side stream a device for every pass's graph: a new stream each pass
+# would leave a cuBLAS workspace behind each time (torch keeps one a
+# stream).
+_graph_streams: dict = {}
+
+
+def _graph_stream(dev: torch.device) -> torch.cuda.Stream:
+    if dev not in _graph_streams:
+        _graph_streams[dev] = torch.cuda.Stream(device=dev)
+    return _graph_streams[dev]
+
+
+class GraphedTrainStep:
+    """One LOD pass's train step on the card as one CUDA graph, captured
+    once and replayed every iteration: the port's counterpart of the JAX
+    package's jitted step (drt_tpu/optimize/loop.py, `@jax.jit`).
+
+        run = GraphedTrainStep(step, state, lr, mesh, views, ray_idx,
+                               silh_idx)
+        for it in range(iters):
+            loss, aux = run()
+        state = run.close()
+
+    `step` is make_train_step's eager step; `state` its state (copied into
+    static buffers that each call updates in place); `lr` a number, held in
+    a 0-d device tensor of the parameters' type; `ray_idx` [iters, R] and
+    `silh_idx` [iters, S] int64 on the card, the views of each iteration,
+    drawn before the pass: a device counter steps through their rows, so
+    one graph serves every iteration. The first GRAPH_WARMUP_STEPS calls
+    run the step eagerly (real steps of the pass); the next captures it with
+    `torch.cuda.graph` (keep_graph, then `instantiate`) and replays it, and
+    every later call replays it. All of it runs on a side stream, which the
+    current stream waits for after each call. A call returns (loss, aux):
+    tensors that the next call overwrites, read them before it. Each replay
+    adds to `kernels.counters` the launches its capture recorded, so the
+    counts read as the eager steps' would.
+
+    Inside the wrapper every scatter ORs its out-of-range flag into
+    `bounds_word` and reads nothing; the owner reads the word once, after
+    `close()` (`optimize` reads it with the silhouette-edge maximum) and
+    raises then. `setup` holds the warm-up, capture and instantiate seconds
+    and the graph's memory pool (bytes reserved by the capture).
+
+    No fallback: a capture or replay that fails raises. It refuses CPU
+    tensors (the CPU runs the eager step), DRT_TPU_DEBUG (its checks read
+    the host inside the step) and a sharded step (`ray_mesh`: gloo
+    collectives cannot be captured; that step stays eager)."""
+
+    def __init__(self, step, state: dict, lr, mesh: MeshState, views,
+                 ray_idx: torch.Tensor, silh_idx: torch.Tensor):
+        if debug_enabled():
+            raise RuntimeError("GraphedTrainStep: DRT_TPU_DEBUG is set, and "
+                               "its checks read counts back to the host "
+                               "inside the step, which a CUDA graph cannot "
+                               "capture; run make_train_step's eager step")
+        if getattr(step, "ray_mesh", None) is not None:
+            raise ValueError("GraphedTrainStep: a sharded step (ray_mesh) "
+                             "is not captured: its gloo collectives cannot "
+                             "be; run it eagerly")
+        params = state["params"]
+        dev = params.device
+        if dev.type != "cuda":
+            raise ValueError(f"GraphedTrainStep: the state is on {dev}; a "
+                             "CUDA graph needs the card (the CPU runs "
+                             "make_train_step's eager step)")
+        for name, idx in (("ray_idx", ray_idx), ("silh_idx", silh_idx)):
+            if (idx.dim() != 2 or idx.dtype != torch.int64
+                    or idx.device != dev):
+                raise ValueError(f"{name}: expected [iters, k] int64 on "
+                                 f"{dev}, got {tuple(idx.shape)} "
+                                 f"{idx.dtype} on {idx.device}")
+        if ray_idx.shape[0] != silh_idx.shape[0]:
+            raise ValueError(f"ray_idx has {ray_idx.shape[0]} iterations, "
+                             f"silh_idx {silh_idx.shape[0]}")
+        self._step, self._mesh, self._views = step, mesh, views
+        self._ray_idx, self._silh_idx = ray_idx, silh_idx
+        self.iters = ray_idx.shape[0]
+        self.state = {k: v.clone() for k, v in state.items()}
+        self.lr = torch.full((), float(lr), dtype=params.dtype, device=dev)
+        self.bounds_word = torch.zeros(1, dtype=torch.int32, device=dev)
+        self._it = torch.zeros(1, dtype=torch.int64, device=dev)
+        self._stream = _graph_stream(dev)
+        self._calls = 0
+        self._graph = None
+        self._out = None
+        self._replay_launches = None
+        self.setup = {"warmup_s": 0.0}
+
+    def _body(self):
+        ray = self._ray_idx.index_select(0, self._it)[0]
+        silh = self._silh_idx.index_select(0, self._it)[0]
+        new, loss, aux = self._step(self.state, self.lr, self._mesh,
+                                    self._views, ray, silh)
+        self._it.add_(1)
+        for k, v in new.items():
+            if v is not self.state[k]:
+                self.state[k].copy_(v)
+        return loss, aux
+
+    def _capture(self):
+        dev = self.lr.device
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()        # the pool: what the capture adds
+        reserved = torch.cuda.memory_reserved(dev)
+        before = kernels.counters.snapshot()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=self._stream):
+            self._out = self._body()
+        t1 = time.perf_counter()
+        graph.instantiate()
+        t2 = time.perf_counter()
+        after = kernels.counters.snapshot()
+        # the capture recorded these launches and ran none of them
+        self._replay_launches = {k: after[k] - before[k] for k in after}
+        kernels.counters.add(self._replay_launches, -1)
+        self._graph = graph
+        self.setup.update(
+            capture_s=t1 - t0, instantiate_s=t2 - t1,
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved)
+
+    def __call__(self):
+        """Run the pass's next iteration; returns (loss, aux)."""
+        if self._calls >= self.iters:
+            raise RuntimeError(f"GraphedTrainStep: all {self.iters} "
+                               "iterations of the pass have run")
+        if self._calls < 0:
+            raise RuntimeError("GraphedTrainStep: closed")
+        self._calls += 1
+        cur = torch.cuda.current_stream(self.lr.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            if self._calls <= GRAPH_WARMUP_STEPS:
+                t0 = time.perf_counter()
+                with deferred_bounds_check(self.bounds_word):
+                    out = self._body()
+                self.setup["warmup_s"] += time.perf_counter() - t0
+            else:
+                if self._graph is None:
+                    with deferred_bounds_check(self.bounds_word):
+                        self._capture()
+                self._graph.replay()
+                kernels.counters.add(self._replay_launches)
+                out = self._out
+        cur.wait_stream(self._stream)
+        return out
+
+    def close(self) -> dict:
+        """End the pass: release the graph and its memory pool and return
+        the state, whose buffers nothing overwrites any more. The caller
+        drops the (loss, aux) of its calls first, which live in the pool."""
+        torch.cuda.current_stream(self.lr.device).wait_stream(self._stream)
+        self._calls = -1
+        self._out = None
+        if self._graph is not None:
+            self._graph = None
+            torch.cuda.empty_cache()
+        return self.state
 
 
 def find_resume_pass(checkpoint_dir: str, name: str):
@@ -309,7 +484,14 @@ def optimize(
     failures are counted loudly. The same counters go to the metrics JSONL.
     run_info also gets "remesher" ("native" or "numpy" for the built-in
     remesher) and "passes": per pass its index, face count, silhouette
-    budget, and the seconds spent remeshing and stepping.
+    budget, the seconds spent remeshing and stepping and, on the card, its
+    graph's `setup` (GraphedTrainStep).
+
+    On the card each pass runs as one captured CUDA graph
+    (`GraphedTrainStep`, for every optimizer and preconditioner), with no
+    switch to the eager step: a scatter index out of bounds then raises
+    `RuntimeError` at the pass's one read, not at its call. On the CPU
+    every pass runs make_train_step's eager step.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -440,14 +622,27 @@ def optimize(
         state = init_state(mesh)
         ray_gen = data.ray_view_generator(seed=hp.seed + i_pass)
         silh_gen = data.silh_view_generator(seed=hp.seed + 1000 + i_pass)
-
         rvpi = max(1, hp.ray_views_per_iter)
+        # The pass's views, drawn before it; 8 silhouette views per step
+        # (optim.py:72).
+        ray_idx = [[next(ray_gen) for _ in range(rvpi)]
+                   for _ in range(hp.iters)]
+        silh_idx = [[next(silh_gen) for _ in range(8)]
+                    for _ in range(hp.iters)]
+        graph = None
+        if device.type == "cuda":
+            graph = GraphedTrainStep(
+                step, state, lr, mesh, data.views,
+                torch.tensor(ray_idx, dtype=torch.int64, device=device),
+                torch.tensor(silh_idx, dtype=torch.int64, device=device))
+
+        loss = aux = None
         for it in range(hp.iters):
-            ray_idx = [next(ray_gen) for _ in range(rvpi)]
-            # 8 silhouette views per step (optim.py:72).
-            silh_idx = [next(silh_gen) for _ in range(8)]
-            state, loss, aux = step(state, lr, mesh, data.views, ray_idx,
-                                    silh_idx)
+            if graph is not None:
+                loss, aux = graph()
+            else:
+                state, loss, aux = step(state, lr, mesh, data.views,
+                                        ray_idx[it], silh_idx[it])
             if it % log_every == 0:
                 log_fn(f"  iter {it}: loss={float(loss):g} "
                        f"ray={float(aux['ray']):g} vh={float(aux['vh']):g} "
@@ -461,8 +656,17 @@ def optimize(
         # silhouette edges than the static budget, samples were truncated;
         # warn loudly and grow the budget for subsequent passes (next power
         # of two). The running max lives in the step state, so every
-        # iteration is observed; this is the pass's one host read.
-        silh_seen = int(state["silh_max"])
+        # iteration is observed; this is the pass's one host read, which
+        # on the card also takes the scatters' out-of-range word.
+        del loss, aux                    # on the card, in the graph's pool
+        if graph is not None:
+            state = graph.close()
+            silh_seen, bad = torch.stack(
+                [state["silh_max"],
+                 graph.bounds_word[0].to(torch.int64)]).tolist()
+            raise_if_out_of_bounds(bad)
+        else:
+            silh_seen = int(state["silh_max"])
         if silh_seen > budget:
             grown = budget
             while grown < silh_seen:
@@ -476,7 +680,8 @@ def optimize(
         run_info["passes"].append({
             "pass": i_pass, "faces": mesh.num_faces, "budget": budget,
             "remesh_s": t_remeshed - t_pass,
-            "steps_s": time.time() - t_remeshed})
+            "steps_s": time.time() - t_remeshed,
+            **({"graph": graph.setup} if graph is not None else {})})
 
         if checkpoint_dir and hp.checkpoint_every_pass:
             os.makedirs(checkpoint_dir, exist_ok=True)

@@ -124,6 +124,16 @@ def smooth_loss(mesh):
     return torch.where(mesh.edge_valid, term, torch.zeros_like(term)).sum()
 
 
+def _view_indices(idx):
+    """View indices as a list: ints, or one-element device tensors (views,
+    no host read) of an index tensor."""
+    if isinstance(idx, torch.Tensor):
+        return list(idx.reshape(-1, 1).unbind())
+    if isinstance(idx, int):
+        return [idx]
+    return [int(i) for i in idx]
+
+
 def total_loss(mesh, views, ray_view_idx, silh_view_idx: Sequence[int],
                intersect_fn, weights: LossWeights, resy: int, resx: int,
                silhouette_budget: int, collect_evidence: bool = False,
@@ -131,13 +141,13 @@ def total_loss(mesh, views, ray_view_idx, silh_view_idx: Sequence[int],
     """Weighted sum (reference all_loss, optim.py:110-130). ray_view_idx is
     an int (reference parity: one view per step) or a sequence of ints,
     averaged; silh_view_idx a sequence of ints (the reference uses 8).
-    Returns (total, aux)."""
+    Either may be an int64 tensor of indices on the views' device instead,
+    read on the device (`ViewBatch.take`), as a CUDA graph of the step
+    selects its views. Returns (total, aux)."""
     zero = mesh.vertices.new_zeros(())
     if weights.ray_w:
-        idx = ([int(ray_view_idx)] if isinstance(ray_view_idx, int)
-               else [int(i) for i in ray_view_idx])
         rls, trace_stats = [], {}
-        for i in idx:
+        for i in _view_indices(ray_view_idx):
             rl_i, st = ray_loss(mesh, views.take(i), intersect_fn,
                                 weights.ior, weights.ext_ior,
                                 collect_evidence=collect_evidence,
@@ -153,9 +163,10 @@ def total_loss(mesh, views, ray_view_idx, silh_view_idx: Sequence[int],
 
     if weights.vh_w:
         vhs, counts = zip(*(silhouette_loss(
-            mesh, views.take(int(i)), intersect_fn, silhouette_budget,
-            resy, resx, bilinear_mask=weights.bilinear_mask)
-            for i in silh_view_idx))
+            mesh, views.take(i, rays=False), intersect_fn,
+            silhouette_budget, resy, resx,
+            bilinear_mask=weights.bilinear_mask)
+            for i in _view_indices(silh_view_idx)))
         vh = torch.stack(vhs).sum()
         silh_edge_max = torch.stack(counts).max()
     else:

@@ -1,7 +1,8 @@
 """Silhouette-edge detection and the differentiable edge sampler (port of
 drt_tpu/render/silhouette.py; reference DiffRender.py:189-267, 445-479).
 
-A fixed budget of K edges is selected (nonzero, then padded to K) and
+A fixed budget of K edges is selected (`select_edges`, of fixed size K
+like JAX's `jnp.nonzero(size=K)`, so it never waits on the host) and
 carried with a validity mask. The sampler is a `torch.autograd.Function`:
 its backward turns the per-edge occupancy residual into 2D endpoint
 gradients dE = -N * f * g (DiffRender.py:236-242, 263-267); the ray casts
@@ -15,7 +16,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from drt_tpu_torch.geometry.scatter import gather_rows
-from drt_tpu_torch.geometry.vec import cross
+from drt_tpu_torch.geometry.vec import const_like, constant, cross
 from drt_tpu_torch.render.camera import CameraM, project_vertices
 
 
@@ -30,6 +31,21 @@ def silhouette_edge_mask(vertices, faces, edge_faces, edge_valid,
     to_cam = cam_origin[None, None, :] - tri[:, :, 0, :]
     d = torch.sum(n * to_cam, dim=-1)                 # [Ep,2]
     return torch.logical_xor(d[:, 0] > 0, d[:, 1] > 0) & edge_valid
+
+
+def select_edges(silh: torch.Tensor, budget: int):
+    """(edge_idx [budget] int64, sel_valid [budget] bool, count []) for
+    silh [Ep] bool: the indices of its first `budget` True entries in
+    order, 0 past the last (`jnp.nonzero(silh, size=budget,
+    fill_value=0)`, which truncates where more are True), True where an
+    entry was selected, and the number of True entries. A fixed-size
+    selection (the k-th True entry is where the running count first
+    reaches k), so nothing waits for the count on the host."""
+    silh_count = silh.sum()
+    sel = torch.arange(budget, device=silh.device)
+    sel_valid = sel < silh_count
+    edge_idx = torch.searchsorted(torch.cumsum(silh, 0), sel + 1)
+    return torch.where(sel_valid, edge_idx, 0), sel_valid, silh_count
 
 
 class EdgeSamples(NamedTuple):
@@ -50,7 +66,7 @@ def _edge_sample_fwd_math(E_pos, K_inv, R_inv, cam_origin, intersect_fn,
     sample_point = torch.stack([(ax + bx) * 0.5, (ay + by) * 0.5], dim=1)
     N = torch.stack([ay - by, bx - ax], dim=1)
     n_len = torch.linalg.norm(N, dim=1, keepdim=True)
-    N_unit = N / torch.maximum(n_len, n_len.new_tensor(1e-12))
+    N_unit = N / torch.maximum(n_len, const_like(n_len, 1e-12))
 
     f_point = torch.cat([sample_point + N_unit, sample_point - N_unit])
     ones = torch.ones_like(f_point[:, :1])
@@ -102,11 +118,7 @@ def primary_visibility(mesh, camera: CameraM, cam_origin,
     the viewport clip at :478)."""
     silh = silhouette_edge_mask(mesh.vertices, mesh.faces, mesh.edge_faces,
                                 mesh.edge_valid, cam_origin)
-    silh_count = silh.sum()
-    edge_idx = torch.nonzero(silh).squeeze(1)[:budget]
-    edge_idx = torch.cat([edge_idx, edge_idx.new_zeros(
-        budget - edge_idx.shape[0])])
-    sel_valid = torch.arange(budget, device=silh.device) < silh_count
+    edge_idx, sel_valid, silh_count = select_edges(silh, budget)
 
     V = gather_rows(mesh.vertices,
                     mesh.edges[edge_idx].reshape(-1))        # [2K,3]
@@ -120,8 +132,7 @@ def primary_visibility(mesh, camera: CameraM, cam_origin,
     in_view = ((pixel[:, 0] >= 0) & (pixel[:, 0] < resx - 1)
                & (pixel[:, 1] >= 0) & (pixel[:, 1] < resy - 1))
     valid = sel_valid & bc_valid & in_view
-    hi = torch.tensor([resx - 1, resy - 1], dtype=torch.int32,
-                      device=pixel.device)
+    hi = constant((resx - 1, resy - 1), torch.int32, pixel.device)
     pixel = torch.minimum(pixel.clamp_min(0), hi)
     pixel_f = E_pos.detach().mean(dim=1)                     # midpoint
     return EdgeSamples(pixel, pixel_f, output, valid, silh_count)

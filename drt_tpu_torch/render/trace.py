@@ -16,7 +16,8 @@ import torch
 
 from drt_tpu_torch.geometry.mt import moller_trumbore_verts
 from drt_tpu_torch.geometry.scatter import scatter_rows
-from drt_tpu_torch.geometry.vec import clip, dot3, fresnel_dielectric, refract
+from drt_tpu_torch.geometry.vec import (clip, const_like, dot3,
+                                       fresnel_dielectric, refract)
 
 
 def debug_enabled() -> bool:
@@ -57,8 +58,8 @@ def refract_ray(origin, direction, t, n, int_ior, ext_ior,
     wo = -direction
     cos_i = clip(dot3(wo, n), -1.0, 1.0)
     entering = cos_i > 0
-    ext = torch.as_tensor(ext_ior, dtype=cos_i.dtype, device=cos_i.device)
-    inn = torch.as_tensor(int_ior, dtype=cos_i.dtype, device=cos_i.device)
+    ext = const_like(cos_i, ext_ior)
+    inn = const_like(cos_i, int_ior)
     eta_i = torch.where(entering, ext, inn)
     eta_t = torch.where(entering, inn, ext)
     n_f = torch.where(entering[..., None], n, -n)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The port's reference-parity train step on one CUDA GPU, this tree against
-another (a parent commit unpacked with `git archive`), in turns.
+"""The port's reference-parity train step on one CUDA GPU as `optimize`
+runs it, this tree against another (a parent commit unpacked with `git
+archive`), in turns.
 
     python3 scripts/ab_torch_step.py --parent DIR [--steps 5] [--out PATH]
 
@@ -8,15 +9,24 @@ Each turn is a process of its own that imports `drt_tpu_torch` from one
 tree only (the trees share the package's name) and builds that tree's
 kernels into the tree's own build/: parent, this, this, parent. A turn
 synthesizes the capture of chip_smoke.py's phase 5 (8 views of dog_mid90k
-at 1280x960, Pointgray), runs one warm-up sgd + none step from dog_mid45k
-(HyperParams() weights, float32, 1 ray view and 8 silhouette views), then
-`--steps` steps on the host clock between synchronizations, then 3 steps
-under torch.profiler: each one's device busy time (the sum of its device
+at 1280x960, Pointgray) and runs sgd + none steps from dog_mid45k
+(HyperParams() weights, float32, 1 ray view and 8 silhouette views) the
+way that tree's `optimize` runs them: a tree with
+`optimize.loop.GraphedTrainStep` replays one captured CUDA graph (its
+eager warm-up step and the capture first, untimed: the seconds of each are
+printed), an older tree calls the eager step (one warm-up step). Then
+`--steps` steps on the host clock between synchronizations (a graphed
+tree times as many of its eager steps first), and 3 more under
+torch.profiler: each one's device busy time (the sum of its device
 operations' durations: kernels, memsets, copies) and its device operation
-count. Prints one JSON line a turn and a summary a tree (median and
-spread of each), with the card's name and power limit, and writes them to
-`--out` (default reports/torch_step_ab.json). Claims nothing: the step is
-host-bound, so its wall time moves with the host as much as with the code.
+count. Before them, one eager step runs under
+`torch.cuda.set_sync_debug_mode("warn")` (inside the scatters' deferred
+bounds scope where the tree has one): the synchronizing operations it
+makes, by file:line of the Python frame that made them (a backward's are
+reported at the `autograd.grad` call). Prints one JSON line a turn and a
+summary a tree (median and spread of each), with the card's name and
+power limit, and writes them to `--out` (default
+reports/torch_step_ab.json). Claims nothing.
 """
 
 import argparse
@@ -30,14 +40,40 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def sync_census(fn, tree):
+    """{file:line: count} of the synchronizing CUDA operations `fn` makes,
+    from torch's sync debug mode (a prototype: it reports copies to or from
+    pageable host memory, `.item()`, `nonzero` and the like)."""
+    import warnings
+    import torch
+    found = {}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for r in rec:
+        if "synchroniz" in str(r.message):
+            where = f"{os.path.relpath(r.filename, tree)}:{r.lineno}"
+            found[where] = found.get(where, 0) + 1
+    return found
+
+
 def turn(tree, steps):
     """One turn in this process: the step of `tree`'s package."""
     sys.path.insert(0, tree)
+    import contextlib
     import torch
     from torch.profiler import ProfilerActivity, profile
     import drt_tpu_torch
+    import drt_tpu_torch.optimize.loop as loop
     from drt_tpu_torch.config import POINTGRAY_RES as RES, HyperParams
     from drt_tpu_torch.data.synthetic import synthesize_capture
+    from drt_tpu_torch.geometry import scatter
     from drt_tpu_torch.intersect.api import get_intersect_fn
     from drt_tpu_torch.mesh import build_mesh_state, load_ply
     from drt_tpu_torch.optimize import (LossWeights,
@@ -47,6 +83,7 @@ def turn(tree, steps):
             drt_tpu_torch.__file__))) != os.path.abspath(tree):
         sys.exit(f"ab_torch_step: imported {drt_tpu_torch.__file__}, not "
                  f"the package of {tree}")
+    graphed = hasattr(loop, "GraphedTrainStep")
     dev = torch.device("cuda", 0)
     meshes = os.path.join(tree, "reports", "tuning_meshes")
     hp = HyperParams()
@@ -67,10 +104,44 @@ def turn(tree, steps):
     ray_gen = cap.ray_view_generator(seed=hp.seed)
     silh_gen = cap.silh_view_generator(seed=hp.seed + 1000)
 
-    def one():
-        return step(state, hp.start_lr, mesh, cap.views, next(ray_gen),
-                    [next(silh_gen) for _ in range(8)])
-    one()
+    def views():
+        return next(ray_gen), [next(silh_gen) for _ in range(8)]
+
+    def eager():
+        r, s = views()
+        return step(state, hp.start_lr, mesh, cap.views, r, s)
+    eager()                                 # builds the kernels
+    word = torch.zeros(1, dtype=torch.int32, device=dev)
+    scope = (scatter.deferred_bounds_check(word) if graphed
+             else contextlib.nullcontext())
+    with scope:
+        census = sync_census(eager, tree)
+    setup = {}
+    eager_wall = []
+    if graphed:
+        for _ in range(steps):              # this tree's eager step too
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager()
+            torch.cuda.synchronize()
+            eager_wall.append((time.perf_counter() - t0) * 1e3)
+        n = 2 + steps + 3
+        drawn = [views() for _ in range(n)]
+        run = loop.GraphedTrainStep(
+            step, state, hp.start_lr, mesh, cap.views,
+            torch.tensor([[r] for r, _ in drawn], device=dev),
+            torch.tensor([s for _, s in drawn], device=dev))
+        for _ in range(2):                  # the warm-up, the capture
+            run()
+        torch.cuda.synchronize()
+        setup = dict(run.setup)
+
+        def one():
+            return run()
+    else:
+        def one():
+            return eager()
+        one()
     torch.cuda.synchronize()
     wall = []
     for _ in range(steps):
@@ -90,8 +161,14 @@ def turn(tree, steps):
         busy.append(sum(e.time_range.end - e.time_range.start
                         for e in device) / 1e3)
         ops.append(len(device))
-    print(json.dumps({"tree": tree, "step_ms": wall, "device_busy_ms": busy,
-                      "device_ops": ops}))
+    if graphed:
+        run.close()
+        if int(run.bounds_word):
+            sys.exit("ab_torch_step: a scatter index was out of bounds")
+    print(json.dumps({"tree": tree, "graphed": graphed, "step_ms": wall,
+                      "device_busy_ms": busy, "device_ops": ops,
+                      "eager_step_ms": eager_wall, "graph_setup": setup,
+                      "syncs": census, "n_syncs": sum(census.values())}))
 
 
 def spread(xs):
@@ -141,7 +218,11 @@ def main():
             "step_ms": spread([x for r in rows for x in r["step_ms"]]),
             "device_busy_ms": spread([x for r in rows
                                       for x in r["device_busy_ms"]]),
-            "device_ops": spread([x for r in rows for x in r["device_ops"]])}
+            "device_ops": spread([x for r in rows for x in r["device_ops"]]),
+            "graphed": rows[0]["graphed"], "syncs": rows[0]["syncs"]}
+        eager = [x for r in rows for x in r.get("eager_step_ms", [])]
+        if eager:
+            summary[side]["eager_step_ms"] = spread(eager)
         print(f"{side}: {json.dumps(summary[side])}", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:

@@ -15,8 +15,17 @@ also timed apart) and the closest-hit kernel; the rest of the step
 is the differentiable trace, the losses, backward and the update. The
 synchronizations cost a little overlap; the step is also timed without
 them, and one conjugate-gradient solve of the Sobolev preconditioner
-(64 trips on the mesh's neighbor table) is timed on its own. Finally
-torch.profiler lists the device kernels by total time.
+(64 trips on the mesh's neighbor table) is timed on its own. Then
+torch.profiler lists the device kernels by total time. Last, a joint host
+and device trace (torch.profiler, CPU and CUDA activities) of one eager
+step and of one replay of the step's CUDA graph (`GraphedTrainStep`, as
+`optimize` runs it on the card; its eager warm-up step and the capture
+before it): each is written as a Chrome trace into `--trace-dir`, and for
+each the host time of the step, the device busy time and device span,
+the device's idle share of the host time, the device operations, and for
+the eager step the host time inside the oracle queries, `total_loss` (the
+forward, queries included) and `torch.autograd.grad` (the backward), the
+rest being the normals, the update and Python.
 """
 
 import argparse
@@ -39,6 +48,8 @@ def main():
                     choices=["sgd", "adam", "uadam"])
     ap.add_argument("--precond", default="none",
                     choices=["none", "sobolev", "h1"])
+    ap.add_argument("--trace-dir", default=os.path.join(
+        HERE, "build", "torch_step_traces"))
     args = ap.parse_args()
 
     import torch
@@ -177,6 +188,81 @@ def main():
         torch.cuda.synchronize()
     print(prof.key_averages().table(sort_by="cuda_time_total",
                                     row_limit=20, max_name_column_width=60))
+    joint_trace(args, step_kw, lr, weights, res, budget, ms, cap, silh)
+
+
+def joint_trace(args, step_kw, lr, weights, res, budget, ms, cap, silh):
+    """One eager step and one replay under torch.profiler (CPU and CUDA),
+    each written as a Chrome trace and summed up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    import drt_tpu_torch.optimize.loop as loop
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    base = get_intersect_fn("auto")
+
+    def oracle(*a, **k):
+        with record_function("oracle query"):
+            return base(*a, **k)
+    real_loss, real_grad = loop.total_loss, torch.autograd.grad
+
+    def forward(*a, **k):
+        with record_function("total_loss"):
+            return real_loss(*a, **k)
+
+    def backward(*a, **k):
+        with record_function("autograd.grad"):
+            return real_grad(*a, **k)
+    init, step, _ = loop.make_train_step(oracle, weights, *res, budget,
+                                         **step_kw)
+    dev = ms.vertices.device
+    ray = [[i % args.views] for i in range(3)]
+    run = loop.GraphedTrainStep(step, init(ms), lr, ms, cap.views,
+                                torch.tensor(ray, device=dev),
+                                torch.tensor([silh] * 3, device=dev))
+    for _ in range(2):                      # the warm-up, the capture
+        run()
+    torch.cuda.synchronize()
+    os.makedirs(args.trace_dir, exist_ok=True)
+    cpu_t, dev_t = (torch.autograd.DeviceType.CPU,
+                    torch.autograd.DeviceType.CUDA)
+    state = init(ms)
+    for kind in ("eager", "replay"):
+        loop.total_loss, torch.autograd.grad = forward, backward
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with record_function(f"{kind} step"):
+                    if kind == "eager":
+                        step(state, lr, ms, cap.views, 0, silh)
+                    else:
+                        run()
+                    torch.cuda.synchronize()
+        finally:
+            loop.total_loss, torch.autograd.grad = real_loss, real_grad
+        path = os.path.join(args.trace_dir, f"torch_step_{kind}.json")
+        prof.export_chrome_trace(path)
+        events = prof.events()
+
+        def host_ms(name):
+            return sum(e.time_range.end - e.time_range.start for e in events
+                       if e.name == name and e.device_type == cpu_t) / 1e3
+        ops = [e for e in events if e.device_type == dev_t
+               and not e.is_user_annotation]
+        busy = sum(e.time_range.end - e.time_range.start for e in ops) / 1e3
+        span = ((max(e.time_range.end for e in ops)
+                 - min(e.time_range.start for e in ops)) / 1e3 if ops
+                else 0.0)
+        wall = host_ms(f"{kind} step")
+        print(f"joint trace, {kind} step ({path}): host {wall:.2f} ms, "
+              f"device busy {busy:.3f} ms in {len(ops)} device operations "
+              f"over a span of {span:.3f} ms, device idle "
+              f"{1 - busy / wall:.1%} of the host time"
+              + (f"; host ms in the oracle queries "
+                 f"{host_ms('oracle query'):.2f}, in total_loss "
+                 f"{host_ms('total_loss'):.2f}, in autograd.grad "
+                 f"{host_ms('autograd.grad'):.2f}" if kind == "eager"
+                 else ""))
+    run.close()
 
 
 if __name__ == "__main__":

@@ -5,7 +5,10 @@ machine with `python -m pytest tests/test_torch_cuda.py -m cuda` (add
 plain version round every product and sum alike, so their hits must agree
 bit for bit; the prepass kernel must give the lists and counts of
 `_candidates` (ray mode) and `_candidates_tile` (tile mode) exactly; the
-packing kernel every output of `pack_plain` bit for bit (int32 views)."""
+packing kernel every output of `pack_plain` bit for bit (int32 views).
+At the end, the train step as one CUDA graph (`GraphedTrainStep`) against
+the eager step bit for bit, its launch counts, its deferred bounds check
+and the memory it gives back."""
 
 import os
 
@@ -855,3 +858,130 @@ def test_scatter_cluster_size_and_unknown_route(dev):
     with pytest.raises(ValueError, match="route"):
         scatter_rows_cuda(rows, idx, 4, route="atomics")
     assert CK.counters.scatter_launches == before
+
+
+# --- the train step as one CUDA graph (optimize/loop.py GraphedTrainStep) --
+
+def _graph_case(sphere_capture, dev, optimizer, precond, ray_chunk=-1):
+    from drt_tpu_torch.intersect import get_intersect_fn
+    from drt_tpu_torch.optimize import LossWeights, make_train_step
+    _, _, cap = sphere_capture
+    v0, f0 = make_icosphere(subdivisions=3, radius=47.0)
+    ms = build_mesh_state(v0, f0, device=dev)
+    w = LossWeights(ray_w=40.0, vh_w=2e-3, sm_w=0.08, ior=1.5)
+    init, step, _ = make_train_step(get_intersect_fn("auto"), w, 96, 128,
+                                    1024, optimizer=optimizer,
+                                    precond=precond, ray_chunk=ray_chunk)
+    ray = [[1], [3], [0], [2]]
+    silh = [[0, 1, 2, 3, 0, 1, 2, 3], [3, 2, 1, 0, 1, 1, 2, 2],
+            [2, 0, 3, 1, 1, 0, 3, 2], [1, 1, 1, 1, 2, 2, 2, 2]]
+    return step, init(ms), ms, cap.views, ray, silh
+
+
+@pytest.mark.parametrize("case", ["sgd+none", "adam+none", "uadam+h1",
+                                  "sgd+sobolev", "sgd+none chunked"])
+def test_graphed_steps_equal_eager_steps(dev, sphere_capture, case):
+    """4 steps through GraphedTrainStep (1 eager warm-up, the capture, 3
+    replays) against 4 eager steps from the same state and views: params,
+    m, v and the loss equal bit for bit after every step, and each replay
+    adds one step's launches to the counters (11 of each oracle kernel in
+    the unchunked step: 3 ray queries and 8 silhouette views)."""
+    from drt_tpu_torch.optimize.loop import GraphedTrainStep
+    pair, _, chunked = case.partition(" ")
+    optimizer, precond = pair.split("+")
+    step, state, ms, views, ray, silh = _graph_case(
+        sphere_capture, dev, optimizer, precond,
+        ray_chunk=4096 if chunked else -1)
+    lr = 0.05 if optimizer == "sgd" else 0.01
+    eager = []
+    st = state
+    for r, s in zip(ray, silh):
+        st, loss, _ = step(st, lr, ms, views, r, s)
+        eager.append((float(loss), {k: v.clone() for k, v in st.items()}))
+    run = GraphedTrainStep(step, state, lr, ms, views,
+                           torch.tensor(ray, device=dev),
+                           torch.tensor(silh, device=dev))
+    per_step = None
+    for it, (loss_e, st_e) in enumerate(eager):
+        before = CK.counters.snapshot()
+        loss, _ = run()
+        torch.cuda.synchronize()
+        launched = {k: CK.counters.snapshot()[k] - before[k]
+                    for k in before}
+        if it == 0:
+            per_step = launched
+            if not chunked:
+                assert launched["launches"] == 11
+        else:
+            assert launched == per_step, it
+        assert float(loss) == loss_e, it
+        for k in ("params", "m", "v", "v_per", "count", "silh_max"):
+            assert torch.equal(run.state[k], st_e[k]), (it, k)
+    out = run.close()
+    assert torch.equal(out["params"], eager[-1][1]["params"])
+    assert int(run.bounds_word) == 0
+    assert run.setup["pool_bytes"] > 0 and run.setup["capture_s"] > 0
+
+
+def test_graphed_step_defers_an_index_out_of_range(dev, sphere_capture,
+                                                   monkeypatch):
+    """A scatter given an index past its output inside the graphed step
+    (added to the loss's forward) raises nothing at its calls (warm-up,
+    capture, replays); the word the wrapper owns holds it, and `optimize`
+    raises RuntimeError at the pass's one read, after every step ran."""
+    import drt_tpu_torch.optimize.loop as LOOP
+    from drt_tpu_torch.config import HyperParams
+    from drt_tpu_torch.geometry.scatter import scatter_rows
+    from drt_tpu_torch.optimize import optimize
+    real = LOOP.total_loss
+    rows = torch.ones(4, 3, device=dev)
+    idx = torch.tensor([0, 1, 2, 4], device=dev)          # 4 of 4: too far
+
+    def bad_total_loss(mesh, *args, **kwargs):
+        scatter_rows(rows, idx, 4)
+        return real(mesh, *args, **kwargs)
+    step, state, ms, views, ray, silh = _graph_case(sphere_capture, dev,
+                                                    "sgd", "none")
+    monkeypatch.setattr(LOOP, "total_loss", bad_total_loss)
+    run = LOOP.GraphedTrainStep(step, state, 0.05, ms, views,
+                                torch.tensor(ray, device=dev),
+                                torch.tensor(silh, device=dev))
+    for _ in ray:
+        run()
+    run.close()
+    assert int(run.bounds_word) == 1
+    _, _, cap = sphere_capture
+    v0, f0 = make_icosphere(subdivisions=3, radius=47.0)
+    hp = HyperParams(name="sphere", ior=1.5, num_passes=1, iters=4,
+                     start_len=4.0, end_len=4.0, num_view=4)
+    lines = []
+    with pytest.raises(RuntimeError, match="out of bounds"):
+        optimize(hp, cap, v0, f0, log_fn=lines.append, log_every=1,
+                 device=dev)
+    assert sum("iter" in ln for ln in lines) == 4   # every step ran first
+
+
+def test_graph_memory_returns_after_the_pass(dev, sphere_capture):
+    """What a pass's graph holds (its memory pool, its outputs) is given
+    back when the pass closes it: from one pass to the next, the memory
+    allocated after a pass and the memory reserved do not grow."""
+    from drt_tpu_torch.optimize.loop import GraphedTrainStep
+    step, state, ms, views, ray, silh = _graph_case(sphere_capture, dev,
+                                                    "sgd", "none")
+    allocated, reserved, pools = [], [], []
+    for _ in range(3):
+        run = GraphedTrainStep(step, state, 0.05, ms, views,
+                               torch.tensor(ray, device=dev),
+                               torch.tensor(silh, device=dev))
+        for _ in ray:
+            loss, aux = run()
+        del loss, aux
+        out = run.close()
+        pools.append(run.setup["pool_bytes"])
+        del run, out
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated(dev))
+        reserved.append(torch.cuda.memory_reserved(dev))
+    assert min(pools) > 0
+    assert allocated[2] == allocated[1] <= allocated[0] + 2 ** 16
+    assert reserved[2] <= reserved[1] <= reserved[0] + 2 ** 21
