@@ -4,14 +4,16 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-1. build   the four kernels (closest hit; candidate prepass with its sort;
+1. build   the five kernels (closest hit; candidate prepass with its sort;
            the packing stages; the row scatter-add of the step's vertex
            gathers, its cluster route's one kernel and its grid route's
-           three) from drt_tpu_torch/csrc with nvcc, one compile per
-           source in parallel; prints each entry function's registers,
-           shared memory and spills and fails on a spill to local memory
-           or a kernel missing from the library; prints the scatter
-           cluster route's cluster size (cudaOccupancyMaxActiveClusters);
+           three; the Sobolev preconditioner's CG solve) from
+           drt_tpu_torch/csrc with nvcc, one compile per source in
+           parallel; prints each entry function's registers, shared
+           memory and spills and fails on a spill to local memory or a
+           kernel missing from the library; prints the scatter cluster
+           route's cluster size (cudaOccupancyMaxActiveClusters) and fails
+           unless the card schedules the CG kernel's 16-CTA cluster;
 2. kernel  the closest-hit kernel vs its plain PyTorch version on
            dog_mid90k (82,566 faces) at 1280x960: camera rays (coherent)
            and the bounce-2 rays of the same view (incoherent), plus a
@@ -85,7 +87,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
            sgd + sobolev: finite loss and vertices, and the launch counts
            reckoned from the weights (a zero weight skips its term, so h1's
            two evaluations of the loss, one with the ray weight alone and
-           one with the regularizers alone, make the 11 queries of one);
+           one with the regularizers alone, make the 11 queries of one) and
+           the preconditioner (CG launches a step: 0 for none, 1 for h1, 2
+           for sobolev, and 1 in sobolev's `final_vertices`);
 7. chunked one sgd + none step with ray_chunk=2**18 against the unchunked
            step from the same state, twice. First as the step runs it, each
            query shifting the scene by its own mean ray origin: a chunk's
@@ -111,7 +115,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
            remesher from edge length 2.5 to 1.5, checkpoints into a
            temporary directory; 3 loadable watertight checkpoints whose
            face counts differ, no remesh failure, finite losses, 11
-           launches of each kernel a step, by the remesher's
+           launches of each kernel a step and no CG launch, by the
+           remesher's
            native core; each pass's checkpoint, a remeshed mesh
            at that pass's chunk count (128, 256, 512) and silhouette budget,
            goes through the checks of phase 4's queries (the kernels
@@ -188,14 +193,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
            graphed steps (the warm-up, the capture, 2 replays) from one
            state on the same views: params, m, v and the loss equal bit
            for bit after every step, and the graphed run's launches of
-           every kernel equal the eager run's; (c) phase 5's step timed in
-           turns (eager, graph, graph, eager), 5 steps a turn on the host
-           clock between synchronizations, with the launches of each
-           graph turn counted from 0 (11 of each oracle kernel and the
-           reckoned scatters a step, its warm-up and its replays); (d)
+           every kernel equal the eager run's (the CG's reckoned as in
+           phase 6); (c) phase 5's step, then uadam + h1 and sgd +
+           sobolev, timed in turns (eager, graph, graph, eager), 5 steps a
+           turn on the host clock between synchronizations, with the
+           launches of each graph turn counted from 0 (11 of each oracle
+           kernel, the reckoned scatters and CG solves a step, its warm-up
+           and its replays); (d)
            one replay and one eager step under torch.profiler: device
            busy time and device operations; and the warm-up, capture and
            instantiate seconds and the graph's memory pool.
+14. cg     the CG kernel (csrc/cg.cu) against its plain version on the
+           card, on the solves recorded from one dog_mid45k uadam + h1 step
+           (its gradient's solve), one sgd + sobolev step (the forward
+           solve and the backward's) and its `final_vertices` (4 x
+           cg_iters trips at most, tol 1e-8), each in float32 and in
+           float64: the same bits (integer views) and trip counts, and a
+           second launch's bits; the h1 solve with valid entries given
+           from the end (n - Vp), which the kernel must take as torch's
+           indexing does; the h1 and final solves under
+           torch.profiler (the kernel's one launch and nothing else), their
+           time by CUDA events, their bound (`cg_bound`) and the plain
+           version's time. Phases 6 and 13 are the kernel's main path:
+           their launches are its count in the kernels line.
 Then it prints the timings, a JSON line of phase 10's times, a JSON line of
 phase 11's, one of phase 12's, one of phase 13's, a JSON line with the
 kernels' numbers (with their times at each group on phase 12's bounce-2
@@ -203,7 +223,8 @@ query), the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.
 
 The scatter kernel also runs in phases 3, 6, 7, 9, 10 and 11 (every
-vertex gradient on the card); phase 9 prints its launches.
+vertex gradient on the card); phase 9 prints its launches. The CG kernel
+also runs in phase 11a's uadam + h1 step.
 
 It needs the repository around it (drt_tpu_torch/, native/remesh.cpp and
 reports/tuning_meshes/), a CUDA GPU, nvcc, g++ and PIL (to decode phase 10's
@@ -227,12 +248,15 @@ MESH_DIR = os.path.join(HERE, "reports", "tuning_meshes")
 FP32_PEAK = 67e12                 # H100 SXM FP32 non-tensor FLOP/s
 HBM_RATE = 3.35e12                # H100 SXM HBM3 bytes/s
 TIE_PER_1024 = 2
-# The entry functions of the four sources: closest_hit.cu, candidates.cu,
-# pack.cu and scatter.cu (its cluster route's one kernel; its grid route's
-# upfront, pass and reduce kernels).
+# The entry functions of the five sources: closest_hit.cu, candidates.cu,
+# pack.cu, scatter.cu (its cluster route's one kernel; its grid route's
+# upfront, pass and reduce kernels) and cg.cu.
 BUILT_KERNELS = ("closest_hit_kernel", "candidates_kernel", "pack_kernel",
                  "scatter_cluster_kernel", "scatter_upfront_kernel",
-                 "scatter_pass_kernel", "scatter_reduce_kernel")
+                 "scatter_pass_kernel", "scatter_reduce_kernel", "cg_kernel")
+# CG solves a step by preconditioner: h1 solves its gradient, sobolev its
+# vertices in the forward and the cotangent in the backward.
+CG_PER_STEP = {"none": 0, "h1": 1, "sobolev": 2}
 BRUTE_SAMPLE = 65536
 
 
@@ -539,12 +563,21 @@ def pack_bound(n_rays, n_pad, faces, vertices, face_valid, pk, rbytes):
             else "bytes", nbytes)
 
 
+def int_view(a):
+    """a float tensor as the integers of its width (so -0 is not +0)."""
+    import torch
+    return a.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[a.element_size()])
+
+
 def same_bits(a, b):
-    """a and b hold the same bits (floats compared as int32 views, so -0
+    """a and b hold the same bits (floats compared as integer views, so -0
     is not +0)."""
     import torch
     if a.is_floating_point():
-        a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.dtype != b.dtype:
+            return False
+        a, b = int_view(a), int_view(b)
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
@@ -555,7 +588,7 @@ def max_abs_diff(a, b):
     import torch
     if a.dtype == torch.bool:
         return float((a != b).any())
-    differ = a.view(torch.int32) != b.view(torch.int32)
+    differ = int_view(a) != int_view(b)
     if not differ.any():
         return 0.0
     return float((a[differ].double() - b[differ].double()).abs()
@@ -1264,10 +1297,12 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
         kernels=len(kernels))
 
 
-def run_steps(name, step, state, lr, mesh, cap, seed, n, expect):
+def run_steps(name, step, state, lr, mesh, cap, seed, n, expect,
+              cg_expect=None, cg_seen=None):
     """n steps through `step`; the launch counts of each against `expect`
-    (closest-hit, prepass, packing). Returns (state, losses, ms of the last
-    step)."""
+    (closest-hit, prepass, packing) and, where given, its CG launches
+    against `cg_expect` (appended to the list `cg_seen`). Returns (state,
+    losses, ms of the last step)."""
     import torch
     from drt_tpu_torch.intersect import cuda_kernel as CK
     ray_gen = cap.ray_view_generator(seed=seed)
@@ -1285,11 +1320,18 @@ def run_steps(name, step, state, lr, mesh, cap, seed, n, expect):
         ms = (time.time() - t0) * 1e3
         losses.append(float(loss))
         got = counts()
+        cg_got = CK.counters.cg_launches
         print(f"{name} step {it}: {ms:.1f} ms, loss {losses[-1]:.6g}, max "
               f"grad {float(aux['max_grad']):.3g}, launches {got[0]} "
-              f"closest-hit, {got[1]} prepass, {got[2]} packing")
+              f"closest-hit, {got[1]} prepass, {got[2]} packing, {cg_got} "
+              f"CG")
         if got != tuple(expect):
             fail(f"{name} step {it}: launches {got}, expected {expect}")
+        if cg_expect is not None and cg_got != cg_expect:
+            fail(f"{name} step {it}: {cg_got} CG launches, reckoned "
+                 f"{cg_expect}")
+        if cg_seen is not None:
+            cg_seen.append(cg_got)
         if not math.isfinite(losses[-1]):
             fail(f"{name} step {it}: loss is not finite")
     return state, losses, ms
@@ -1992,13 +2034,16 @@ def parallel_ranks_phase(res, hp, weights, budget, mesh, cap, shift):
 # eager: phase 5's and phase 6's, each with its lr.
 GRAPH_PAIRS = (("sgd", "none"), ("adam", "none"), ("uadam", "h1"),
                ("sgd", "sobolev"))
+# The pairs phase 13 times in turns: phase 5's step and the two that solve.
+TIMED_PAIRS = (("sgd", "none"), ("uadam", "h1"), ("sgd", "sobolev"))
 
 
 def graph_phase(res, hp, weights, budget, mesh, cap, per_step,
                 scatter_step):
     """Phase 13: the train step as one CUDA graph (GraphedTrainStep, as
     `optimize` runs each pass on the card). Returns (the phase's launches
-    of the three oracle kernels, its scatter launches, its numbers)."""
+    of the three oracle kernels, its scatter launches, the CG launches of
+    its timed graph turns, its numbers)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from drt_tpu_torch.geometry.scatter import deferred_bounds_check
@@ -2086,77 +2131,114 @@ def graph_phase(res, hp, weights, budget, mesh, cap, per_step,
                      f"from the eager step in {diff or ['loss']}")
         got = CK.counters.snapshot()
         run.close()
-        if got != want or got["launches"] != 3 * per_step:
+        if got != want or got["launches"] != 3 * per_step \
+                or got["cg_launches"] != 3 * CG_PER_STEP[precond]:
             fail(f"graph: {name}: launches {got} in 3 graphed steps, "
-                 f"{want} in 3 eager steps")
+                 f"{want} in 3 eager steps ({3 * CG_PER_STEP[precond]} CG "
+                 "solves reckoned)")
         if int(run.bounds_word):
             fail(f"graph: {name}: a scatter index was out of bounds")
         out["bitwise"][name] = {"steps": 3, "equal": True,
                                 "setup": run.setup,
-                                "scatter_launches": got["scatter_launches"]}
+                                "scatter_launches": got["scatter_launches"],
+                                "cg_launches": got["cg_launches"]}
         print(f"graph: {name}: 3 graphed steps (warm-up, capture, 2 "
               f"replays) equal 3 eager steps bit for bit (params, m, v, "
               f"loss); launches {got['launches']} closest-hit, "
-              f"{got['scatter_launches']} scatter in both; capture "
+              f"{got['scatter_launches']} scatter, {got['cg_launches']} CG "
+              f"in both; capture "
               f"{run.setup['capture_s']:.3f} s, instantiate "
               f"{run.setup['instantiate_s']:.3f} s, pool "
               f"{run.setup['pool_bytes'] / 2**20:.0f} MiB")
         del run, eager, st, state0
 
     # (c) the step's time in turns: eager, graph, graph, eager; 5 timed
-    # steps a turn after its warm-up (and, in a graph turn, the capture)
+    # steps a turn after its warm-up (and, in a graph turn, the capture);
+    # phase 5's step, then the two preconditioned steps
     n = 5
-    turns = []
-    graph_launches, graph_scatters = (0, 0, 0), 0
-    for kind in ("eager", "graph", "graph", "eager"):
-        ray, silh = drawn(2 + n, hp.seed + len(turns))
-        st = init(mesh)
-        ms_ = []
-        if kind == "eager":
-            for it in range(1 + n):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                st, _, _ = step(st, hp.start_lr, mesh, cap.views,
-                                ray[it][0], silh[it])
-                torch.cuda.synchronize()
-                if it:
-                    ms_.append((time.perf_counter() - t0) * 1e3)
+    graph_launches, graph_scatters, graph_cg = (0, 0, 0), 0, 0
+    out["pairs"] = {}
+    for optimizer, precond in TIMED_PAIRS:
+        name = f"{optimizer} + {precond}"
+        lr = hp.start_lr if optimizer == "sgd" else 0.01
+        init_t, step_t, _ = make(optimizer, precond)
+        turns = []
+        for kind in ("eager", "graph", "graph", "eager"):
+            ray, silh = drawn(2 + n, hp.seed + len(turns))
+            st = init_t(mesh)
+            ms_ = []
+            if kind == "eager":
+                for it in range(1 + n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    st, _, _ = step_t(st, lr, mesh, cap.views, ray[it][0],
+                                      silh[it])
+                    torch.cuda.synchronize()
+                    if it:
+                        ms_.append((time.perf_counter() - t0) * 1e3)
+            else:
+                run = graphed(step_t, st, lr, ray, silh)
+                CK.counters.reset()          # the graph's path starts here
+                for it in range(2 + n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    if it >= 2:
+                        ms_.append((time.perf_counter() - t0) * 1e3)
+                launched = counts()          # and ends here
+                sc = CK.counters.scatter_launches
+                cg_n = CK.counters.cg_launches
+                graph_launches = tuple(a + b for a, b in zip(graph_launches,
+                                                             launched))
+                graph_scatters += sc
+                graph_cg += cg_n
+                # h1 evaluates the loss twice, the ray term alone (with
+                # its vertex evidence, one scatter more) and the
+                # regularizers alone, each with its normals
+                f_pad = mesh.faces.shape[0]
+                want_sc = (scatter_step if precond != "h1" else
+                           scatters_per_step(weights._replace(
+                               vh_w=0.0, sm_w=0.0), f_pad) + 1
+                           + scatters_per_step(weights._replace(ray_w=0.0),
+                                               f_pad))
+                if launched != (per_step * (2 + n),) * 3 \
+                        or sc != want_sc * (2 + n) \
+                        or cg_n != CG_PER_STEP[precond] * (2 + n):
+                    fail(f"graph: {name}: {2 + n} graphed steps launched "
+                         f"{launched} oracle kernels, {sc} scatters and "
+                         f"{cg_n} CG solves, reckoned {per_step * (2 + n)}, "
+                         f"{want_sc * (2 + n)} and "
+                         f"{CG_PER_STEP[precond] * (2 + n)}")
+                setup = dict(run.setup)
+                run.close()
+            turns.append({"kind": kind, "step_ms": ms_})
+            print(f"graph: {name}: turn {len(turns)} ({kind}): step ms "
+                  f"{[round(x, 2) for x in ms_]}")
+        timed = {"turns": turns, "setup": setup}
+        for kind in ("eager", "graph"):
+            xs = [x for t in turns if t["kind"] == kind
+                  for x in t["step_ms"]]
+            timed[f"{kind}_step_ms"] = {
+                "median": statistics.median(xs), "min": min(xs),
+                "max": max(xs),
+                "turn_medians": [statistics.median(t["step_ms"])
+                                 for t in turns if t["kind"] == kind]}
+        if precond == "none":
+            out.update(timed)
         else:
-            run = graphed(step, st, hp.start_lr, ray, silh)
-            CK.counters.reset()              # the graph's path starts here
-            for it in range(2 + n):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                if it >= 2:
-                    ms_.append((time.perf_counter() - t0) * 1e3)
-            launched = counts()              # and ends here
-            sc = CK.counters.scatter_launches
-            graph_launches = tuple(a + b for a, b in zip(graph_launches,
-                                                         launched))
-            graph_scatters += sc
-            if launched != (per_step * (2 + n),) * 3 \
-                    or sc != scatter_step * (2 + n):
-                fail(f"graph: {2 + n} graphed steps launched {launched} "
-                     f"oracle kernels and {sc} scatters, reckoned "
-                     f"{per_step * (2 + n)} and {scatter_step * (2 + n)}")
-            setup = dict(run.setup)
-            run.close()
-        turns.append({"kind": kind, "step_ms": ms_})
-        print(f"graph: turn {len(turns)} ({kind}): step ms "
-              f"{[round(x, 2) for x in ms_]}")
-    if min(graph_launches) < 1 or graph_scatters < 1:
+            out["pairs"][name] = timed
+            g, e = timed["graph_step_ms"], timed["eager_step_ms"]
+            print(f"graph: {name} in turns (eager, graph, graph, eager), {n} "
+                  f"steps a turn: eager {e['median']:.2f} ms ({e['min']:.2f}"
+                  f"-{e['max']:.2f}), graph {g['median']:.2f} ms "
+                  f"({g['min']:.2f}-{g['max']:.2f}, turn medians "
+                  f"{[round(x, 2) for x in g['turn_medians']]})")
+        del run, st
+    if min(graph_launches) < 1 or graph_scatters < 1 or graph_cg < 1:
         fail(f"graph: the graphed steps launched {graph_launches} oracle "
-             f"kernels and {graph_scatters} scatters")
-    for kind in ("eager", "graph"):
-        xs = [x for t in turns if t["kind"] == kind for x in t["step_ms"]]
-        out[f"{kind}_step_ms"] = {
-            "median": statistics.median(xs), "min": min(xs), "max": max(xs),
-            "turn_medians": [statistics.median(t["step_ms"]) for t in turns
-                             if t["kind"] == kind]}
-    out["turns"] = turns
-    out["setup"] = setup
+             f"kernels, {graph_scatters} scatters and {graph_cg} CG solves")
+    setup = out["setup"]
 
     # (d) one replay and one eager step under torch.profiler: device busy
     # time and device operations
@@ -2199,10 +2281,233 @@ def graph_phase(res, hp, weights, budget, mesh, cap, per_step,
           f"{setup['capture_s']:.3f} s, instantiate "
           f"{setup['instantiate_s']:.3f} s, pool "
           f"{setup['pool_bytes'] / 2**20:.1f} MiB; launches {graph_launches}"
-          f", scatter launches {graph_scatters}")
+          f", scatter launches {graph_scatters}, CG launches {graph_cg}")
     out["phase_s"] = time.time() - t_phase
-    return graph_launches, graph_scatters, out
+    return graph_launches, graph_scatters, graph_cg, out
 
+
+
+@contextlib.contextmanager
+def cg_spy(calls):
+    """For the duration, each launch of csrc/cg.cu through `cg_cuda`
+    appends its inputs (b, neighbors, neighbor_valid, lam, tol, maxiter,
+    x0; b and x0 copied) to `calls`, then launches as before."""
+    from drt_tpu_torch.optimize import precondition as PC
+    real = PC.cg_cuda
+
+    def spy(b, neighbors, neighbor_valid, lam, tol=1e-5, maxiter=64,
+            x0=None):
+        calls.append((b.clone(), neighbors, neighbor_valid, lam, tol,
+                      maxiter, None if x0 is None else x0.clone()))
+        return real(b, neighbors, neighbor_valid, lam, tol=tol,
+                    maxiter=maxiter, x0=x0)
+    PC.cg_cuda = spy
+    try:
+        yield calls
+    finally:
+        PC.cg_cuda = real
+
+
+def cg_bound(b, neighbor_valid, trips):
+    """(ms, "bytes" or "operations"): the least time of a solve of b [Vp,C]
+    that ran `trips` trips. Once: b, the int64 table and its mask read, x
+    written. Each trip: the int32 table, the degrees, and x, r and p read
+    and written once, at the HBM rate; 14 operations an element (the
+    matvec's 4, p.Ap, the x and r updates, r.r and the p update, 2 each)
+    and one add a valid neighbour's element, at the FP32 rate (csrc/cg.cu's
+    code)."""
+    vp, c = b.shape
+    d = neighbor_valid.shape[1]
+    n, size = vp * c, b.element_size()
+    once = 2 * n * size + vp * d * 9
+    trip_bytes = vp * d * 4 + vp * size + 6 * n * size
+    trip_ops = 14 * n + int(neighbor_valid.sum()) * c
+    bytes_ms = (once + trips * trip_bytes) / HBM_RATE * 1e3
+    ops_ms = (4 * n + trips * trip_ops) / FP32_PEAK * 1e3
+    return ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+            else (ops_ms, "operations"))
+
+
+# Spin kernels (torch.cuda._sleep) launched at the start of a profile
+# before the operations it counts.
+SENTINELS = 32
+
+
+def cg_phase(res, hp, weights, budget, mesh, cap):
+    """Phase 14: csrc/cg.cu against its plain version on the solves of a
+    dog_mid45k uadam + h1 step and an sgd + sobolev step (the forward
+    solve, the backward solve, and `final_vertices` at 4 cg_iters trips and
+    tol 1e-8), in float32 and float64: the bits, the trips, the bits of a
+    second launch; negative table entries; one solve under torch.profiler
+    (1 device operation, the kernel); the h1 solve's and the final solve's
+    time (CUDA events) against their bounds and the plain version's.
+    Returns its numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.optimize import make_train_step
+    from drt_tpu_torch.optimize import precondition as PC
+    t_phase = time.time()
+    ray_gen = cap.ray_view_generator(seed=hp.seed + 30)
+    silh_gen = cap.silh_view_generator(seed=hp.seed + 1030)
+    recorded = {}
+    for optimizer, precond in (("uadam", "h1"), ("sgd", "sobolev")):
+        init, step, final = make_train_step(
+            get_intersect_fn("auto"), weights, *res, budget,
+            momentum=hp.momentum, optimizer=optimizer, precond=precond,
+            precond_lambda=hp.precond_lambda, cg_iters=hp.cg_iters,
+            grad_clamp=hp.grad_clamp)
+        calls = []
+        with cg_spy(calls):
+            st, _, _ = step(init(mesh), 0.01, mesh, cap.views,
+                            next(ray_gen), [next(silh_gen) for _ in range(8)])
+            torch.cuda.synchronize()
+        if len(calls) != CG_PER_STEP[precond]:
+            fail(f"cg: a {precond} step made {len(calls)} solves, reckoned "
+                 f"{CG_PER_STEP[precond]}")
+        names = (["h1"] if precond == "h1"
+                 else ["sobolev forward", "sobolev backward"])
+        recorded.update(zip(names, calls))
+        if precond == "sobolev":
+            calls = []
+            with cg_spy(calls):
+                final(st, mesh)
+                torch.cuda.synchronize()
+            if len(calls) != 1:
+                fail(f"cg: final_vertices made {len(calls)} solves")
+            recorded["final_vertices"] = calls[0]
+    out = {"solves": {}}
+    err = 0.0
+    for name, (b, nbr, valid, lam, tol, maxiter, x0) in recorded.items():
+        for dtype in (torch.float32, torch.float64):
+            bd = b.to(dtype)
+            x0d = None if x0 is None else x0.to(dtype)
+            xk, tk = PC.cg_cuda(bd, nbr, valid, lam, tol=tol,
+                                maxiter=maxiter, x0=x0d)
+            xk2, tk2 = PC.cg_cuda(bd, nbr, valid, lam, tol=tol,
+                                  maxiter=maxiter, x0=x0d)
+            xp, tp = PC.cg_plain(bd, nbr, valid, lam, tol=tol,
+                                 maxiter=maxiter, x0=x0d)
+            torch.cuda.synchronize()
+            trips = (int(tk), int(tk2), int(tp))
+            bits, again = same_bits(xk, xp), same_bits(xk, xk2)
+            e = max_abs_diff(xk, xp)
+            err = max(err, e)
+            key = f"{name} {str(dtype).split('.')[-1]}"
+            out["solves"][key] = {"trips": trips[0], "maxiter": maxiter,
+                                  "tol": tol, "bits": bits, "again": again,
+                                  "err": e}
+            print(f"cg: {key} ([{b.shape[0]},{b.shape[1]}], {maxiter} trips "
+                  f"at most, tol {tol:g}): {trips[0]} trips; kernel and plain "
+                  f"version bit for bit: {bits}, trips equal: "
+                  f"{len(set(trips)) == 1}; a second launch bit for bit: "
+                  f"{again}; max |diff| {e:.3g}")
+            if not (bits and again and len(set(trips)) == 1
+                    and torch.isfinite(xk).all()):
+                fail(f"cg: {key}: the kernel differs from its plain version "
+                     f"or from itself (trips {trips})")
+    out["max_abs_err"] = err
+    # a table with valid entries given from the end (n - Vp) on even rows:
+    # torch's indexing takes them as n, and so must the kernel
+    b, nbr, valid, lam, tol, maxiter, x0 = recorded["h1"]
+    even = torch.arange(nbr.shape[0], device=nbr.device)[:, None] % 2 == 0
+    neg = torch.where(valid & even, nbr - nbr.shape[0], nbr)
+    xn, tn = PC.cg_cuda(b, neg, valid, lam, tol=tol, maxiter=maxiter, x0=x0)
+    xw, tw = PC.cg_cuda(b, nbr, valid, lam, tol=tol, maxiter=maxiter, x0=x0)
+    xp, tp = PC.cg_plain(b, neg, valid, lam, tol=tol, maxiter=maxiter, x0=x0)
+    torch.cuda.synchronize()
+    negative_ok = (same_bits(xn, xw) and same_bits(xn, xp)
+                   and int(tn) == int(tw) == int(tp))
+    print(f"cg: the h1 solve with its even rows' entries given from the end: "
+          f"the kernel's bits equal the table as given and the plain "
+          f"version's: {negative_ok}")
+    if not negative_ok:
+        fail("cg: the kernel takes negative neighbour entries otherwise "
+             "than torch's indexing")
+    # the device operations of one solve, and the times
+    dev_t = torch.autograd.DeviceType.CUDA
+    for name in ("h1", "final_vertices"):
+        b, nbr, valid, lam, tol, maxiter, x0 = recorded[name]
+
+        def kernel():
+            return PC.cg_cuda(b, nbr, valid, lam, tol=tol, maxiter=maxiter,
+                              x0=x0)
+        kernel()
+        torch.cuda.synchronize()
+        attempt = 0
+        while True:
+            attempt += 1
+            # In this process a profile loses its first device operations
+            # (phase 13's profiled replays count 10-12 fewer than
+            # scripts/ab_torch_step.py's), so spin kernels go first, and
+            # only the solve's operations are counted.
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(SENTINELS):
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                _, trips = kernel()
+                torch.cuda.synchronize()
+            ops = [e for e in prof.events() if e.device_type == dev_t
+                   and not e.is_user_annotation
+                   and "spin_kernel" not in e.name]
+            if ops or not profile_again(attempt, f"the {name} solve's "
+                                        "profile holds no device operation"):
+                break
+        if len(ops) != 1 or "cg_kernel" not in ops[0].name:
+            fail(f"cg: the {name} solve made {len(ops)} device operations "
+                 f"({[e.name for e in ops]}), expected the kernel alone")
+        trips = int(trips)
+        ms = cuda_ms(kernel, 20)
+        plain_ms = cuda_ms(lambda: PC.cg_plain(b, nbr, valid, lam, tol=tol,
+                                               maxiter=maxiter, x0=x0), 3)
+        bound_ms, bound_by = cg_bound(b, valid, trips)
+        out[name] = {"shape": [b.shape[0], b.shape[1]],
+                     "neighbours": nbr.shape[1], "trips": trips,
+                     "device_ops": len(ops), "device_op": ops[0].name,
+                     "profiled_ms": (ops[0].time_range.end
+                                     - ops[0].time_range.start) / 1e3,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+        print(f"cg: the {name} solve ([{b.shape[0]},{b.shape[1]}] float32, "
+              f"{nbr.shape[1]} neighbours, {trips} trips): {len(ops)} device "
+              f"operation ({ops[0].name}, "
+              f"{out[name]['profiled_ms']:.4f} ms profiled); {ms:.4f} ms "
+              f"(CUDA events) against its bound {bound_ms:.4f} ms "
+              f"({bound_by}) and the plain version's {plain_ms:.2f} ms")
+    out["phase_s"] = time.time() - t_phase
+    print(f"cg: phase {out['phase_s']:.1f} s")
+    return out
+
+
+def cg_entry(cg, steps_launches, graph_launches):
+    """The kernels line's entry of csrc/cg.cu: the h1 step's solve."""
+    h1 = cg["h1"]
+    return {
+        "name": "cg_kernel",
+        "route": "cuda",
+        "source": "drt_tpu_torch/csrc/cg.cu",
+        "replaces": "drt_tpu/optimize/precondition.py:65",
+        "launches": steps_launches + graph_launches,
+        "launches_steps": steps_launches,
+        "launches_graph": graph_launches,
+        "launches_per_step": CG_PER_STEP,
+        "shape": f"the uadam + h1 step's solve on dog_mid45k: b "
+                 f"[{h1['shape'][0]},{h1['shape'][1]}] float32, "
+                 f"{h1['neighbours']} neighbours, {h1['trips']} trips",
+        "max_abs_err": cg["max_abs_err"],
+        "ms": h1["ms"],
+        "plain_ms": h1["plain_ms"],
+        "bound_ms": h1["bound_ms"],
+        "bound_by": h1["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call solves the system (a "
+                   "torch.sparse product computes only the matvec)",
+        "device_ops": h1["device_ops"],
+        "profiled_ms": h1["profiled_ms"],
+        "final_vertices": cg["final_vertices"],
+        "solves": cg["solves"],
+    }
 
 def main():
     # cuBLAS's fixed workspace, which torch.use_deterministic_algorithms
@@ -2226,6 +2531,7 @@ def main():
         from drt_tpu_torch.optimize import (LossWeights,
                                             default_silhouette_budget,
                                             make_train_step, optimize)
+        from drt_tpu_torch.optimize import precondition as PC
         from drt_tpu_torch.remesh import hausdorff_distance
         from drt_tpu_torch.utils.metrics import MetricsLogger
         from drt_tpu_torch.render.camera import CameraM, generate_rays
@@ -2267,6 +2573,12 @@ def main():
           f"CTAs (cudaOccupancyMaxActiveClusters); it takes up to "
           f"{SC.CLUSTER_MAX_ROWS} rows into {SC.CLUSTER_MAX_OUT} output "
           "elements, the grid route the rest")
+    try:
+        PC._lib()
+    except RuntimeError as e:
+        fail(f"cg: {e}")
+    print(f"cg: one cluster of {PC.CG_CTAS} CTAs of {PC.CG_BLOCK} threads a "
+          "solve (cudaOccupancyMaxActiveClusters)")
     print(f"ray tiles: coherent {CK.RAY_TILE_COHERENT}, incoherent "
           f"{CK.RAY_TILE_INCOHERENT}; closest-hit blocks of "
           f"{CK.BLOCK_RAYS} rays")
@@ -2415,6 +2727,7 @@ def main():
         fail(f"reckoned {per_step_all} launches a step, phase 5 saw "
              f"{per_step} of each kernel")
     step_ms_by = {}
+    cg_steps = []                     # phase 6's CG launches, step by step
     for optimizer, precond in (("adam", "none"), ("uadam", "h1"),
                                ("sgd", "sobolev")):
         init_o, step_o, final_o = make_train_step(
@@ -2424,8 +2737,16 @@ def main():
             grad_clamp=hp.grad_clamp)
         name = f"{optimizer} + {precond}"
         st, _, ms = run_steps(name, step_o, init_o(ms45), 0.01, ms45, cap,
-                              hp.seed, 2, per_step_all)
+                              hp.seed, 2, per_step_all,
+                              cg_expect=CG_PER_STEP[precond],
+                              cg_seen=cg_steps)
+        CK.counters.reset()
         verts_o = final_o(st, ms45)
+        cg_final = CK.counters.cg_launches
+        cg_steps.append(cg_final)
+        if cg_final != int(precond == "sobolev"):
+            fail(f"{name}: final_vertices made {cg_final} CG launches, "
+                 f"reckoned {int(precond == 'sobolev')}")
         moved_o = float((verts_o - ms45.vertices).abs().max())
         if not torch.isfinite(verts_o).all() or moved_o <= 0:
             fail(f"{name}: vertices did not move or are not finite "
@@ -2571,6 +2892,9 @@ def main():
         lod_s = time.time() - t0
         lod_launches = counts()                # main path ends here
         lod_scatters = CK.counters.scatter_launches
+        if CK.counters.cg_launches != 0:
+            fail(f"lod: {CK.counters.cg_launches} CG launches in sgd + "
+                 "none steps, reckoned 0")
         lod_peak = torch.cuda.max_memory_allocated()
         for ln in lines:
             print(f"lod: {ln}")
@@ -2663,8 +2987,14 @@ def main():
     by_group, group_times = groups_phase(dev, RES, hp, ms45, o1, d1, gen)
 
     # -- 13. the train step as one CUDA graph -------------------------------
-    graph_launches, graph_scatters, graph_out = graph_phase(
+    graph_launches, graph_scatters, graph_cg, graph_out = graph_phase(
         RES, hp, weights, budget, ms45, cap, per_step, scatter_step)
+
+    # -- 14. the CG solve's kernel against its plain version ---------------
+    cg_out = cg_phase(RES, hp, weights, budget, ms45, cap)
+    if sum(cg_steps) + graph_cg < 1:
+        fail(f"cg: the h1 and sobolev steps launched the CG kernel "
+             f"{sum(cg_steps)} times (phase 6) and {graph_cg} (phase 13)")
 
     total = [sum(x) for x in zip(launches, lod_launches, cli_launches,
                                  par_launches, graph_launches)]
@@ -2773,6 +3103,7 @@ def main():
     }, scatter_entry(scatter_checked, scatter_prof, scatter_launches,
                      scatter_step, lod_scatters, scatter_route_launches)]
     kernels[-1]["launches_graph"] = graph_scatters
+    kernels.append(cg_entry(cg_out, sum(cg_steps), graph_cg))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

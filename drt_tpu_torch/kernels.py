@@ -12,7 +12,9 @@ drift apart unnoticed.
 The wrappers:
 - intersect/cuda_kernel.py: csrc/pack.cu, csrc/candidates.cu and
   csrc/closest_hit.cu, the three kernels of an oracle query;
-- geometry/scatter.py: csrc/scatter.cu, the row scatter-add.
+- geometry/scatter.py: csrc/scatter.cu, the row scatter-add;
+- optimize/precondition.py: csrc/cg.cu, the Sobolev preconditioner's
+  conjugate-gradient solve.
 
 `counters` counts each kernel's launches; a wrapper adds one only where it
 launches its kernel (never on the plain version's path). A CUDA graph's
@@ -43,7 +45,8 @@ class LaunchCounter:
     each one a query of either kind, and of the row scatter-add
     (`scatter_launches`, one a `scatter_rows` call on CUDA tensors, of
     which `scatter_cluster_launches` took the cluster route and
-    `scatter_grid_launches` the grid route)."""
+    `scatter_grid_launches` the grid route), and of the conjugate-gradient
+    solve (`cg_launches`, one a solve on CUDA tensors)."""
 
     def __init__(self):
         self.reset()
@@ -56,6 +59,7 @@ class LaunchCounter:
         self.scatter_launches = 0
         self.scatter_cluster_launches = 0
         self.scatter_grid_launches = 0
+        self.cg_launches = 0
 
     def snapshot(self) -> dict:
         """Every count, by name."""
@@ -129,8 +133,8 @@ def build(force: bool = False, defines: tuple = ()) -> str:
     return out
 
 
-_VP, _CI, _CF, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_longlong)
+_VP, _CI, _CF, _CD, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                           ctypes.c_double, ctypes.c_longlong)
 # The C interface of every source: name -> (argument types, result type).
 _ENTRIES = {
     # closest_hit.cu
@@ -153,6 +157,13 @@ _ENTRIES = {
     "scatter_scratch_ints": ([_LL, _LL, _CI], _LL),
     "scatter_max_cols": ([], _CI),
     "scatter_cluster_size": ([], _CI),
+    # cg.cu
+    "cg_launch": ([_VP, _VP, _CI, _VP, _VP, _CI, _CI, _CI, _CD, _CD, _CI]
+                  + [_VP] * 4, _CI),
+    "cg_scratch_bytes": ([_LL, _CI, _CI, _CI], _LL),
+    "cg_ctas": ([], _CI),
+    "cg_block": ([], _CI),
+    "cg_cluster_ready": ([], _CI),
     # errors.cu
     "drt_error_string": ([_CI], ctypes.c_char_p),
 }
@@ -171,6 +182,8 @@ _SIGNATURES = {
                       "box_valid phi inv stream",
     "scatter_signature": "rows rows_f64 idx n_rows n_cols n_out route out "
                          "scratch stream",
+    "cg_signature": "b x0 f64 nbr valid vp c d lam tol2 maxiter x trips "
+                    "scratch stream",
 }
 
 

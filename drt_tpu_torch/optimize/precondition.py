@@ -18,15 +18,26 @@ x0, 0 by default; one inner product over the whole [Vp,C] array, stop once
 r.r <= tol^2 b.b, at most `maxiter` trips), so both packages take the same
 iterations. It runs the fixed number of trips with every update masked by a
 device-side "done" flag: the early exit's result exactly, and no host
-synchronisation per iteration. `sobolev_solve` differentiates as JAX's custom_linear_solve
-does: A is symmetric, so the backward is the same CG solve of the cotangent
-(from the same x0, which JAX also hands its transpose solve, and which takes
-no gradient), not a backward through the iterations.
+synchronisation per iteration. `sobolev_solve` differentiates as JAX's
+custom_linear_solve does: A is symmetric, so the backward is the same CG
+solve of the cotangent (from the same x0, which JAX also hands its
+transpose solve, and which takes no gradient), not a backward through the
+iterations.
+
+On CUDA tensors every solve is one launch of a hand-written kernel,
+csrc/cg.cu (`cg_cuda`): the whole solve in one thread-block cluster, the
+trip count left on the device. Its plain version `cg_plain` is `cg` on
+`ordered_matvec`: it rounds each operation as the kernel does and sums
+every dot product in the kernel's fixed order (`ordered_dot`), so the two
+give the same bits on the card. CPU tensors take the plain version; a CUDA
+tensor never does (a failed build or launch raises).
 """
 
 from __future__ import annotations
 
 import torch
+
+from drt_tpu_torch import kernels
 
 
 def laplacian_matvec(x: torch.Tensor, neighbors: torch.Tensor,
@@ -51,34 +62,66 @@ def sobolev_apply(v, neighbors, neighbor_valid, lam):
     return sobolev_matvec(v, neighbors, neighbor_valid, lam)
 
 
+# csrc/cg.cu's cluster, which fixes the order of every dot product: the flat
+# vector's element e goes to thread e % CG_THREADS, each thread sums its
+# products in ascending e, then halving trees over the 32 lanes of a warp,
+# the CG_BLOCK // 32 warps of a CTA and the CG_CTAS CTAs.
+CG_CTAS = 16
+CG_BLOCK = 1024
+CG_THREADS = CG_CTAS * CG_BLOCK
+
+
+def _halve(s: torch.Tensor, dim: int) -> torch.Tensor:
+    """The halving tree over `dim` (a power of two long): element i takes
+    element i + h for h = n/2, ..., 1."""
+    while s.shape[dim] > 1:
+        h = s.shape[dim] // 2
+        s = s.narrow(dim, 0, h) + s.narrow(dim, h, h)
+    return s
+
+
+def ordered_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """u.v (0-d) summed in csrc/cg.cu's fixed order: each product rounded,
+    then each thread's products added to +0 in order, then the trees over
+    lanes, warps and CTAs."""
+    prod = (u * v).reshape(-1)
+    rows = max(1, -(-prod.shape[0] // CG_THREADS))
+    prod = torch.cat([prod, prod.new_zeros(rows * CG_THREADS
+                                           - prod.shape[0])])
+    s = prod.new_zeros(CG_THREADS)
+    for row in prod.reshape(rows, CG_THREADS):
+        s = s + row
+    s = s.reshape(CG_CTAS, CG_BLOCK // 32, 32)
+    for dim in (2, 1, 0):
+        s = _halve(s, dim)
+    return s.reshape(())
+
+
 @torch.no_grad()
 def cg(matvec, b: torch.Tensor, tol: float = 1e-5, maxiter: int = 64,
        x0=None):
     """Solve A x = b for symmetric positive definite A from x0 (zeros if
     None; see the module docstring). Returns (x, trips): trips is a 0-d
     int64 tensor on b's device, the iterations an early exit would have
-    taken. Fused multiply-adds and flat dot products keep a trip at a dozen
-    launches."""
-    def dot(u, v):
-        return torch.dot(u.reshape(-1), v.reshape(-1))
-
+    taken. Every dot product is `ordered_dot`, and every update a product
+    and a sum each rounded on its own, in csrc/cg.cu's order."""
     if x0 is None:
         x = torch.zeros_like(b)
         r = p = b                      # b - A x0 with x0 = 0
     else:
         x = x0.detach()
         r = p = b - matvec(x)
-    gamma = dot(r, r)
-    atol2 = (tol * tol) * dot(b, b)
+    gamma = ordered_dot(r, r)
+    atol2 = (tol * tol) * ordered_dot(b, b)
     went = []
     for _ in range(maxiter):
         go = gamma > atol2             # false once, false ever after
         ap = matvec(p)
-        alpha = gamma / dot(p, ap)
-        x_new = torch.addcmul(x, alpha, p)
-        r_new = torch.addcmul(r, alpha, ap, value=-1)
-        gamma_new = dot(r_new, r_new)
-        p_new = torch.addcmul(r_new, gamma_new / gamma, p)
+        alpha = gamma / ordered_dot(p, ap)
+        x_new = x + alpha * p
+        r_new = r - alpha * ap
+        gamma_new = ordered_dot(r_new, r_new)
+        p_new = r_new + (gamma_new / gamma) * p
         x = torch.where(go, x_new, x)
         r = torch.where(go, r_new, r)
         p = torch.where(go, p_new, p)
@@ -86,6 +129,125 @@ def cg(matvec, b: torch.Tensor, tol: float = 1e-5, maxiter: int = 64,
         went.append(go)
     trips = (torch.stack(went).sum() if went
              else torch.zeros((), dtype=torch.int64, device=b.device))
+    return x, trips
+
+
+def ordered_matvec(neighbors, neighbor_valid, lam, dtype):
+    """x -> A x = x + lam (deg x - sum of the valid neighbours' x), the
+    neighbours added to +0 in table order as csrc/cg.cu adds them (an
+    invalid entry adds +0, which leaves a sum from +0 as it is)."""
+    deg = neighbor_valid.sum(dim=1).to(dtype)[:, None]
+    pad = torch.logical_not(neighbor_valid)[..., None]
+
+    def matvec(x):
+        nx = x[neighbors].masked_fill(pad, 0.0)
+        s = torch.zeros_like(x)
+        for j in range(nx.shape[1]):
+            s = s + nx[:, j]
+        return x + lam * (deg * x - s)
+    return matvec
+
+
+def cg_plain(b, neighbors, neighbor_valid, lam, tol: float = 1e-5,
+             maxiter: int = 64, x0=None):
+    """Plain version of csrc/cg.cu: (x, trips) of `cg` on
+    `ordered_matvec`."""
+    return cg(ordered_matvec(neighbors, neighbor_valid, lam, b.dtype), b,
+              tol=tol, maxiter=maxiter, x0=x0)
+
+
+_INT32_MAX = 2 ** 31 - 1
+_cg_lib = None
+
+
+def _check(b, neighbors, neighbor_valid, x0):
+    if b.dim() != 2 or b.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"b: expected [Vp,C] float32 or float64, got "
+                         f"{tuple(b.shape)} {b.dtype}")
+    vp = b.shape[0]
+    if (neighbors.dim() != 2 or neighbors.shape[0] != vp
+            or neighbors.dtype != torch.int64):
+        raise ValueError(f"neighbors: expected [{vp},D] int64, got "
+                         f"{tuple(neighbors.shape)} {neighbors.dtype}")
+    if (neighbor_valid.shape != neighbors.shape
+            or neighbor_valid.dtype != torch.bool):
+        raise ValueError(f"neighbor_valid: expected {tuple(neighbors.shape)}"
+                         f" bool, got {tuple(neighbor_valid.shape)} "
+                         f"{neighbor_valid.dtype}")
+    if x0 is not None and (x0.shape != b.shape or x0.dtype != b.dtype):
+        raise ValueError(f"x0: expected {tuple(b.shape)} {b.dtype}, got "
+                         f"{tuple(x0.shape)} {x0.dtype}")
+    tensors = [b, neighbors, neighbor_valid] + ([x0] if x0 is not None
+                                                else [])
+    if any(t.device != b.device for t in tensors):
+        raise ValueError("b, neighbors, neighbor_valid and x0 must be on "
+                         "one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("b, neighbors, neighbor_valid and x0 must be "
+                         "contiguous")
+    if max(b.numel(), neighbors.numel()) > _INT32_MAX:
+        raise ValueError(f"{tuple(b.shape)} with {neighbors.shape[1]} "
+                         "neighbours: beyond the kernel's int32 sizes")
+
+
+def launch_args(b, neighbors, neighbor_valid, lam, tol, maxiter, x0, x,
+                trips, scratch, stream) -> dict:
+    """cg_launch's arguments by the names of csrc/cg.cu's cg_signature()."""
+    vp, c = b.shape
+    return {"b": b.data_ptr(), "x0": None if x0 is None else x0.data_ptr(),
+            "f64": int(b.dtype == torch.float64),
+            "nbr": neighbors.data_ptr(), "valid": neighbor_valid.data_ptr(),
+            "vp": vp, "c": c, "d": neighbors.shape[1], "lam": float(lam),
+            "tol2": float(tol) * float(tol), "maxiter": int(maxiter),
+            "x": x.data_ptr(), "trips": trips.data_ptr(),
+            "scratch": scratch.data_ptr(), "stream": stream}
+
+
+def _lib():
+    """The kernels' library, checked once for csrc/cg.cu's summation order
+    and for a card that schedules its cluster."""
+    global _cg_lib
+    if _cg_lib is None:
+        lib = kernels.load()
+        if (lib.cg_ctas(), lib.cg_block()) != (CG_CTAS, CG_BLOCK):
+            raise RuntimeError(
+                f"csrc/cg.cu sums over {lib.cg_ctas()} CTAs of "
+                f"{lib.cg_block()} threads, the plain version over "
+                f"{CG_CTAS} of {CG_BLOCK}")
+        if not lib.cg_cluster_ready():
+            raise RuntimeError(f"cg: the card schedules no cluster of "
+                               f"{CG_CTAS} CTAs of {CG_BLOCK} threads")
+        _cg_lib = lib
+    return _cg_lib
+
+
+def cg_cuda(b, neighbors, neighbor_valid, lam, tol: float = 1e-5,
+            maxiter: int = 64, x0=None):
+    """Launch csrc/cg.cu on the current stream: (x, trips) as `cg_plain`
+    gives them, bit for bit, in one launch. b [Vp,C] float32 or float64,
+    neighbors [Vp,D] int64 (valid entries in [0, Vp)), neighbor_valid
+    [Vp,D] bool, x0 like b or None; contiguous on one CUDA device. Nothing
+    waits on the host."""
+    _check(b, neighbors, neighbor_valid, x0)
+    if b.device.type != "cuda":
+        raise ValueError("cg_cuda needs CUDA tensors")
+    if maxiter < 0:
+        raise ValueError(f"maxiter {maxiter} < 0")
+    lib = _lib()
+    vp, c = b.shape
+    with torch.cuda.device(b.device):
+        x = torch.empty_like(b)
+        trips = torch.empty((), dtype=torch.int64, device=b.device)
+        scratch = torch.empty(
+            lib.cg_scratch_bytes(vp, c, neighbors.shape[1],
+                                 int(b.dtype == torch.float64)),
+            dtype=torch.uint8, device=b.device)
+        args = launch_args(b, neighbors, neighbor_valid, lam, tol, maxiter,
+                           x0, x, trips, scratch,
+                           torch.cuda.current_stream().cuda_stream)
+        err = lib.cg_launch(*args.values())
+    kernels.check(lib, err, "cg")
+    kernels.counters.cg_launches += 1
     return x, trips
 
 
@@ -106,16 +268,20 @@ class _SobolevSolve(torch.autograd.Function):
 
 
 def _solve(u, neighbors, neighbor_valid, lam, maxiter, tol, x0=None):
-    # `sobolev_matvec` with what does not change between trips hoisted
-    u = u.detach()
-    deg = neighbor_valid.sum(dim=1).to(u.dtype)[:, None]
-    pad = torch.logical_not(neighbor_valid)[..., None]
-
-    def matvec(x):
-        lx = deg * x - x[neighbors].masked_fill(pad, 0.0).sum(dim=1)
-        return x + lam * lx
-
-    v, _ = cg(matvec, u, tol=tol, maxiter=maxiter, x0=x0)
+    """The solve on u's device: the kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    u = u.detach().contiguous()
+    if x0 is not None:
+        x0 = x0.detach().contiguous()
+    if u.device.type == "cuda":
+        v, _ = cg_cuda(u, neighbors.long().contiguous(),
+                       neighbor_valid.contiguous(), lam, tol=tol,
+                       maxiter=maxiter, x0=x0)
+    elif u.device.type == "cpu":
+        v, _ = cg_plain(u, neighbors, neighbor_valid, lam, tol=tol,
+                        maxiter=maxiter, x0=x0)
+    else:
+        raise ValueError(f"sobolev_solve: unsupported device {u.device}")
     return v
 
 

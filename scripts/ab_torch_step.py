@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""The port's reference-parity train step on one CUDA GPU as `optimize`
-runs it, this tree against another (a parent commit unpacked with `git
-archive`), in turns.
+"""The port's train step on one CUDA GPU as `optimize` runs it, this tree
+against another (a parent commit unpacked with `git archive`), in turns.
 
     python3 scripts/ab_torch_step.py --parent DIR [--steps 5] [--out PATH]
+        [--optimizer sgd|adam|uadam] [--precond none|sobolev|h1]
 
 Each turn is a process of its own that imports `drt_tpu_torch` from one
 tree only (the trees share the package's name) and builds that tree's
 kernels into the tree's own build/: parent, this, this, parent. A turn
 synthesizes the capture of chip_smoke.py's phase 5 (8 views of dog_mid90k
-at 1280x960, Pointgray) and runs sgd + none steps from dog_mid45k
-(HyperParams() weights, float32, 1 ray view and 8 silhouette views) the
+at 1280x960, Pointgray) and runs steps of `--optimizer` and `--precond`
+(reference-parity sgd + none by default; lr HyperParams().start_lr for
+sgd, 0.01 otherwise, as chip_smoke.py) from dog_mid45k (HyperParams()
+weights, float32, 1 ray view and 8 silhouette views) the
 way that tree's `optimize` runs them: a tree with
 `optimize.loop.GraphedTrainStep` replays one captured CUDA graph (its
 eager warm-up step and the capture first, untimed: the seconds of each are
@@ -26,7 +28,8 @@ makes, by file:line of the Python frame that made them (a backward's are
 reported at the `autograd.grad` call). Prints one JSON line a turn and a
 summary a tree (median and spread of each), with the card's name and
 power limit, and writes them to `--out` (default
-reports/torch_step_ab.json). Claims nothing.
+reports/torch_step_ab.json) under "runs" by the pair's name, beside the
+runs of other pairs already there. Claims nothing.
 """
 
 import argparse
@@ -63,7 +66,7 @@ def sync_census(fn, tree):
     return found
 
 
-def turn(tree, steps):
+def turn(tree, steps, optimizer, precond):
     """One turn in this process: the step of `tree`'s package."""
     sys.path.insert(0, tree)
     import contextlib
@@ -99,7 +102,10 @@ def turn(tree, steps):
     init, step, _ = make_train_step(
         get_intersect_fn("auto"), weights, *RES,
         default_silhouette_budget(mesh.num_edges), momentum=hp.momentum,
+        optimizer=optimizer, precond=precond,
+        precond_lambda=hp.precond_lambda, cg_iters=hp.cg_iters,
         grad_clamp=hp.grad_clamp)
+    lr = hp.start_lr if optimizer == "sgd" else 0.01
     state = init(mesh)
     ray_gen = cap.ray_view_generator(seed=hp.seed)
     silh_gen = cap.silh_view_generator(seed=hp.seed + 1000)
@@ -109,7 +115,7 @@ def turn(tree, steps):
 
     def eager():
         r, s = views()
-        return step(state, hp.start_lr, mesh, cap.views, r, s)
+        return step(state, lr, mesh, cap.views, r, s)
     eager()                                 # builds the kernels
     word = torch.zeros(1, dtype=torch.int32, device=dev)
     scope = (scatter.deferred_bounds_check(word) if graphed
@@ -128,7 +134,7 @@ def turn(tree, steps):
         n = 2 + steps + 3
         drawn = [views() for _ in range(n)]
         run = loop.GraphedTrainStep(
-            step, state, hp.start_lr, mesh, cap.views,
+            step, state, lr, mesh, cap.views,
             torch.tensor([[r] for r, _ in drawn], device=dev),
             torch.tensor([s for _, s in drawn], device=dev))
         for _ in range(2):                  # the warm-up, the capture
@@ -181,10 +187,14 @@ def main():
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default=os.path.join(HERE, "reports",
                                                   "torch_step_ab.json"))
+    ap.add_argument("--optimizer", default="sgd",
+                    choices=["sgd", "adam", "uadam"])
+    ap.add_argument("--precond", default="none",
+                    choices=["none", "sobolev", "h1"])
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn:
-        turn(args.turn, args.steps)
+        turn(args.turn, args.steps, args.optimizer, args.precond)
         return
     if not args.parent:
         sys.exit("ab_torch_step: --parent DIR is needed")
@@ -200,8 +210,9 @@ def main():
     for side in ("parent", "this", "this", "parent"):
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--turn", trees[side], "--steps",
-                              str(args.steps)], capture_output=True,
-                             text=True, timeout=600)
+                              str(args.steps), "--optimizer", args.optimizer,
+                              "--precond", args.precond],
+                             capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             sys.exit(f"ab_torch_step: the {side} turn failed:\n"
                      f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
@@ -224,13 +235,27 @@ def main():
         if eager:
             summary[side]["eager_step_ms"] = spread(eager)
         print(f"{side}: {json.dumps(summary[side])}", flush=True)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as fh:
-        json.dump({"device": smi, "script": "scripts/ab_torch_step.py",
-                   "turns_order": "parent, this, this, parent",
-                   "summary": summary, "turns": turns}, fh, indent=1)
+    pair = f"{args.optimizer} + {args.precond}"
+    record(args.out, "runs", pair, {
+        "device": smi, "script": "scripts/ab_torch_step.py",
+        "turns_order": "parent, this, this, parent", "summary": summary,
+        "turns": turns})
+    print(f"wrote {pair} into {args.out}")
+
+
+def record(path, section, key, value):
+    """Write `value` at path[section][key] of the JSON file at `path`,
+    keeping what else it holds (scripts/profile_torch_step.py --record
+    writes there too)."""
+    data = {}
+    if os.path.exists(path):
+        with open(path) as fh:
+            data = json.load(fh)
+    data.setdefault(section, {})[key] = value
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(data, fh, indent=1)
         fh.write("\n")
-    print(f"wrote {args.out}")
 
 
 if __name__ == "__main__":

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_step.py [--views 2] [--steps 3]
         [--optimizer sgd|adam|uadam] [--precond none|sobolev|h1]
+        [--record reports/torch_step_ab.json]
 
 Same configuration as chip_smoke.py's train phase (synthetic capture of
 dog_mid90k at 1280x960, steps from dog_mid45k, HyperParams() weights,
@@ -15,7 +16,12 @@ also timed apart) and the closest-hit kernel; the rest of the step
 is the differentiable trace, the losses, backward and the update. The
 synchronizations cost a little overlap; the step is also timed without
 them, and one conjugate-gradient solve of the Sobolev preconditioner
-(64 trips on the mesh's neighbor table) is timed on its own. Then
+(64 trips at most on the mesh's neighbor table) is timed on its own: the
+kernel (csrc/cg.cu, one launch, as the step runs it) and its plain
+version (`cg_plain`, the torch loop) side by side, by CUDA events and on
+the host clock, with the kernel's device operations (torch.profiler);
+`--record PATH` writes those numbers into PATH under "profile_cg"
+(scripts/ab_torch_step.py writes its runs beside them). Then
 torch.profiler lists the device kernels by total time. Last, a joint host
 and device trace (torch.profiler, CPU and CUDA activities) of one eager
 step and of one replay of the step's CUDA graph (`GraphedTrainStep`, as
@@ -50,6 +56,7 @@ def main():
                     choices=["none", "sobolev", "h1"])
     ap.add_argument("--trace-dir", default=os.path.join(
         HERE, "build", "torch_step_traces"))
+    ap.add_argument("--record", help="JSON file for the CG line's numbers")
     args = ap.parse_args()
 
     import torch
@@ -155,30 +162,58 @@ def main():
     print(f"  oracle total per step: {oracle:.1f}; rest of the step: "
           f"{statistics.mean(split) - oracle:.1f}")
 
-    from drt_tpu_torch.optimize.precondition import sobolev_solve
-    rhs = torch.randn_like(ms.vertices)
-
-    def solve():
-        return sobolev_solve(rhs, ms.neighbors, ms.neighbor_valid,
-                             hp.precond_lambda, maxiter=hp.cg_iters)
-    solve()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        solve()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / 5 * 1e3
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(5):
-        solve()
-    end.record()
-    torch.cuda.synchronize()
-    print(f"one Sobolev CG solve ({hp.cg_iters} trips, "
-          f"{ms.vertices.shape[0]} padded vertices): {host_ms:.2f} ms host "
-          f"clock, {start.elapsed_time(end) / 5:.2f} ms CUDA events")
-
     from torch.profiler import ProfilerActivity, profile
+    from drt_tpu_torch.optimize.precondition import cg_cuda, cg_plain
+    rhs = torch.randn_like(ms.vertices)
+    cg_line = {"device": smi.stdout.strip(),
+               "script": "scripts/profile_torch_step.py",
+               "shape": list(rhs.shape),
+               "neighbours": ms.neighbors.shape[1],
+               "maxiter": hp.cg_iters, "tol": 1e-6}
+    for name, fn, reps in (("kernel", cg_cuda, 20), ("plain", cg_plain, 3)):
+        def solve():
+            return fn(rhs, ms.neighbors, ms.neighbor_valid,
+                      hp.precond_lambda, tol=1e-6, maxiter=hp.cg_iters)
+        _, trips = solve()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            solve()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            solve()
+        end.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            solve()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+        cg_line[name] = {"trips": int(trips), "host_ms": host_ms,
+                         "cuda_ms": start.elapsed_time(end) / reps,
+                         "device_ops": len(ops),
+                         "device_busy_ms": sum(e.time_range.end
+                                               - e.time_range.start
+                                               for e in ops) / 1e3}
+    k, p = cg_line["kernel"], cg_line["plain"]
+    print(f"one Sobolev CG solve ({k['trips']} trips, "
+          f"{ms.vertices.shape[0]} padded vertices): kernel "
+          f"{k['cuda_ms']:.3f} ms CUDA events, {k['host_ms']:.3f} ms host "
+          f"clock, {k['device_ops']} device operation(s); plain version "
+          f"{p['cuda_ms']:.2f} ms CUDA events, {p['host_ms']:.2f} ms host "
+          f"clock, {p['device_ops']} device operations "
+          f"({p['device_busy_ms']:.2f} ms busy)")
+    if args.record:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from ab_torch_step import record
+        record(args.record, "profile_cg",
+               f"{args.optimizer} + {args.precond}", cg_line)
+
     init, step, _ = make_train_step(get_intersect_fn("auto"), weights, *res,
                                     budget, **step_kw)
     state = init(ms)

@@ -985,3 +985,145 @@ def test_graph_memory_returns_after_the_pass(dev, sphere_capture):
     assert min(pools) > 0
     assert allocated[2] == allocated[1] <= allocated[0] + 2 ** 16
     assert reserved[2] <= reserved[1] <= reserved[0] + 2 ** 21
+
+
+# -- the Sobolev preconditioner's CG solve (csrc/cg.cu) ----------------------
+
+def _cg_case(source, dtype, dev, seed, dog20k=None):
+    """(b, neighbors, neighbor_valid, x0) on `source`'s neighbour table."""
+    from drt_tpu_torch.optimize import precondition as PC  # noqa: F401
+    if source == "dog20k":
+        ms = dog20k
+    else:
+        v, f = (make_icosphere(subdivisions=3, radius=10.0)
+                if source == "icosphere" else make_cube(size=4.0))
+        ms = build_mesh_state(v, f, device=dev)
+    rng = np.random.default_rng(seed)
+    shape = tuple(ms.vertices.shape)
+    b = torch.tensor(rng.normal(size=shape), dtype=dtype, device=dev)
+    x0 = torch.tensor(0.1 * rng.normal(size=shape), dtype=dtype, device=dev)
+    return b, ms.neighbors, ms.neighbor_valid, x0
+
+
+def _cg_bits(a, b):
+    iv = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(iv), b.view(iv))
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("maxiter,tol", [(64, 1e-6), (256, 1e-8),
+                                         (64, 1e-3), (0, 1e-6)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("source", ["icosphere", "cube", "dog20k"])
+def test_cg_kernel_matches_plain(dev, dog20k, source, dtype, maxiter, tol,
+                                 given):
+    """One launch a solve, the plain version's bits and trip count on the
+    card, and the same bits from a second launch."""
+    from drt_tpu_torch import kernels
+    from drt_tpu_torch.optimize import precondition as PC
+    b, nbr, valid, x0 = _cg_case(source, dtype, dev, 7, dog20k)
+    x0 = x0 if given else None
+    before = kernels.counters.cg_launches
+    xk, tk = PC.cg_cuda(b, nbr, valid, 29.0, tol=tol, maxiter=maxiter,
+                        x0=x0)
+    torch.cuda.synchronize()
+    assert kernels.counters.cg_launches == before + 1
+    xk2, tk2 = PC.cg_cuda(b, nbr, valid, 29.0, tol=tol, maxiter=maxiter,
+                          x0=x0)
+    xp, tp = PC.cg_plain(b, nbr, valid, 29.0, tol=tol, maxiter=maxiter,
+                         x0=x0)
+    assert int(tk) == int(tp) == int(tk2) <= maxiter
+    assert _cg_bits(xk, xp)
+    assert _cg_bits(xk, xk2)
+
+
+@pytest.mark.parametrize("case", ["zero rhs", "one thread's share",
+                                  "no neighbours", "nan"])
+def test_cg_kernel_edge_cases(dev, case):
+    """b = 0 (no trip), a vector below one element a thread, a table
+    without valid entries (A = I), and a NaN in b (no trip runs)."""
+    from drt_tpu_torch.optimize import precondition as PC
+    b, nbr, valid, _ = _cg_case("cube", torch.float32, dev, 8)
+    if case == "zero rhs":
+        b = torch.zeros_like(b)
+    elif case == "one thread's share":
+        b, nbr, valid = b[:5].contiguous(), nbr[:5] % 5, valid[:5]
+        nbr, valid = nbr.contiguous(), valid.contiguous()
+    elif case == "no neighbours":
+        valid = torch.zeros_like(valid)
+    else:
+        b[3, 1] = float("nan")
+    xk, tk = PC.cg_cuda(b, nbr, valid, 9.0, tol=1e-6, maxiter=20)
+    xp, tp = PC.cg_plain(b, nbr, valid, 9.0, tol=1e-6, maxiter=20)
+    assert int(tk) == int(tp)
+    assert _cg_bits(xk, xp)
+    if case == "zero rhs":
+        assert int(tk) == 0 and not xk.any()
+    if case == "no neighbours":
+        assert int(tk) == 1 and _cg_bits(xk, b)
+
+
+def test_sobolev_solve_on_the_card_equals_plain_with_gradient(dev, dog20k):
+    """sobolev_solve on CUDA tensors launches the kernel (forward and
+    backward), and its value and input gradient are the plain version's
+    bits on the card."""
+    from drt_tpu_torch import kernels
+    from drt_tpu_torch.optimize import precondition as PC
+    b, nbr, valid, _ = _cg_case("dog20k", torch.float32, dev, 9, dog20k)
+    w = torch.randn(b.shape, generator=torch.Generator().manual_seed(1)).to(
+        dev)
+    u = b.clone().requires_grad_(True)
+    before = kernels.counters.cg_launches
+    v = PC.sobolev_solve(u, nbr, valid, 29.0, maxiter=64)
+    (g,) = torch.autograd.grad((v * w).sum(), u)
+    assert kernels.counters.cg_launches == before + 2
+    vp, _ = PC.cg_plain(b, nbr, valid, 29.0, tol=1e-6, maxiter=64)
+    gp, _ = PC.cg_plain(w, nbr, valid, 29.0, tol=1e-6, maxiter=64)
+    assert _cg_bits(v.detach(), vp)
+    assert _cg_bits(g, gp)
+
+
+def test_cg_kernel_in_a_cuda_graph(dev, dog20k):
+    """A captured launch replays to the eager launch's bits, and the capture
+    waits on nothing."""
+    from drt_tpu_torch.optimize import precondition as PC
+    b, nbr, valid, _ = _cg_case("dog20k", torch.float32, dev, 10, dog20k)
+    eager, trips = PC.cg_cuda(b, nbr, valid, 29.0, tol=1e-6, maxiter=64)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        PC.cg_cuda(b, nbr, valid, 29.0, tol=1e-6, maxiter=64)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        xg, tg = PC.cg_cuda(b, nbr, valid, 29.0, tol=1e-6, maxiter=64)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _cg_bits(xg, eager) and int(tg) == int(trips)
+
+
+def test_cg_kernel_raises_on_bad_input(dev):
+    from drt_tpu_torch.optimize import precondition as PC
+    b, nbr, valid, _ = _cg_case("cube", torch.float32, dev, 11)
+    with pytest.raises(ValueError):
+        PC.cg_cuda(b, nbr.cpu(), valid, 1.0)
+    with pytest.raises(ValueError):
+        PC.cg_cuda(b, nbr, valid, 1.0, maxiter=-1)
+    with pytest.raises(ValueError):
+        PC.cg_cuda(b[:, :2], nbr, valid, 1.0)
+
+
+def test_cg_kernel_takes_negative_entries_as_torch_indexing_does(dev):
+    """A valid entry in [-Vp, 0) is x[n + Vp] in the kernel, as torch's
+    indexing in the plain version takes it: the same bits as the table
+    written with n + Vp."""
+    from drt_tpu_torch.optimize import precondition as PC
+    b, nbr, valid, _ = _cg_case("icosphere", torch.float32, dev, 12)
+    rows = torch.arange(nbr.shape[0], device=dev)[:, None] % 2 == 0
+    neg = torch.where(valid & rows, nbr - nbr.shape[0], nbr)
+    assert (neg < 0).any()
+    xn, tn = PC.cg_cuda(b, neg, valid, 29.0, tol=1e-6, maxiter=64)
+    xw, tw = PC.cg_cuda(b, nbr, valid, 29.0, tol=1e-6, maxiter=64)
+    xp, tp = PC.cg_plain(b, neg, valid, 29.0, tol=1e-6, maxiter=64)
+    assert int(tn) == int(tw) == int(tp)
+    assert _cg_bits(xn, xw) and _cg_bits(xn, xp)
