@@ -13,7 +13,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
            memory and spills and fails on a spill to local memory or a
            kernel missing from the library; prints the scatter cluster
            route's cluster size (cudaOccupancyMaxActiveClusters) and fails
-           unless the card schedules the CG kernel's 16-CTA cluster;
+           unless the card schedules both CG routes' 16-CTA clusters and
+           gives the shared route's CTAs the shared memory `cg_route` plans
+           for (printed, with the bytes of the three meshes' solves);
 2. kernel  the closest-hit kernel vs its plain PyTorch version on
            dog_mid90k (82,566 faces) at 1280x960: camera rays (coherent)
            and the bounce-2 rays of the same view (incoherent), plus a
@@ -89,7 +91,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
            two evaluations of the loss, one with the ray weight alone and
            one with the regularizers alone, make the 11 queries of one) and
            the preconditioner (CG launches a step: 0 for none, 1 for h1, 2
-           for sobolev, and 1 in sobolev's `final_vertices`);
+           for sobolev, and 1 in sobolev's `final_vertices`), every one on
+           the CG kernel's shared route; then one uadam + h1 step each on
+           dog_mid20k and dog_mid90k (the shared route) and on dog_mid45k
+           subdivided once (Vp 131,072, above the shared route's cap: the
+           global route), each checked by the counters of its route;
 7. chunked one sgd + none step with ray_chunk=2**18 against the unchunked
            step from the same state, twice. First as the step runs it, each
            query shifting the scene by its own mean ray origin: a chunk's
@@ -194,7 +200,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
            state on the same views: params, m, v and the loss equal bit
            for bit after every step, and the graphed run's launches of
            every kernel equal the eager run's (the CG's reckoned as in
-           phase 6); (c) phase 5's step, then uadam + h1 and sgd +
+           phase 6, all on the shared route); (c) phase 5's step, then
+           uadam + h1 and sgd +
            sobolev, timed in turns (eager, graph, graph, eager), 5 steps a
            turn on the host clock between synchronizations, with the
            launches of each graph turn counted from 0 (11 of each oracle
@@ -207,15 +214,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
            card, on the solves recorded from one dog_mid45k uadam + h1 step
            (its gradient's solve), one sgd + sobolev step (the forward
            solve and the backward's) and its `final_vertices` (4 x
-           cg_iters trips at most, tol 1e-8), each in float32 and in
-           float64: the same bits (integer views) and trip counts, and a
-           second launch's bits; the h1 solve with valid entries given
-           from the end (n - Vp), which the kernel must take as torch's
-           indexing does; the h1 and final solves under
-           torch.profiler (the kernel's one launch and nothing else), their
-           time by CUDA events, their bound (`cg_bound`) and the plain
-           version's time. Phases 6 and 13 are the kernel's main path:
-           their launches are its count in the kernels line.
+           cg_iters trips at most, tol 1e-8), and one uadam + h1 step on
+           phase 6's subdivided mesh, each in float32 and in float64, on
+           the default route (`cg_route`) and on each route forced: the
+           same bits (integer views) and trip counts, and a second
+           launch's bits; the shared route must refuse what `cg_route`
+           does not give it; the h1 solve with valid entries given from
+           the end (n - Vp), which both routes must take as torch's
+           indexing does; the measured trip floor of each route (a
+           1,024-vertex ring, tol 0, 64 trips against 0); the h1 solves
+           and the final solve under torch.profiler (the default route's
+           kernel alone), each route's time by CUDA events in turns,
+           their bound (`cg_bound`: inputs read once and x written once
+           against the trips' operations at the FP32 rate), the ring's
+           floor for as many trips, the per-trip HBM figure (the global
+           route's bytes a trip at the HBM rate) and the plain version's
+           time. Phases 6 and 13 are the kernel's main
+           path: their launches by route are each route's count in the
+           kernels line.
 Then it prints the timings, a JSON line of phase 10's times, a JSON line of
 phase 11's, one of phase 12's, one of phase 13's, a JSON line with the
 kernels' numbers (with their times at each group on phase 12's bounce-2
@@ -224,7 +240,7 @@ query), the card's name and power limit, and as its last line
 
 The scatter kernel also runs in phases 3, 6, 7, 9, 10 and 11 (every
 vertex gradient on the card); phase 9 prints its launches. The CG kernel
-also runs in phase 11a's uadam + h1 step.
+also runs in phase 11a's uadam + h1 step (its shared route).
 
 It needs the repository around it (drt_tpu_torch/, native/remesh.cpp and
 reports/tuning_meshes/), a CUDA GPU, nvcc, g++ and PIL (to decode phase 10's
@@ -250,10 +266,12 @@ HBM_RATE = 3.35e12                # H100 SXM HBM3 bytes/s
 TIE_PER_1024 = 2
 # The entry functions of the five sources: closest_hit.cu, candidates.cu,
 # pack.cu, scatter.cu (its cluster route's one kernel; its grid route's
-# upfront, pass and reduce kernels) and cg.cu.
+# upfront, pass and reduce kernels) and cg.cu (its global and shared
+# routes' kernels).
 BUILT_KERNELS = ("closest_hit_kernel", "candidates_kernel", "pack_kernel",
                  "scatter_cluster_kernel", "scatter_upfront_kernel",
-                 "scatter_pass_kernel", "scatter_reduce_kernel", "cg_kernel")
+                 "scatter_pass_kernel", "scatter_reduce_kernel", "cg_kernel",
+                 "cg_shared_kernel")
 # CG solves a step by preconditioner: h1 solves its gradient, sobolev its
 # vertices in the forward and the cotangent in the backward.
 CG_PER_STEP = {"none": 0, "h1": 1, "sobolev": 2}
@@ -265,6 +283,13 @@ def counts():
     from drt_tpu_torch.intersect import cuda_kernel as CK
     c = CK.counters
     return (c.launches, c.candidates_launches, c.pack_launches)
+
+
+def cg_counts():
+    """The CG launch counters: (all, shared route, global route)."""
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    c = CK.counters
+    return (c.cg_launches, c.cg_shared_launches, c.cg_global_launches)
 
 
 def fail(msg):
@@ -1298,10 +1323,11 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
 
 
 def run_steps(name, step, state, lr, mesh, cap, seed, n, expect,
-              cg_expect=None, cg_seen=None):
+              cg_expect=None, cg_seen=None, cg_route=None):
     """n steps through `step`; the launch counts of each against `expect`
     (closest-hit, prepass, packing) and, where given, its CG launches
-    against `cg_expect` (appended to the list `cg_seen`). Returns (state,
+    against `cg_expect`, every one on route `cg_route` (the counts of each
+    step appended to the list `cg_seen` as `cg_counts()`). Returns (state,
     losses, ms of the last step)."""
     import torch
     from drt_tpu_torch.intersect import cuda_kernel as CK
@@ -1320,18 +1346,23 @@ def run_steps(name, step, state, lr, mesh, cap, seed, n, expect,
         ms = (time.time() - t0) * 1e3
         losses.append(float(loss))
         got = counts()
-        cg_got = CK.counters.cg_launches
+        cg_got, cg_shared, cg_global = cg_counts()
         print(f"{name} step {it}: {ms:.1f} ms, loss {losses[-1]:.6g}, max "
               f"grad {float(aux['max_grad']):.3g}, launches {got[0]} "
               f"closest-hit, {got[1]} prepass, {got[2]} packing, {cg_got} "
-              f"CG")
+              f"CG ({cg_shared} shared route, {cg_global} global route)")
         if got != tuple(expect):
             fail(f"{name} step {it}: launches {got}, expected {expect}")
         if cg_expect is not None and cg_got != cg_expect:
             fail(f"{name} step {it}: {cg_got} CG launches, reckoned "
                  f"{cg_expect}")
+        if cg_route is not None and cg_got != {
+                "shared": cg_shared, "global": cg_global}[cg_route]:
+            fail(f"{name} step {it}: {cg_shared} CG launches on the shared "
+                 f"route and {cg_global} on the global, every one reckoned "
+                 f"on the {cg_route} route")
         if cg_seen is not None:
-            cg_seen.append(cg_got)
+            cg_seen.append((cg_got, cg_shared, cg_global))
         if not math.isfinite(losses[-1]):
             fail(f"{name} step {it}: loss is not finite")
     return state, losses, ms
@@ -2043,7 +2074,7 @@ def graph_phase(res, hp, weights, budget, mesh, cap, per_step,
     """Phase 13: the train step as one CUDA graph (GraphedTrainStep, as
     `optimize` runs each pass on the card). Returns (the phase's launches
     of the three oracle kernels, its scatter launches, the CG launches of
-    its timed graph turns, its numbers)."""
+    its timed graph turns as `cg_counts()`, its numbers)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from drt_tpu_torch.geometry.scatter import deferred_bounds_check
@@ -2132,10 +2163,11 @@ def graph_phase(res, hp, weights, budget, mesh, cap, per_step,
         got = CK.counters.snapshot()
         run.close()
         if got != want or got["launches"] != 3 * per_step \
-                or got["cg_launches"] != 3 * CG_PER_STEP[precond]:
+                or got["cg_launches"] != 3 * CG_PER_STEP[precond] \
+                or got["cg_shared_launches"] != got["cg_launches"]:
             fail(f"graph: {name}: launches {got} in 3 graphed steps, "
                  f"{want} in 3 eager steps ({3 * CG_PER_STEP[precond]} CG "
-                 "solves reckoned)")
+                 "solves reckoned, all on the shared route)")
         if int(run.bounds_word):
             fail(f"graph: {name}: a scatter index was out of bounds")
         out["bitwise"][name] = {"steps": 3, "equal": True,
@@ -2156,7 +2188,7 @@ def graph_phase(res, hp, weights, budget, mesh, cap, per_step,
     # steps a turn after its warm-up (and, in a graph turn, the capture);
     # phase 5's step, then the two preconditioned steps
     n = 5
-    graph_launches, graph_scatters, graph_cg = (0, 0, 0), 0, 0
+    graph_launches, graph_scatters, graph_cg = (0, 0, 0), 0, (0, 0, 0)
     out["pairs"] = {}
     for optimizer, precond in TIMED_PAIRS:
         name = f"{optimizer} + {precond}"
@@ -2188,11 +2220,12 @@ def graph_phase(res, hp, weights, budget, mesh, cap, per_step,
                         ms_.append((time.perf_counter() - t0) * 1e3)
                 launched = counts()          # and ends here
                 sc = CK.counters.scatter_launches
-                cg_n = CK.counters.cg_launches
+                cg_by = cg_counts()
+                cg_n = cg_by[0]
                 graph_launches = tuple(a + b for a, b in zip(graph_launches,
                                                              launched))
                 graph_scatters += sc
-                graph_cg += cg_n
+                graph_cg = tuple(a + b for a, b in zip(graph_cg, cg_by))
                 # h1 evaluates the loss twice, the ray term alone (with
                 # its vertex evidence, one scatter more) and the
                 # regularizers alone, each with its normals
@@ -2204,12 +2237,14 @@ def graph_phase(res, hp, weights, budget, mesh, cap, per_step,
                                                f_pad))
                 if launched != (per_step * (2 + n),) * 3 \
                         or sc != want_sc * (2 + n) \
-                        or cg_n != CG_PER_STEP[precond] * (2 + n):
+                        or cg_n != CG_PER_STEP[precond] * (2 + n) \
+                        or cg_by[1] != cg_n:
                     fail(f"graph: {name}: {2 + n} graphed steps launched "
                          f"{launched} oracle kernels, {sc} scatters and "
-                         f"{cg_n} CG solves, reckoned {per_step * (2 + n)}, "
-                         f"{want_sc * (2 + n)} and "
-                         f"{CG_PER_STEP[precond] * (2 + n)}")
+                         f"{cg_by} CG solves (all, shared, global), reckoned "
+                         f"{per_step * (2 + n)}, {want_sc * (2 + n)} and "
+                         f"{CG_PER_STEP[precond] * (2 + n)} on the shared "
+                         "route")
                 setup = dict(run.setup)
                 run.close()
             turns.append({"kind": kind, "step_ms": ms_})
@@ -2235,9 +2270,10 @@ def graph_phase(res, hp, weights, budget, mesh, cap, per_step,
                   f"({g['min']:.2f}-{g['max']:.2f}, turn medians "
                   f"{[round(x, 2) for x in g['turn_medians']]})")
         del run, st
-    if min(graph_launches) < 1 or graph_scatters < 1 or graph_cg < 1:
+    if min(graph_launches) < 1 or graph_scatters < 1 or graph_cg[1] < 1:
         fail(f"graph: the graphed steps launched {graph_launches} oracle "
-             f"kernels, {graph_scatters} scatters and {graph_cg} CG solves")
+             f"kernels, {graph_scatters} scatters and {graph_cg} CG solves "
+             "(all, shared route, global route)")
     setup = out["setup"]
 
     # (d) one replay and one eager step under torch.profiler: device busy
@@ -2281,7 +2317,8 @@ def graph_phase(res, hp, weights, budget, mesh, cap, per_step,
           f"{setup['capture_s']:.3f} s, instantiate "
           f"{setup['instantiate_s']:.3f} s, pool "
           f"{setup['pool_bytes'] / 2**20:.1f} MiB; launches {graph_launches}"
-          f", scatter launches {graph_scatters}, CG launches {graph_cg}")
+          f", scatter launches {graph_scatters}, CG launches {graph_cg[0]} "
+          f"({graph_cg[1]} on the shared route)")
     out["phase_s"] = time.time() - t_phase
     return graph_launches, graph_scatters, graph_cg, out
 
@@ -2296,11 +2333,11 @@ def cg_spy(calls):
     real = PC.cg_cuda
 
     def spy(b, neighbors, neighbor_valid, lam, tol=1e-5, maxiter=64,
-            x0=None):
+            x0=None, route=None):
         calls.append((b.clone(), neighbors, neighbor_valid, lam, tol,
                       maxiter, None if x0 is None else x0.clone()))
         return real(b, neighbors, neighbor_valid, lam, tol=tol,
-                    maxiter=maxiter, x0=x0)
+                    maxiter=maxiter, x0=x0, route=route)
     PC.cg_cuda = spy
     try:
         yield calls
@@ -2308,40 +2345,94 @@ def cg_spy(calls):
         PC.cg_cuda = real
 
 
-def cg_bound(b, neighbor_valid, trips):
+def cg_bound(b, neighbor_valid, trips, x0=False):
     """(ms, "bytes" or "operations"): the least time of a solve of b [Vp,C]
-    that ran `trips` trips. Once: b, the int64 table and its mask read, x
-    written. Each trip: the int32 table, the degrees, and x, r and p read
-    and written once, at the HBM rate; 14 operations an element (the
-    matvec's 4, p.Ap, the x and r updates, r.r and the p update, 2 each)
-    and one add a valid neighbour's element, at the FP32 rate (csrc/cg.cu's
-    code)."""
+    that ran `trips` trips, counted as every bound in this script is
+    counted: each input read once (b, the int64 table and its mask, x0 where
+    given) and x written once, at the HBM rate, against the operations this
+    run does at the FP32 rate: b.b and r.r (4 an element); A x0 and b - A
+    x0 where x0 is given (5 an element and one add a valid neighbour's
+    element); and each trip's 14 an element (the matvec's 4, p.Ap, the x
+    and r updates, r.r and the p update, 2 each) and one add a valid
+    neighbour's element (csrc/cg.cu's code)."""
+    vp, c = b.shape
+    d = neighbor_valid.shape[1]
+    n, size = vp * c, b.element_size()
+    gathers = int(neighbor_valid.sum()) * c
+    bytes_ms = ((2 + int(x0)) * n * size + vp * d * 9) / HBM_RATE * 1e3
+    ops = 4 * n + (5 * n + gathers if x0 else 0) + trips * (14 * n + gathers)
+    ops_ms = ops / FP32_PEAK * 1e3
+    return ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+            else (ops_ms, "operations"))
+
+
+def cg_trip_hbm_ms(b, neighbor_valid, trips):
+    """The per-trip HBM figure, the CG kernel's bound before `cg_bound`
+    counted inputs once: b, the int64 table and mask read and x written
+    once, and each trip's int32 table, degrees and x, r and p read and
+    written once, at the HBM rate (what the global route moves through L2
+    a trip, priced at HBM's rate)."""
     vp, c = b.shape
     d = neighbor_valid.shape[1]
     n, size = vp * c, b.element_size()
     once = 2 * n * size + vp * d * 9
-    trip_bytes = vp * d * 4 + vp * size + 6 * n * size
-    trip_ops = 14 * n + int(neighbor_valid.sum()) * c
-    bytes_ms = (once + trips * trip_bytes) / HBM_RATE * 1e3
-    ops_ms = (4 * n + trips * trip_ops) / FP32_PEAK * 1e3
-    return ((bytes_ms, "bytes") if bytes_ms >= ops_ms
-            else (ops_ms, "operations"))
+    trip = vp * d * 4 + vp * size + 6 * n * size
+    return (once + trips * trip) / HBM_RATE * 1e3
+
+
+def cg_ring_floor(lam, reps=20, vp=1024, side=4):
+    """{route: {"ms_0_trips", "ms_64_trips", "us_a_trip"}}: the measured
+    trip floor, a ring of `vp` vertices each joined to the `side` on
+    either side (fewer elements than the cluster's threads), solved with
+    tol 0 for 64 trips and for 0 on each route in turns (global, shared,
+    shared, global), CUDA events, bits checked."""
+    import torch
+    from drt_tpu_torch.optimize import precondition as PC
+    dev = torch.device("cuda", 0)
+    ids = torch.arange(vp, device=dev)
+    steps = [k for k in range(-side, side + 1) if k]
+    nbr = torch.stack([(ids + k) % vp for k in steps], dim=1)
+    valid = torch.ones_like(nbr, dtype=torch.bool)
+    b = torch.randn((vp, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    out = {r: {"ms_0_trips": [], "ms_64_trips": []} for r in PC.CG_ROUTES}
+    for maxiter in (0, 64):
+        want, want_trips = PC.cg_plain(b, nbr, valid, lam, tol=0.0,
+                                       maxiter=maxiter)
+        for route in ("global", "shared", "shared", "global"):
+            x, trips = PC.cg_cuda(b, nbr, valid, lam, tol=0.0,
+                                  maxiter=maxiter, route=route)
+            if not same_bits(x, want) or int(trips) != int(want_trips):
+                fail(f"cg: the ring's {maxiter}-trip solve on the {route} "
+                     "route differs from its plain version")
+            out[route][f"ms_{maxiter}_trips"].append(cuda_ms(
+                lambda: PC.cg_cuda(b, nbr, valid, lam, tol=0.0,
+                                   maxiter=maxiter, route=route), reps))
+    for r in out.values():
+        r["us_a_trip"] = (statistics.mean(r["ms_64_trips"])
+                          - statistics.mean(r["ms_0_trips"])) / 64 * 1e3
+    return out
 
 
 # Spin kernels (torch.cuda._sleep) launched at the start of a profile
 # before the operations it counts.
 SENTINELS = 32
+# csrc/cg.cu's kernel by route
+CG_KERNEL = {"global": "cg_kernel", "shared": "cg_shared_kernel"}
 
 
-def cg_phase(res, hp, weights, budget, mesh, cap):
+def cg_phase(res, hp, weights, budget, mesh, cap, mesh_fine, budget_fine):
     """Phase 14: csrc/cg.cu against its plain version on the solves of a
     dog_mid45k uadam + h1 step and an sgd + sobolev step (the forward
     solve, the backward solve, and `final_vertices` at 4 cg_iters trips and
-    tol 1e-8), in float32 and float64: the bits, the trips, the bits of a
-    second launch; negative table entries; one solve under torch.profiler
-    (1 device operation, the kernel); the h1 solve's and the final solve's
-    time (CUDA events) against their bounds and the plain version's.
-    Returns its numbers."""
+    tol 1e-8) and of a uadam + h1 step on `mesh_fine` (above the shared
+    route's cap), in float32 and float64, on the default route and on each
+    route forced (the shared route must refuse what `cg_route` does not
+    give it): the bits, the trips, the bits of a second launch; negative
+    table entries on both routes; one solve of each route under
+    torch.profiler (its kernel alone); each route's time on the h1 solves
+    and `final_vertices` in turns (CUDA events) against their bounds, the
+    ring's trip floor and the plain version's time. Returns its numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from drt_tpu_torch.intersect.api import get_intersect_fn
@@ -2351,27 +2442,29 @@ def cg_phase(res, hp, weights, budget, mesh, cap):
     ray_gen = cap.ray_view_generator(seed=hp.seed + 30)
     silh_gen = cap.silh_view_generator(seed=hp.seed + 1030)
     recorded = {}
-    for optimizer, precond in (("uadam", "h1"), ("sgd", "sobolev")):
+    for optimizer, precond, ms, bud, names in (
+            ("uadam", "h1", mesh, budget, ["h1"]),
+            ("sgd", "sobolev", mesh, budget,
+             ["sobolev forward", "sobolev backward"]),
+            ("uadam", "h1", mesh_fine, budget_fine, ["h1 above the cap"])):
         init, step, final = make_train_step(
-            get_intersect_fn("auto"), weights, *res, budget,
+            get_intersect_fn("auto"), weights, *res, bud,
             momentum=hp.momentum, optimizer=optimizer, precond=precond,
             precond_lambda=hp.precond_lambda, cg_iters=hp.cg_iters,
             grad_clamp=hp.grad_clamp)
         calls = []
         with cg_spy(calls):
-            st, _, _ = step(init(mesh), 0.01, mesh, cap.views,
+            st, _, _ = step(init(ms), 0.01, ms, cap.views,
                             next(ray_gen), [next(silh_gen) for _ in range(8)])
             torch.cuda.synchronize()
         if len(calls) != CG_PER_STEP[precond]:
             fail(f"cg: a {precond} step made {len(calls)} solves, reckoned "
                  f"{CG_PER_STEP[precond]}")
-        names = (["h1"] if precond == "h1"
-                 else ["sobolev forward", "sobolev backward"])
         recorded.update(zip(names, calls))
         if precond == "sobolev":
             calls = []
             with cg_spy(calls):
-                final(st, mesh)
+                final(st, ms)
                 torch.cuda.synchronize()
             if len(calls) != 1:
                 fail(f"cg: final_vertices made {len(calls)} solves")
@@ -2382,56 +2475,81 @@ def cg_phase(res, hp, weights, budget, mesh, cap):
         for dtype in (torch.float32, torch.float64):
             bd = b.to(dtype)
             x0d = None if x0 is None else x0.to(dtype)
-            xk, tk = PC.cg_cuda(bd, nbr, valid, lam, tol=tol,
-                                maxiter=maxiter, x0=x0d)
-            xk2, tk2 = PC.cg_cuda(bd, nbr, valid, lam, tol=tol,
-                                  maxiter=maxiter, x0=x0d)
+            key = f"{name} {str(dtype).split('.')[-1]}"
+            default = PC.cg_route(bd.shape[0], bd.shape[1], nbr.shape[1],
+                                  dtype)
             xp, tp = PC.cg_plain(bd, nbr, valid, lam, tol=tol,
                                  maxiter=maxiter, x0=x0d)
-            torch.cuda.synchronize()
-            trips = (int(tk), int(tk2), int(tp))
-            bits, again = same_bits(xk, xp), same_bits(xk, xk2)
-            e = max_abs_diff(xk, xp)
-            err = max(err, e)
-            key = f"{name} {str(dtype).split('.')[-1]}"
-            out["solves"][key] = {"trips": trips[0], "maxiter": maxiter,
-                                  "tol": tol, "bits": bits, "again": again,
-                                  "err": e}
+            row = {"default_route": default, "maxiter": maxiter, "tol": tol,
+                   "trips": int(tp)}
+            for route in (None, "global", "shared"):
+                label = route or "default"
+                if route == "shared" and default != "shared":
+                    try:
+                        PC.cg_cuda(bd, nbr, valid, lam, tol=tol,
+                                   maxiter=maxiter, x0=x0d, route=route)
+                    except ValueError:
+                        row[label] = "refused"
+                        continue
+                    fail(f"cg: {key}: the shared route took a solve "
+                         "cg_route does not give it")
+                xk, tk = PC.cg_cuda(bd, nbr, valid, lam, tol=tol,
+                                    maxiter=maxiter, x0=x0d, route=route)
+                xk2, tk2 = PC.cg_cuda(bd, nbr, valid, lam, tol=tol,
+                                      maxiter=maxiter, x0=x0d, route=route)
+                torch.cuda.synchronize()
+                trips = (int(tk), int(tk2), int(tp))
+                bits, again = same_bits(xk, xp), same_bits(xk, xk2)
+                e = max_abs_diff(xk, xp)
+                err = max(err, e)
+                row[label] = {"bits": bits, "again": again, "err": e}
+                if not (bits and again and len(set(trips)) == 1
+                        and torch.isfinite(xk).all()):
+                    fail(f"cg: {key}, {label} route: the kernel differs from "
+                         f"its plain version or from itself (trips {trips})")
+            out["solves"][key] = row
             print(f"cg: {key} ([{b.shape[0]},{b.shape[1]}], {maxiter} trips "
-                  f"at most, tol {tol:g}): {trips[0]} trips; kernel and plain "
-                  f"version bit for bit: {bits}, trips equal: "
-                  f"{len(set(trips)) == 1}; a second launch bit for bit: "
-                  f"{again}; max |diff| {e:.3g}")
-            if not (bits and again and len(set(trips)) == 1
-                    and torch.isfinite(xk).all()):
-                fail(f"cg: {key}: the kernel differs from its plain version "
-                     f"or from itself (trips {trips})")
+                  f"at most, tol {tol:g}): {int(tp)} trips; the default "
+                  f"route ({default}), the global route and the shared "
+                  f"route ({'refused' if row['shared'] == 'refused' else 'taken'}) "
+                  "each bit for bit with the plain version, with its trips, "
+                  "and a second launch bit for bit")
     out["max_abs_err"] = err
     # a table with valid entries given from the end (n - Vp) on even rows:
-    # torch's indexing takes them as n, and so must the kernel
+    # torch's indexing takes them as n, and so must both routes
     b, nbr, valid, lam, tol, maxiter, x0 = recorded["h1"]
     even = torch.arange(nbr.shape[0], device=nbr.device)[:, None] % 2 == 0
     neg = torch.where(valid & even, nbr - nbr.shape[0], nbr)
-    xn, tn = PC.cg_cuda(b, neg, valid, lam, tol=tol, maxiter=maxiter, x0=x0)
-    xw, tw = PC.cg_cuda(b, nbr, valid, lam, tol=tol, maxiter=maxiter, x0=x0)
     xp, tp = PC.cg_plain(b, neg, valid, lam, tol=tol, maxiter=maxiter, x0=x0)
-    torch.cuda.synchronize()
-    negative_ok = (same_bits(xn, xw) and same_bits(xn, xp)
-                   and int(tn) == int(tw) == int(tp))
-    print(f"cg: the h1 solve with its even rows' entries given from the end: "
-          f"the kernel's bits equal the table as given and the plain "
-          f"version's: {negative_ok}")
-    if not negative_ok:
-        fail("cg: the kernel takes negative neighbour entries otherwise "
-             "than torch's indexing")
-    # the device operations of one solve, and the times
+    for route in PC.CG_ROUTES:
+        xn, tn = PC.cg_cuda(b, neg, valid, lam, tol=tol, maxiter=maxiter,
+                            x0=x0, route=route)
+        xw, tw = PC.cg_cuda(b, nbr, valid, lam, tol=tol, maxiter=maxiter,
+                            x0=x0, route=route)
+        torch.cuda.synchronize()
+        if not (same_bits(xn, xw) and same_bits(xn, xp)
+                and int(tn) == int(tw) == int(tp)):
+            fail(f"cg: the {route} route takes negative neighbour entries "
+                 "otherwise than torch's indexing")
+    print("cg: the h1 solve with its even rows' entries given from the end: "
+          "each route's bits equal the table as given and the plain "
+          "version's")
+    # the trip floor, then the device operations of a solve and the times
+    out["ring"] = cg_ring_floor(hp.precond_lambda)
+    for route, r in out["ring"].items():
+        print(f"cg: the measured trip floor ({route} route): a 1,024-vertex "
+              f"ring, {r['us_a_trip']:.3f} us a trip, "
+              f"{statistics.mean(r['ms_0_trips']):.4f} ms for a launch of no "
+              "trip")
     dev_t = torch.autograd.DeviceType.CUDA
-    for name in ("h1", "final_vertices"):
+    for name in ("h1", "final_vertices", "h1 above the cap"):
         b, nbr, valid, lam, tol, maxiter, x0 = recorded[name]
+        default = PC.cg_route(b.shape[0], b.shape[1], nbr.shape[1], b.dtype)
+        routes = (PC.CG_ROUTES if default == "shared" else ("global",))
 
-        def kernel():
+        def kernel(route=default):
             return PC.cg_cuda(b, nbr, valid, lam, tol=tol, maxiter=maxiter,
-                              x0=x0)
+                              x0=x0, route=route)
         kernel()
         torch.cuda.synchronize()
         attempt = 0
@@ -2454,60 +2572,94 @@ def cg_phase(res, hp, weights, budget, mesh, cap):
             if ops or not profile_again(attempt, f"the {name} solve's "
                                         "profile holds no device operation"):
                 break
-        if len(ops) != 1 or "cg_kernel" not in ops[0].name:
+        if len(ops) != 1 or CG_KERNEL[default] not in ops[0].name:
             fail(f"cg: the {name} solve made {len(ops)} device operations "
-                 f"({[e.name for e in ops]}), expected the kernel alone")
+                 f"({[e.name for e in ops]}), expected {CG_KERNEL[default]} "
+                 "alone")
         trips = int(trips)
-        ms = cuda_ms(kernel, 20)
+        by_route = {r: [] for r in routes}
+        for route in ("global", "shared", "shared", "global"):
+            if route in by_route:
+                by_route[route].append(cuda_ms(
+                    lambda route=route: kernel(route), 20))
         plain_ms = cuda_ms(lambda: PC.cg_plain(b, nbr, valid, lam, tol=tol,
                                                maxiter=maxiter, x0=x0), 3)
-        bound_ms, bound_by = cg_bound(b, valid, trips)
+        bound_ms, bound_by = cg_bound(b, valid, trips, x0 is not None)
+        floor = {r: statistics.mean(out["ring"][r]["ms_0_trips"])
+                 + trips * out["ring"][r]["us_a_trip"] / 1e3 for r in routes}
         out[name] = {"shape": [b.shape[0], b.shape[1]],
                      "neighbours": nbr.shape[1], "trips": trips,
+                     "default_route": default,
                      "device_ops": len(ops), "device_op": ops[0].name,
                      "profiled_ms": (ops[0].time_range.end
                                      - ops[0].time_range.start) / 1e3,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by}
+                     "ms_by_route": by_route,
+                     "ms": statistics.mean(by_route[default]),
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     "trip_hbm_ms": cg_trip_hbm_ms(b, valid, trips),
+                     "ring_floor_ms": floor}
         print(f"cg: the {name} solve ([{b.shape[0]},{b.shape[1]}] float32, "
-              f"{nbr.shape[1]} neighbours, {trips} trips): {len(ops)} device "
-              f"operation ({ops[0].name}, "
-              f"{out[name]['profiled_ms']:.4f} ms profiled); {ms:.4f} ms "
-              f"(CUDA events) against its bound {bound_ms:.4f} ms "
-              f"({bound_by}) and the plain version's {plain_ms:.2f} ms")
+              f"{nbr.shape[1]} neighbours, {trips} trips, default route "
+              f"{default}): 1 device operation ({ops[0].name}, "
+              f"{out[name]['profiled_ms']:.4f} ms profiled); by route in "
+              "turns (CUDA events) "
+              + ", ".join(f"{r} {[round(x, 4) for x in t]} ms"
+                          for r, t in by_route.items())
+              + f"; its bound {bound_ms:.4f} ms ({bound_by}); the measured "
+              "trip floor (ring) "
+              + ", ".join(f"{r} {x:.4f} ms" for r, x in floor.items())
+              + f"; the per-trip HBM figure "
+              f"{out[name]['trip_hbm_ms']:.4f} ms; the plain version's "
+              f"{plain_ms:.2f} ms")
     out["phase_s"] = time.time() - t_phase
     print(f"cg: phase {out['phase_s']:.1f} s")
     return out
 
 
-def cg_entry(cg, steps_launches, graph_launches):
-    """The kernels line's entry of csrc/cg.cu: the h1 step's solve."""
-    h1 = cg["h1"]
-    return {
-        "name": "cg_kernel",
-        "route": "cuda",
-        "source": "drt_tpu_torch/csrc/cg.cu",
-        "replaces": "drt_tpu/optimize/precondition.py:65",
-        "launches": steps_launches + graph_launches,
-        "launches_steps": steps_launches,
-        "launches_graph": graph_launches,
-        "launches_per_step": CG_PER_STEP,
-        "shape": f"the uadam + h1 step's solve on dog_mid45k: b "
-                 f"[{h1['shape'][0]},{h1['shape'][1]}] float32, "
-                 f"{h1['neighbours']} neighbours, {h1['trips']} trips",
-        "max_abs_err": cg["max_abs_err"],
-        "ms": h1["ms"],
-        "plain_ms": h1["plain_ms"],
-        "bound_ms": h1["bound_ms"],
-        "bound_by": h1["bound_by"],
-        "library_ms": None,
-        "library": "none: no single PyTorch call solves the system (a "
-                   "torch.sparse product computes only the matvec)",
-        "device_ops": h1["device_ops"],
-        "profiled_ms": h1["profiled_ms"],
-        "final_vertices": cg["final_vertices"],
-        "solves": cg["solves"],
-    }
+def cg_entries(cg, cg_steps, graph_cg):
+    """The kernels line's entries of csrc/cg.cu, a route each: the shared
+    route on the uadam + h1 step's solve of dog_mid45k, the global route on
+    the same step's solve above the shared route's cap. Their launches are
+    the main path's: phase 6's steps and phase 13's graph turns."""
+    steps = [sum(x) for x in zip(*cg_steps)]
+    entries = []
+    for route, kernel, solve in (("shared", "cg_shared_kernel", "h1"),
+                                 ("global", "cg_kernel",
+                                  "h1 above the cap")):
+        i = 1 if route == "shared" else 2
+        r = cg[solve]
+        entries.append({
+            "name": kernel,
+            "route": "cuda",
+            "cg_route": route,
+            "source": "drt_tpu_torch/csrc/cg.cu",
+            "replaces": "drt_tpu/optimize/precondition.py:65",
+            "launches": steps[i] + graph_cg[i],
+            "launches_steps": steps[i],
+            "launches_graph": graph_cg[i],
+            "launches_per_step": CG_PER_STEP,
+            "shape": f"the uadam + h1 step's solve: b [{r['shape'][0]},"
+                     f"{r['shape'][1]}] float32, {r['neighbours']} "
+                     f"neighbours, {r['trips']} trips",
+            "max_abs_err": cg["max_abs_err"],
+            "ms": statistics.mean(r["ms_by_route"][route]),
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            "library": "none: no single PyTorch call solves the system (a "
+                       "torch.sparse product computes only the matvec)",
+            "ring_floor_ms": r["ring_floor_ms"][route],
+            "trip_hbm_ms": r["trip_hbm_ms"],
+            "ms_by_route": r["ms_by_route"],
+            "device_op": r["device_op"],
+            "profiled_ms": r["profiled_ms"],
+            "final_vertices": cg["final_vertices"],
+            "ring": cg["ring"],
+            "solves": cg["solves"],
+        })
+    return entries
 
 def main():
     # cuBLAS's fixed workspace, which torch.use_deterministic_algorithms
@@ -2574,11 +2726,17 @@ def main():
           f"{SC.CLUSTER_MAX_ROWS} rows into {SC.CLUSTER_MAX_OUT} output "
           "elements, the grid route the rest")
     try:
-        PC._lib()
+        cg_lib = PC._lib()
     except RuntimeError as e:
         fail(f"cg: {e}")
     print(f"cg: one cluster of {PC.CG_CTAS} CTAs of {PC.CG_BLOCK} threads a "
-          "solve (cudaOccupancyMaxActiveClusters)")
+          "solve (cudaOccupancyMaxActiveClusters); the shared route's CTAs "
+          f"may take {cg_lib.cg_shared_budget()} bytes of shared memory "
+          f"(cg_route plans for {PC.CG_SHARED_BUDGET}); a float32 solve at "
+          "C = 3, 8 neighbours takes "
+          + ", ".join(f"{cg_lib.cg_shared_bytes(vp, 3, 8, 0)} at Vp {vp}"
+                      for vp in (16384, 32768, 65536))
+          + " (dog_mid20k, 45k, 90k)")
     print(f"ray tiles: coherent {CK.RAY_TILE_COHERENT}, incoherent "
           f"{CK.RAY_TILE_INCOHERENT}; closest-hit blocks of "
           f"{CK.BLOCK_RAYS} rays")
@@ -2727,7 +2885,12 @@ def main():
         fail(f"reckoned {per_step_all} launches a step, phase 5 saw "
              f"{per_step} of each kernel")
     step_ms_by = {}
-    cg_steps = []                     # phase 6's CG launches, step by step
+    # phase 6's CG launches, step by step: (all, shared route, global)
+    cg_steps = []
+    route45 = PC.cg_route(ms45.vertices.shape[0], 3, ms45.neighbors.shape[1],
+                          ms45.vertices.dtype)
+    if route45 != "shared":
+        fail(f"cg: dog_mid45k's solves would take the {route45} route")
     for optimizer, precond in (("adam", "none"), ("uadam", "h1"),
                                ("sgd", "sobolev")):
         init_o, step_o, final_o = make_train_step(
@@ -2739,14 +2902,15 @@ def main():
         st, _, ms = run_steps(name, step_o, init_o(ms45), 0.01, ms45, cap,
                               hp.seed, 2, per_step_all,
                               cg_expect=CG_PER_STEP[precond],
-                              cg_seen=cg_steps)
+                              cg_seen=cg_steps, cg_route="shared")
         CK.counters.reset()
         verts_o = final_o(st, ms45)
-        cg_final = CK.counters.cg_launches
+        cg_final = cg_counts()
         cg_steps.append(cg_final)
-        if cg_final != int(precond == "sobolev"):
-            fail(f"{name}: final_vertices made {cg_final} CG launches, "
-                 f"reckoned {int(precond == 'sobolev')}")
+        if cg_final[:2] != (int(precond == "sobolev"),) * 2:
+            fail(f"{name}: final_vertices made {cg_final} CG launches (all, "
+                 f"shared route, global route), reckoned "
+                 f"{int(precond == 'sobolev')} on the shared route")
         moved_o = float((verts_o - ms45.vertices).abs().max())
         if not torch.isfinite(verts_o).all() or moved_o <= 0:
             fail(f"{name}: vertices did not move or are not finite "
@@ -2755,6 +2919,33 @@ def main():
         print(f"steps: {name}: second step {ms:.1f} ms, max vertex move "
               f"{moved_o:.4g}")
         del st, verts_o
+    # one uadam + h1 step on dog_mid20k and dog_mid90k (the shared route)
+    # and on dog_mid45k subdivided once (Vp 131,072, above the shared
+    # route's cap: the global route)
+    vs, fs = midpoint_subdivide(torch.from_numpy(v45), torch.from_numpy(f45))
+    ms_fine = build_mesh_state(vs.numpy(), fs.numpy(), device=dev)
+    for label, ms_o, route in (
+            ("dog_mid20k", build_mesh_state(*load_ply(os.path.join(
+                MESH_DIR, "dog_mid20k.ply")), device=dev), "shared"),
+            ("dog_mid90k", build_mesh_state(v90, f90, device=dev),
+             "shared"),
+            ("dog_mid45k subdivided once", ms_fine, "global")):
+        vp_o, d_o = ms_o.vertices.shape[0], ms_o.neighbors.shape[1]
+        if PC.cg_route(vp_o, 3, d_o, ms_o.vertices.dtype) != route:
+            fail(f"cg: {label}'s solves would not take the {route} route")
+        init_o, step_o, _ = make_train_step(
+            get_intersect_fn("auto"), weights, *RES,
+            default_silhouette_budget(ms_o.num_edges),
+            momentum=hp.momentum, optimizer="uadam", precond="h1",
+            precond_lambda=hp.precond_lambda, cg_iters=hp.cg_iters,
+            grad_clamp=hp.grad_clamp)
+        name = (f"uadam + h1 on {label} ({ms_o.num_faces} faces, Vp "
+                f"{vp_o})")
+        _, _, step_ms_by[name] = run_steps(
+            name, step_o, init_o(ms_o), 0.01, ms_o, cap, hp.seed, 1,
+            per_step_all, cg_expect=CG_PER_STEP["h1"], cg_seen=cg_steps,
+            cg_route=route)
+    budget_fine = default_silhouette_budget(ms_fine.num_edges)
 
     # -- 7. a chunked step against the unchunked one --------------------------
     chunk = 2 ** 18
@@ -2991,10 +3182,12 @@ def main():
         RES, hp, weights, budget, ms45, cap, per_step, scatter_step)
 
     # -- 14. the CG solve's kernel against its plain version ---------------
-    cg_out = cg_phase(RES, hp, weights, budget, ms45, cap)
-    if sum(cg_steps) + graph_cg < 1:
-        fail(f"cg: the h1 and sobolev steps launched the CG kernel "
-             f"{sum(cg_steps)} times (phase 6) and {graph_cg} (phase 13)")
+    cg_out = cg_phase(RES, hp, weights, budget, ms45, cap, ms_fine,
+                      budget_fine)
+    cg_main = [sum(x) for x in zip(*cg_steps, graph_cg)]
+    if min(cg_main[1:]) < 1:
+        fail(f"cg: the main path's steps launched the CG kernel {cg_main} "
+             "times (all, shared route, global route; phases 6 and 13)")
 
     total = [sum(x) for x in zip(launches, lod_launches, cli_launches,
                                  par_launches, graph_launches)]
@@ -3103,7 +3296,7 @@ def main():
     }, scatter_entry(scatter_checked, scatter_prof, scatter_launches,
                      scatter_step, lod_scatters, scatter_route_launches)]
     kernels[-1]["launches_graph"] = graph_scatters
-    kernels.append(cg_entry(cg_out, sum(cg_steps), graph_cg))
+    kernels.extend(cg_entries(cg_out, cg_steps, graph_cg))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -46,7 +46,9 @@ class LaunchCounter:
     (`scatter_launches`, one a `scatter_rows` call on CUDA tensors, of
     which `scatter_cluster_launches` took the cluster route and
     `scatter_grid_launches` the grid route), and of the conjugate-gradient
-    solve (`cg_launches`, one a solve on CUDA tensors)."""
+    solve (`cg_launches`, one a solve on CUDA tensors, of which
+    `cg_shared_launches` took the shared route and `cg_global_launches` the
+    global route)."""
 
     def __init__(self):
         self.reset()
@@ -60,6 +62,8 @@ class LaunchCounter:
         self.scatter_cluster_launches = 0
         self.scatter_grid_launches = 0
         self.cg_launches = 0
+        self.cg_shared_launches = 0
+        self.cg_global_launches = 0
 
     def snapshot(self) -> dict:
         """Every count, by name."""
@@ -164,6 +168,11 @@ _ENTRIES = {
     "cg_ctas": ([], _CI),
     "cg_block": ([], _CI),
     "cg_cluster_ready": ([], _CI),
+    "cg_shared_launch": ([_VP, _VP, _CI, _VP, _VP, _CI, _CI, _CI, _CD, _CD,
+                          _CI] + [_VP] * 4, _CI),
+    "cg_shared_bytes": ([_LL, _CI, _CI, _CI], _LL),
+    "cg_shared_scratch_bytes": ([_LL, _CI], _LL),
+    "cg_shared_budget": ([], _CI),
     # errors.cu
     "drt_error_string": ([_CI], ctypes.c_char_p),
 }
@@ -184,6 +193,8 @@ _SIGNATURES = {
                          "scratch stream",
     "cg_signature": "b x0 f64 nbr valid vp c d lam tol2 maxiter x trips "
                     "scratch stream",
+    "cg_shared_signature": "b x0 f64 nbr valid vp c d lam tol2 maxiter x "
+                           "trips scratch stream",
 }
 
 

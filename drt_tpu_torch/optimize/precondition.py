@@ -26,11 +26,15 @@ iterations.
 
 On CUDA tensors every solve is one launch of a hand-written kernel,
 csrc/cg.cu (`cg_cuda`): the whole solve in one thread-block cluster, the
-trip count left on the device. Its plain version `cg_plain` is `cg` on
+trip count left on the device, through one of two routes that `cg_route`
+picks from the sizes: "shared" (the solve's vectors and neighbour rows in
+the cluster's shared memory, the matvec's gathers through distributed
+shared memory) where its bytes fit, "global" (the vectors in global
+memory) otherwise. Its plain version `cg_plain` is `cg` on
 `ordered_matvec`: it rounds each operation as the kernel does and sums
-every dot product in the kernel's fixed order (`ordered_dot`), so the two
-give the same bits on the card. CPU tensors take the plain version; a CUDA
-tensor never does (a failed build or launch raises).
+every dot product in the kernel's fixed order (`ordered_dot`), so both
+routes give the plain version's bits on the card. CPU tensors take the
+plain version; a CUDA tensor never does (a failed build or launch raises).
 """
 
 from __future__ import annotations
@@ -69,6 +73,77 @@ def sobolev_apply(v, neighbors, neighbor_valid, lam):
 CG_CTAS = 16
 CG_BLOCK = 1024
 CG_THREADS = CG_CTAS * CG_BLOCK
+
+
+# csrc/cg.cu's shared route: a row holds at most CG_SHARED_MAX_D uint16
+# neighbours (so Vp <= CG_SHARED_MAX_VP); p holds CG_SHARED_MAX_C elements a
+# vertex (C <= 4); a thread holds r for at most CG_SHARED_CHUNKS[dtype]
+# chunks in registers; a CTA's shared memory holds the reductions' head,
+# p (each chunk's (CG_BLOCK - 1) // C + 2 vertex slots of 4 elements, and
+# 4 zeros), Ap and p's uint16 index of each own element (a chunk of
+# CG_BLOCK each) and CG_SHARED_ROW bytes a row, within CG_SHARED_BUDGET
+# bytes, the H100's opt-in shared memory a block (`_lib` checks that the
+# card gives it).
+CG_ROUTES = ("global", "shared")
+CG_SHARED_MAX_D = 8
+CG_SHARED_MAX_VP = 65536
+CG_SHARED_MAX_C = 4
+CG_SHARED_CHUNKS = {torch.float32: 12, torch.float64: 4}
+CG_SHARED_HEAD = 1024
+CG_SHARED_ROW = 20
+CG_SHARED_BUDGET = 232448
+
+
+def cg_owner(e: int) -> tuple:
+    """(CTA, slot) of flat element e in csrc/cg.cu's cluster: thread e %
+    CG_THREADS owns it, so CTA k owns the CG_BLOCK-element chunks
+    [j CG_THREADS + k CG_BLOCK, + CG_BLOCK), and e sits at slot j CG_BLOCK
+    + e % CG_BLOCK there."""
+    return ((e // CG_BLOCK) % CG_CTAS,
+            (e // CG_THREADS) * CG_BLOCK + e % CG_BLOCK)
+
+
+def cg_shared_rows(vp: int, c: int) -> int:
+    """The rows of the shared route's CTA that holds the most: a row for
+    every vertex with an element in one of the CTA's chunks (a vertex whose
+    elements straddle two chunks has one in each)."""
+    n = vp * c
+    most = 0
+    for k in range(CG_CTAS):
+        rows = 0
+        for s in range(k * CG_BLOCK, n, CG_THREADS):
+            end = min(s + CG_BLOCK, n)
+            rows += (end - 1) // c - s // c + 1
+        most = max(most, rows)
+    return most
+
+
+def cg_shared_bytes(vp: int, c: int, d: int, dtype):
+    """Bytes of shared memory a CTA of the shared route takes for b [vp, c]
+    of `dtype` and a [vp, d] table (csrc/cg.cu's cg_shared_bytes), None
+    where the route does not take the solve at any budget."""
+    if dtype not in CG_SHARED_CHUNKS:
+        return None
+    chunks = -(-vp * c // CG_THREADS)
+    if (not 0 <= vp <= CG_SHARED_MAX_VP or not 1 <= c <= CG_SHARED_MAX_C
+            or not 0 <= d <= CG_SHARED_MAX_D
+            or chunks > CG_SHARED_CHUNKS[dtype]):
+        return None
+    size = torch.empty((), dtype=dtype).element_size()
+    spc = (CG_BLOCK - 1) // c + 1
+    return (CG_SHARED_HEAD + (chunks * (spc + 1) + 1) * 4 * size
+            + chunks * CG_BLOCK * (size + 2)
+            + cg_shared_rows(vp, c) * CG_SHARED_ROW)
+
+
+def cg_route(vp: int, c: int, d: int, dtype) -> str:
+    """The route of csrc/cg.cu that a solve of b [vp, c] of `dtype` on a
+    [vp, d] table takes: "shared" where `cg_shared_bytes` fits
+    CG_SHARED_BUDGET (every float32 solve at Vp <= 65,536, C = 3, d <= 8),
+    "global" otherwise."""
+    need = cg_shared_bytes(vp, c, d, dtype)
+    return "shared" if need is not None and need <= CG_SHARED_BUDGET \
+        else "global"
 
 
 def _halve(s: torch.Tensor, dim: int) -> torch.Tensor:
@@ -192,7 +267,8 @@ def _check(b, neighbors, neighbor_valid, x0):
 
 def launch_args(b, neighbors, neighbor_valid, lam, tol, maxiter, x0, x,
                 trips, scratch, stream) -> dict:
-    """cg_launch's arguments by the names of csrc/cg.cu's cg_signature()."""
+    """cg_launch's arguments by the names of csrc/cg.cu's cg_signature(),
+    which cg_shared_launch takes too."""
     vp, c = b.shape
     return {"b": b.data_ptr(), "x0": None if x0 is None else x0.data_ptr(),
             "f64": int(b.dtype == torch.float64),
@@ -203,9 +279,18 @@ def launch_args(b, neighbors, neighbor_valid, lam, tol, maxiter, x0, x,
             "scratch": scratch.data_ptr(), "stream": stream}
 
 
+# Sizes at which `_lib` holds the library's cg_shared_bytes to
+# `cg_shared_bytes`: (vp, c, d, f64).
+_SHARED_PROBES = ((0, 3, 8, 0), (1024, 3, 8, 0), (16384, 3, 8, 1),
+                  (21845, 3, 8, 1), (21846, 3, 8, 1), (65536, 3, 8, 0),
+                  (65536, 1, 4, 0), (65537, 3, 8, 0), (1000, 3, 9, 0),
+                  (1000, 5, 8, 0))
+
+
 def _lib():
-    """The kernels' library, checked once for csrc/cg.cu's summation order
-    and for a card that schedules its cluster."""
+    """The kernels' library, checked once for csrc/cg.cu's summation order,
+    for a card that schedules both routes' clusters and gives the shared
+    route its budget, and for the shared route's sizes."""
     global _cg_lib
     if _cg_lib is None:
         lib = kernels.load()
@@ -217,37 +302,67 @@ def _lib():
         if not lib.cg_cluster_ready():
             raise RuntimeError(f"cg: the card schedules no cluster of "
                                f"{CG_CTAS} CTAs of {CG_BLOCK} threads")
+        if lib.cg_shared_budget() < CG_SHARED_BUDGET:
+            raise RuntimeError(
+                f"cg: the card gives the shared route's CTAs "
+                f"{lib.cg_shared_budget()} bytes of shared memory in a "
+                f"cluster of {CG_CTAS}, cg_route plans for "
+                f"{CG_SHARED_BUDGET}")
+        for vp, c, d, f64 in _SHARED_PROBES:
+            want = cg_shared_bytes(vp, c, d, torch.float64 if f64
+                                   else torch.float32)
+            got = lib.cg_shared_bytes(vp, c, d, f64)
+            if got != (-1 if want is None else want):
+                raise RuntimeError(
+                    f"csrc/cg.cu's shared route takes {got} bytes for "
+                    f"{(vp, c, d, f64)}, cg_shared_bytes says {want}")
         _cg_lib = lib
     return _cg_lib
 
 
 def cg_cuda(b, neighbors, neighbor_valid, lam, tol: float = 1e-5,
-            maxiter: int = 64, x0=None):
+            maxiter: int = 64, x0=None, route=None):
     """Launch csrc/cg.cu on the current stream: (x, trips) as `cg_plain`
     gives them, bit for bit, in one launch. b [Vp,C] float32 or float64,
     neighbors [Vp,D] int64 (valid entries in [0, Vp)), neighbor_valid
-    [Vp,D] bool, x0 like b or None; contiguous on one CUDA device. Nothing
-    waits on the host."""
+    [Vp,D] bool, x0 like b or None; contiguous on one CUDA device. `route`
+    ("global" or "shared") forces a route, `cg_route`'s by default; forcing
+    "shared" where `cg_route` does not take it raises. Nothing waits on the
+    host."""
     _check(b, neighbors, neighbor_valid, x0)
+    vp, c = b.shape
+    d = neighbors.shape[1]
+    fits = cg_route(vp, c, d, b.dtype)
+    route = fits if route is None else route
+    if route not in CG_ROUTES:
+        raise ValueError(f"route {route!r}: expected one of {CG_ROUTES}")
+    if route == "shared" and fits != "shared":
+        raise ValueError(f"the shared route does not take b {(vp, c)} "
+                         f"{b.dtype} with {d} neighbours")
     if b.device.type != "cuda":
         raise ValueError("cg_cuda needs CUDA tensors")
     if maxiter < 0:
         raise ValueError(f"maxiter {maxiter} < 0")
     lib = _lib()
-    vp, c = b.shape
+    f64 = int(b.dtype == torch.float64)
     with torch.cuda.device(b.device):
         x = torch.empty_like(b)
         trips = torch.empty((), dtype=torch.int64, device=b.device)
         scratch = torch.empty(
-            lib.cg_scratch_bytes(vp, c, neighbors.shape[1],
-                                 int(b.dtype == torch.float64)),
+            lib.cg_shared_scratch_bytes(vp, f64) if route == "shared"
+            else lib.cg_scratch_bytes(vp, c, d, f64),
             dtype=torch.uint8, device=b.device)
         args = launch_args(b, neighbors, neighbor_valid, lam, tol, maxiter,
                            x0, x, trips, scratch,
                            torch.cuda.current_stream().cuda_stream)
-        err = lib.cg_launch(*args.values())
-    kernels.check(lib, err, "cg")
+        launch = lib.cg_shared_launch if route == "shared" else lib.cg_launch
+        err = launch(*args.values())
+    kernels.check(lib, err, f"cg ({route} route)")
     kernels.counters.cg_launches += 1
+    if route == "shared":
+        kernels.counters.cg_shared_launches += 1
+    else:
+        kernels.counters.cg_global_launches += 1
     return x, trips
 
 

@@ -304,3 +304,158 @@ def test_counters_count_cg_launches():
     assert c.cg_launches == 6
     c.reset()
     assert c.cg_launches == 0
+
+
+# -- csrc/cg.cu's two routes, as far as the CPU reaches them ------------------
+
+def _shared_bytes_by_hand(vp, c, d, dtype):
+    """The shared route's bytes, counted from the ownership map itself: a
+    row for every (CTA, vertex) with an element owned there, p's vertex
+    slots, Ap and the own-element index for each chunk a thread owns."""
+    size = 8 if dtype == torch.float64 else 4
+    n = vp * c
+    chunks = -(-n // TP.CG_THREADS)
+    e = np.arange(n)
+    cta = (e // TP.CG_BLOCK) % TP.CG_CTAS
+    pairs = np.unique(cta * vp + e // c) if n else np.zeros(0, np.int64)
+    rows = np.bincount(pairs // vp, minlength=TP.CG_CTAS).max() if n else 0
+    spc = (TP.CG_BLOCK - 1) // c + 1
+    return (TP.CG_SHARED_HEAD + (chunks * (spc + 1) + 1) * 4 * size
+            + chunks * TP.CG_BLOCK * (size + 2) + rows * TP.CG_SHARED_ROW)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("vp", [0, 1, 5, 1024, 5461, 16384, 21845, 21846,
+                                32768, 65536])
+def test_cg_shared_bytes_count_the_rows_and_vectors(vp, c, dtype):
+    """`cg_shared_bytes` (csrc/cg.cu's formula, held to the library's on
+    the card) against a count from the ownership map, where the route takes
+    the solve; None where a thread would own more chunks than it holds."""
+    got = TP.cg_shared_bytes(vp, c, 8, dtype)
+    chunks = -(-vp * c // TP.CG_THREADS)
+    if chunks > TP.CG_SHARED_CHUNKS[dtype]:
+        assert got is None
+    else:
+        assert got == _shared_bytes_by_hand(vp, c, 8, dtype)
+        assert TP.cg_shared_rows(vp, c) * TP.CG_SHARED_ROW <= got
+
+
+@pytest.mark.parametrize("vp,c,d,dtype,route", [
+    (16384, 3, 8, torch.float32, "shared"),      # dog_mid20k
+    (32768, 3, 8, torch.float32, "shared"),      # dog_mid45k
+    (65536, 3, 8, torch.float32, "shared"),      # dog_mid90k
+    (65536, 3, 1, torch.float32, "shared"),
+    (65536, 3, 9, torch.float32, "global"),      # d above the cap
+    (65537, 3, 8, torch.float32, "global"),
+    (131072, 3, 8, torch.float32, "global"),
+    (65536, 3, 8, torch.float64, "global"),
+    (21845, 3, 8, torch.float64, "shared"),
+    (21846, 3, 8, torch.float64, "global"),
+    (49152, 4, 8, torch.float32, "shared"),
+    (1024, 5, 8, torch.float32, "global"),       # C above the cap
+    (1024, 3, 8, torch.float16, "global"),
+])
+def test_cg_route_by_size(vp, c, d, dtype, route):
+    assert TP.cg_route(vp, c, d, dtype) == route
+    need = TP.cg_shared_bytes(vp, c, d, dtype)
+    assert (need is not None and need <= TP.CG_SHARED_BUDGET) == (
+        route == "shared")
+
+
+def test_cg_route_follows_the_byte_budget(monkeypatch):
+    """The route is "shared" exactly where `cg_shared_bytes` fits the
+    budget: at a budget one byte short of a solve's bytes it is "global"."""
+    need = TP.cg_shared_bytes(32768, 3, 8, torch.float32)
+    assert TP.cg_route(32768, 3, 8, torch.float32) == "shared"
+    monkeypatch.setattr(TP, "CG_SHARED_BUDGET", need)
+    assert TP.cg_route(32768, 3, 8, torch.float32) == "shared"
+    monkeypatch.setattr(TP, "CG_SHARED_BUDGET", need - 1)
+    assert TP.cg_route(32768, 3, 8, torch.float32) == "global"
+    assert TP.cg_route(16384, 3, 8, torch.float32) == "shared"
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("vp", [1024, 16384, 65536])
+def test_cg_owner_covers_every_element_once(vp, c):
+    """`cg_owner` places each element of [Vp*C] at one (CTA, slot), the CTA
+    (e % 16384) // 1024, the slot's thread e % 16384, in the chunk e //
+    16384: the fixed summation order's thread, as csrc/cg.cu lays out r
+    and Ap."""
+    n = vp * c
+    cta, slot = zip(*(TP.cg_owner(e) for e in range(n)))
+    cta, slot, e = np.array(cta), np.array(slot), np.arange(n)
+    assert len(set(zip(cta.tolist(), slot.tolist()))) == n
+    assert np.array_equal(cta, (e % TP.CG_THREADS) // TP.CG_BLOCK)
+    assert np.array_equal(cta * TP.CG_BLOCK + slot % TP.CG_BLOCK,
+                          e % TP.CG_THREADS)
+    assert np.array_equal(slot // TP.CG_BLOCK, e // TP.CG_THREADS)
+    assert slot.max() < -(-n // TP.CG_THREADS) * TP.CG_BLOCK
+
+
+def test_cg_cuda_refuses_a_route_it_cannot_take():
+    """A route that is not one, and the shared route where `cg_route` does
+    not give it, are refused before any launch (on any device)."""
+    _, tms = _both("cube", np.float32)
+    b = torch.zeros(tuple(tms.vertices.shape))
+    nbr, valid = tms.neighbors, tms.neighbor_valid
+    with pytest.raises(ValueError, match="route"):
+        TP.cg_cuda(b, nbr, valid, 1.0, route="cluster")
+    extra = TP.CG_SHARED_MAX_D + 1 - nbr.shape[1]
+    wide = torch.cat([nbr, nbr[:, :1].repeat(1, extra)], dim=1)
+    wide_valid = torch.cat([valid, valid[:, :1].repeat(1, extra)], dim=1)
+    with pytest.raises(ValueError, match="shared route"):
+        TP.cg_cuda(b, wide, wide_valid, 1.0, route="shared")
+    with pytest.raises(ValueError, match="shared route"):
+        TP.cg_cuda(b[:, :1].repeat(1, 5), nbr, valid, 1.0, route="shared")
+    for route in (None, "global", "shared"):
+        with pytest.raises(ValueError, match="CUDA"):
+            TP.cg_cuda(b, nbr, valid, 1.0, route=route)
+
+
+def test_shared_launch_follows_the_kernel_signature():
+    """csrc/cg.cu's cg_shared_launch takes cg_launch's arguments (read from
+    the source), which `launch_args` builds; the binding types and checks
+    them; the source's shared-route constants are the wrapper's."""
+    src = _source()
+    sig = re.search(r'cg_shared_signature\(\) \{\s*return "([^"]*)"\s*'
+                    r'"([^"]*)";', src)
+    assert sig
+    names = (sig.group(1) + sig.group(2)).split()
+    assert " ".join(names) == kernels._SIGNATURES["cg_shared_signature"]
+    assert names == kernels._SIGNATURES["cg_signature"].split()
+    assert (kernels._ENTRIES["cg_shared_launch"]
+            == kernels._ENTRIES["cg_launch"])
+    for name, value in (("CG_SHARED_MAX_D", TP.CG_SHARED_MAX_D),
+                        ("CG_SHARED_MAX_VP", TP.CG_SHARED_MAX_VP),
+                        ("CG_SHARED_MAX_C", TP.CG_SHARED_MAX_C),
+                        ("CG_SHARED_HEAD", TP.CG_SHARED_HEAD),
+                        ("CG_SHARED_ROW", TP.CG_SHARED_ROW)):
+        assert re.search(rf"#define {name} {value}\b", src), name
+    for dtype, ctype in ((torch.float32, "float"), (torch.float64, "double")):
+        assert re.search(rf"struct SharedTune<{ctype}> \{{\s*static constexpr"
+                         rf" int chunks = {TP.CG_SHARED_CHUNKS[dtype]},", src)
+
+
+def test_bind_checks_the_shared_signature(monkeypatch):
+    sigs = dict(kernels._SIGNATURES)
+    monkeypatch.setattr(kernels.ctypes, "CDLL", lambda path: _StubLib(sigs))
+    lib = kernels.bind("libdrt_kernels.so")
+    assert (lib.cg_shared_launch.argtypes
+            == kernels._ENTRIES["cg_shared_launch"][0])
+    sigs["cg_shared_signature"] = sigs["cg_shared_signature"].replace(
+        "x trips", "trips x")
+    with pytest.raises(RuntimeError, match="cg_shared_signature"):
+        kernels.bind("libdrt_kernels.so")
+
+
+def test_counters_count_cg_launches_by_route():
+    c = kernels.LaunchCounter()
+    snap = c.snapshot()
+    assert snap["cg_shared_launches"] == snap["cg_global_launches"] == 0
+    c.add({"cg_launches": 3, "cg_shared_launches": 2,
+           "cg_global_launches": 1}, times=2)
+    assert (c.cg_launches, c.cg_shared_launches,
+            c.cg_global_launches) == (6, 4, 2)
+    c.reset()
+    assert c.cg_shared_launches == c.cg_global_launches == 0

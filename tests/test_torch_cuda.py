@@ -1127,3 +1127,185 @@ def test_cg_kernel_takes_negative_entries_as_torch_indexing_does(dev):
     xp, tp = PC.cg_plain(b, neg, valid, 29.0, tol=1e-6, maxiter=64)
     assert int(tn) == int(tw) == int(tp)
     assert _cg_bits(xn, xw) and _cg_bits(xn, xp)
+
+
+# -- csrc/cg.cu's two routes ---------------------------------------------------
+
+@pytest.fixture(scope="module")
+def dogs(dev, dog20k):
+    """dog_mid{20k,45k,90k}'s mesh states on the card (Vp 16,384, 32,768
+    and 65,536; 8 neighbours)."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = {"dog20k": dog20k}
+    for name in ("dog45k", "dog90k"):
+        path = os.path.join(here, "reports", "tuning_meshes",
+                            f"dog_mid{name[3:]}.ply")
+        out[name] = build_mesh_state(*load_ply(path), device=dev)
+    return out
+
+
+def _route_case(source, dtype, dev, dogs, seed):
+    if source in ("dog20k", "dog45k", "dog90k"):
+        return _cg_case("dog20k", dtype, dev, seed, dogs[source])
+    return _cg_case(source, dtype, dev, seed)
+
+
+def _ring(vp, d, c, dtype, dev, seed):
+    """A ring of vp vertices, each joined to the d nearest (alternating
+    sides, every third entry invalid where d > 2), and a seeded b [vp, c]."""
+    ids = torch.arange(vp, device=dev)
+    steps = [(k // 2 + 1) * (1 if k % 2 == 0 else -1) for k in range(d)]
+    nbr = torch.stack([(ids + s) % vp for s in steps], dim=1)
+    valid = torch.ones_like(nbr, dtype=torch.bool)
+    if d > 2:
+        valid[::3, 2] = False
+    rng = np.random.default_rng(seed)
+    b = torch.tensor(rng.normal(size=(vp, c)), dtype=dtype, device=dev)
+    return b, nbr.contiguous(), valid.contiguous()
+
+
+def _both_runs(b, nbr, valid, route, x0=None, maxiter=64, tol=1e-6):
+    """The forced route twice and the plain version: bits and trips."""
+    from drt_tpu_torch import kernels
+    from drt_tpu_torch.optimize import precondition as PC
+    counter = f"cg_{route}_launches"
+    before = getattr(kernels.counters, counter)
+    xk, tk = PC.cg_cuda(b, nbr, valid, 29.0, tol=tol, maxiter=maxiter,
+                        x0=x0, route=route)
+    xk2, tk2 = PC.cg_cuda(b, nbr, valid, 29.0, tol=tol, maxiter=maxiter,
+                          x0=x0, route=route)
+    torch.cuda.synchronize()
+    assert getattr(kernels.counters, counter) == before + 2
+    xp, tp = PC.cg_plain(b, nbr, valid, 29.0, tol=tol, maxiter=maxiter,
+                         x0=x0)
+    assert int(tk) == int(tk2) == int(tp) <= maxiter
+    assert _cg_bits(xk, xp)
+    assert _cg_bits(xk, xk2)
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("maxiter", [64, 0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("route", ["global", "shared"])
+@pytest.mark.parametrize("source", ["icosphere", "cube", "dog20k", "dog45k",
+                                    "dog90k"])
+def test_cg_routes_match_plain(dev, dogs, source, route, dtype, maxiter,
+                               given):
+    """Each route, forced, against the plain version bit for bit with equal
+    trips, and a second launch's bits; the shared route refuses what
+    `cg_route` does not give it (float64 on dog_mid45k and dog_mid90k)."""
+    from drt_tpu_torch.optimize import precondition as PC
+    b, nbr, valid, x0 = _route_case(source, dtype, dev, dogs, 13)
+    x0 = x0 if given else None
+    if route == "shared" and PC.cg_route(*b.shape, nbr.shape[1],
+                                         dtype) != "shared":
+        assert source in ("dog45k", "dog90k") and dtype == torch.float64
+        with pytest.raises(ValueError, match="shared route"):
+            PC.cg_cuda(b, nbr, valid, 29.0, route=route)
+        return
+    _both_runs(b, nbr, valid, route, x0=x0, maxiter=maxiter)
+
+
+@pytest.mark.parametrize("source", ["dog20k", "dog45k", "dog90k"])
+def test_cg_default_route_of_the_step_sizes_is_shared(dev, dogs, source):
+    """The step's float32 solves on the three meshes take the shared route
+    by default, and its bits are the global route's."""
+    from drt_tpu_torch import kernels
+    from drt_tpu_torch.optimize import precondition as PC
+    b, nbr, valid, _ = _route_case(source, torch.float32, dev, dogs, 14)
+    assert PC.cg_route(*b.shape, nbr.shape[1], b.dtype) == "shared"
+    before = kernels.counters.snapshot()
+    xs, ts = PC.cg_cuda(b, nbr, valid, 29.0, tol=1e-6, maxiter=64)
+    got = kernels.counters.snapshot()
+    assert got["cg_shared_launches"] == before["cg_shared_launches"] + 1
+    assert got["cg_global_launches"] == before["cg_global_launches"]
+    xg, tg = PC.cg_cuda(b, nbr, valid, 29.0, tol=1e-6, maxiter=64,
+                        route="global")
+    assert int(ts) == int(tg) and _cg_bits(xs, xg)
+
+
+@pytest.mark.parametrize("vp,dtype,takes", [
+    (65536, torch.float32, True), (65537, torch.float32, False),
+    (21845, torch.float64, True), (21846, torch.float64, False)])
+def test_cg_shared_route_at_its_largest_size(dev, vp, dtype, takes):
+    """The largest Vp the shared route takes (C = 3, 8 neighbours) and the
+    first it refuses: both routes bit for bit with the plain version where
+    it takes the solve; where it does not, the default is the global route
+    and forcing the shared one raises."""
+    from drt_tpu_torch.optimize import precondition as PC
+    b, nbr, valid = _ring(vp, 8, 3, dtype, dev, 15)
+    assert (PC.cg_route(vp, 3, 8, dtype) == "shared") == takes
+    _both_runs(b, nbr, valid, "global", maxiter=16)
+    if takes:
+        _both_runs(b, nbr, valid, "shared", maxiter=16)
+    else:
+        with pytest.raises(ValueError, match="shared route"):
+            PC.cg_cuda(b, nbr, valid, 29.0, route="shared")
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("d", [1, 8, 9])
+@pytest.mark.parametrize("route", ["global", "shared"])
+def test_cg_routes_at_one_and_eight_neighbours(dev, route, d, c):
+    """d = 1 and d = 8 on both routes, C = 1 and 3; d = 9 only on the
+    global route."""
+    from drt_tpu_torch.optimize import precondition as PC
+    b, nbr, valid = _ring(5000, d, c, torch.float32, dev, 16)
+    if route == "shared" and d > PC.CG_SHARED_MAX_D:
+        assert PC.cg_route(5000, c, d, torch.float32) == "global"
+        with pytest.raises(ValueError, match="shared route"):
+            PC.cg_cuda(b, nbr, valid, 29.0, route=route)
+        return
+    _both_runs(b, nbr, valid, route, maxiter=64, tol=1e-8)
+
+
+@pytest.mark.parametrize("route", ["global", "shared"])
+def test_cg_routes_take_negative_entries_as_torch_indexing_does(dev, dogs,
+                                                                route):
+    from drt_tpu_torch.optimize import precondition as PC
+    b, nbr, valid, x0 = _route_case("dog45k", torch.float32, dev, dogs, 17)
+    rows = torch.arange(nbr.shape[0], device=dev)[:, None] % 2 == 0
+    neg = torch.where(valid & rows, nbr - nbr.shape[0], nbr)
+    xn, tn = PC.cg_cuda(b, neg, valid, 29.0, tol=1e-6, maxiter=64, x0=x0,
+                        route=route)
+    xw, tw = PC.cg_cuda(b, nbr, valid, 29.0, tol=1e-6, maxiter=64, x0=x0,
+                        route=route)
+    assert int(tn) == int(tw) and _cg_bits(xn, xw)
+    _both_runs(b, neg, valid, route, x0=x0)
+
+
+@pytest.mark.parametrize("route", ["global", "shared"])
+def test_cg_routes_in_a_cuda_graph(dev, dogs, route):
+    """Each route captured: the replay gives the eager launch's bits, and
+    the capture's launch is counted by route."""
+    from drt_tpu_torch.optimize import precondition as PC
+    b, nbr, valid, x0 = _route_case("dog45k", torch.float32, dev, dogs, 18)
+    eager, trips = PC.cg_cuda(b, nbr, valid, 29.0, x0=x0, route=route)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        PC.cg_cuda(b, nbr, valid, 29.0, x0=x0, route=route)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        xg, tg = PC.cg_cuda(b, nbr, valid, 29.0, x0=x0, route=route)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _cg_bits(xg, eager) and int(tg) == int(trips)
+
+
+def test_cg_shared_bytes_agree_with_the_source(dev):
+    """csrc/cg.cu's cg_shared_bytes against `cg_shared_bytes` over sizes
+    and types, and the card's budget against CG_SHARED_BUDGET."""
+    from drt_tpu_torch.optimize import precondition as PC
+    lib = PC._lib()
+    assert lib.cg_shared_budget() >= PC.CG_SHARED_BUDGET
+    for vp in (0, 1, 5, 1023, 1024, 5461, 16384, 16385, 21845, 21846,
+               32768, 49152, 65536, 65537):
+        for c in (1, 2, 3, 4, 16):
+            for d in (0, 1, 8, 9):
+                for f64 in (0, 1):
+                    want = PC.cg_shared_bytes(
+                        vp, c, d, torch.float64 if f64 else torch.float32)
+                    got = lib.cg_shared_bytes(vp, c, d, f64)
+                    assert got == (-1 if want is None else want), (vp, c, d)
