@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-1. build   the five kernels (closest hit; candidate prepass with its sort;
-           the packing stages; the row scatter-add of the step's vertex
-           gathers, its cluster route's one kernel and its grid route's
-           three; the Sobolev preconditioner's CG solve) from
+1. build   the six sources' kernels (closest hit; candidate prepass with
+           its sort; the packing stages; the row scatter-add of the step's
+           vertex gathers, its cluster route's one kernel and its grid
+           route's three; the Sobolev preconditioner's CG solve; a
+           bounce's chain and the ray-loss tail, forward and backward) from
            drt_tpu_torch/csrc with nvcc, one compile per source in
            parallel; prints each entry function's registers, shared
            memory and spills and fails on a spill to local memory or a
@@ -232,6 +233,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
            time. Phases 6 and 13 are the kernel's main
            path: their launches by route are each route's count in the
            kernels line.
+15. chain  csrc/bounce.cu's four kernels against their plain versions on
+           the main path's own inputs: the ray loss's trace of capture view
+           0 (1280x960) through the step's oracle on dog_mid45k and
+           dog_mid90k, float32 and float64, compat off and on; on both
+           bounces every output (o_out, d_out, active, face ids) and every
+           output of their backward (d_origin, d_direction, dg9; the new
+           direction's cotangent alone, as the loss sends it, and both),
+           and the tail's loss and gradient at Huber 0 and 0.1, bit for
+           bit (integer views). Then, on bounce 2 and the tail of
+           dog_mid45k in float32: each kernel's time by CUDA events (with
+           its wrapper) and its device time and operations under
+           torch.profiler, the plain versions' times, and the bounds
+           (`bounce_bound`, `ray_tail_bound`: the bytes this run's masks
+           make the kernel move, against its operations). The launches of
+           both are counted on every earlier path against the reckoned
+           counts (`note_chain`: 4 bounce and 2 tail launches a step, a
+           checkpointed chunk 6 and 3; the synthesis and `render` 2 bounce
+           launches a view): phases 5, 6, 7, 9, 10, 11 and 13, the kernels
+           line's launches by path.
 Then it prints the timings, a JSON line of phase 10's times, a JSON line of
 phase 11's, one of phase 12's, one of phase 13's, a JSON line with the
 kernels' numbers (with their times at each group on phase 12's bounce-2
@@ -264,14 +284,16 @@ MESH_DIR = os.path.join(HERE, "reports", "tuning_meshes")
 FP32_PEAK = 67e12                 # H100 SXM FP32 non-tensor FLOP/s
 HBM_RATE = 3.35e12                # H100 SXM HBM3 bytes/s
 TIE_PER_1024 = 2
-# The entry functions of the five sources: closest_hit.cu, candidates.cu,
+# The entry functions of the six sources: closest_hit.cu, candidates.cu,
 # pack.cu, scatter.cu (its cluster route's one kernel; its grid route's
-# upfront, pass and reduce kernels) and cg.cu (its global and shared
-# routes' kernels).
+# upfront, pass and reduce kernels), cg.cu (its global and shared routes'
+# kernels) and bounce.cu (a bounce's chain and the ray-loss tail, forward
+# and backward).
 BUILT_KERNELS = ("closest_hit_kernel", "candidates_kernel", "pack_kernel",
                  "scatter_cluster_kernel", "scatter_upfront_kernel",
                  "scatter_pass_kernel", "scatter_reduce_kernel", "cg_kernel",
-                 "cg_shared_kernel")
+                 "cg_shared_kernel", "bounce_fwd_kernel", "bounce_bwd_kernel",
+                 "ray_tail_fwd_kernel", "ray_tail_bwd_kernel")
 # CG solves a step by preconditioner: h1 solves its gradient, sobolev its
 # vertices in the forward and the cotangent in the backward.
 CG_PER_STEP = {"none": 0, "h1": 1, "sobolev": 2}
@@ -283,6 +305,32 @@ def counts():
     from drt_tpu_torch.intersect import cuda_kernel as CK
     c = CK.counters
     return (c.launches, c.candidates_launches, c.pack_launches)
+
+
+# csrc/bounce.cu's launches a step of the ray loss: a bounce's chain
+# forward and backward for each of the 2 bounces, the tail forward and
+# backward; a checkpointed chunk reruns its forward in the backward.
+CHAIN_PER_STEP = (4, 2)
+# The main path's bounce and tail launches, by path (`note_chain`).
+CHAIN_LAUNCHES = {}
+
+
+def chain_counts():
+    """csrc/bounce.cu's launch counters: (bounce chain, ray-loss tail),
+    forward and backward."""
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    c = CK.counters
+    return (c.bounce_launches, c.ray_tail_launches)
+
+
+def note_chain(path, got, want):
+    """Add `got` (chain_counts()) to the main path's launches on `path`;
+    fail where it differs from `want`."""
+    if tuple(got) != tuple(want):
+        fail(f"{path}: csrc/bounce.cu launches (bounce chain, ray-loss "
+             f"tail) {tuple(got)}, reckoned {want}")
+    prev = CHAIN_LAUNCHES.get(path, (0, 0))
+    CHAIN_LAUNCHES[path] = tuple(a + b for a, b in zip(prev, got))
 
 
 def cg_counts():
@@ -1323,12 +1371,14 @@ def oracle_kernel_profile(weights, res, budget, hp, mesh, cap, n_queries):
 
 
 def run_steps(name, step, state, lr, mesh, cap, seed, n, expect,
-              cg_expect=None, cg_seen=None, cg_route=None):
+              cg_expect=None, cg_seen=None, cg_route=None,
+              chain=("steps", CHAIN_PER_STEP)):
     """n steps through `step`; the launch counts of each against `expect`
     (closest-hit, prepass, packing) and, where given, its CG launches
     against `cg_expect`, every one on route `cg_route` (the counts of each
-    step appended to the list `cg_seen` as `cg_counts()`). Returns (state,
-    losses, ms of the last step)."""
+    step appended to the list `cg_seen` as `cg_counts()`); its bounce and
+    tail launches against chain[1], noted on path chain[0]. Returns
+    (state, losses, ms of the last step)."""
     import torch
     from drt_tpu_torch.intersect import cuda_kernel as CK
     ray_gen = cap.ray_view_generator(seed=seed)
@@ -1347,10 +1397,13 @@ def run_steps(name, step, state, lr, mesh, cap, seed, n, expect,
         losses.append(float(loss))
         got = counts()
         cg_got, cg_shared, cg_global = cg_counts()
+        chain_got = chain_counts()
         print(f"{name} step {it}: {ms:.1f} ms, loss {losses[-1]:.6g}, max "
               f"grad {float(aux['max_grad']):.3g}, launches {got[0]} "
               f"closest-hit, {got[1]} prepass, {got[2]} packing, {cg_got} "
-              f"CG ({cg_shared} shared route, {cg_global} global route)")
+              f"CG ({cg_shared} shared route, {cg_global} global route), "
+              f"{chain_got[0]} bounce chain, {chain_got[1]} ray-loss tail")
+        note_chain(chain[0], chain_got, chain[1])
         if got != tuple(expect):
             fail(f"{name} step {it}: launches {got}, expected {expect}")
         if cg_expect is not None and cg_got != cg_expect:
@@ -1508,6 +1561,10 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
             torch.cuda.synchronize()
             tm["reconstruct_s"] = time.time() - t0
             launches = counts()                  # main path ends here
+            # the synthesis renders each view (2 bounces, no loss)
+            note_chain("cli", chain_counts(),
+                       (views * 2 + passes * iters * CHAIN_PER_STEP[0],
+                        passes * iters * CHAIN_PER_STEP[1]))
             cap = synth[0][1]
             tm["cache_write_s"] = saves[0][0]
             tm["synthesis_s"] = synth[0][0] - saves[0][0]
@@ -1596,6 +1653,7 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
             torch.cuda.synchronize()
             tm["render_s"] = time.time() - t0
             r_launch = counts()
+            note_chain("cli", chain_counts(), (2, 0))
             pngs = sorted(os.listdir("renders"))
             if pngs != ["dog_recons_exitdir.png", "dog_recons_mask.png",
                         "dog_recons_valid.png"] or r_launch != (4, 4, 4):
@@ -1746,7 +1804,7 @@ def parallel_phase(res, hp, weights, budget, mesh, cap):
             return run_steps(
                 f"parallel: sharded {name}", step, init(mesh_s), lr, mesh_s,
                 dataclasses.replace(cap, views=views_s), hp.seed, n,
-                per_step)
+                per_step, chain=("parallel", CHAIN_PER_STEP))
         if sharded_first:
             (st_s, l_s, ms_s), (st_p, l_p, ms_p) = sharded(), plain()
         else:
@@ -1835,7 +1893,7 @@ def parallel_rank(rank, work):
         ms = (time.time() - t0) * 1e3
         out[name] = dict(loss=float(loss), m=st["m"].cpu(), ms=ms,
                          ids=[h.tri_id.cpu() for h in rec.hits],
-                         launches=counts(),
+                         launches=counts(), chain=chain_counts(),
                          valid_rays=int(aux["valid_rays"]))
         print(f"parallel rank {rank}: {name} shift: {ms:.1f} ms, loss "
               f"{float(loss):.8g}, {views.ray_dir.shape[1]} rays a view, "
@@ -2033,6 +2091,7 @@ def parallel_ranks_phase(res, hp, weights, budget, mesh, cap, shift):
             if tuple(g[name]["launches"]) != (3 + 4,) * 3:
                 fail(f"parallel: rank {r} launched {g[name]['launches']}, "
                      "expected 7 of each kernel")
+            note_chain("parallel", g[name]["chain"], CHAIN_PER_STEP)
         # the ranks' ray queries in ray order; silhouette view k is rank
         # k % 2's query 3 + k // 2
         flips = {k: int((torch.cat([a["ids"][q], b["ids"][q]])
@@ -2219,6 +2278,8 @@ def graph_phase(res, hp, weights, budget, mesh, cap, per_step,
                     if it >= 2:
                         ms_.append((time.perf_counter() - t0) * 1e3)
                 launched = counts()          # and ends here
+                note_chain("graph", chain_counts(),
+                           tuple((2 + n) * k for k in CHAIN_PER_STEP))
                 sc = CK.counters.scatter_launches
                 cg_by = cg_counts()
                 cg_n = cg_by[0]
@@ -2661,6 +2722,298 @@ def cg_entries(cg, cg_steps, graph_cg):
         })
     return entries
 
+
+# Rounded arithmetic operations (products, quotients, sums, square roots;
+# not compares or selects) a lane of csrc/bounce.cu does, counted from the
+# source: a bounce's forward on a live lane (95 in `lane_forward`, 12 for
+# the new origin), its backward (the 95 again and 88 of cotangents; 90
+# more with the origin's cotangent: the t path), the tail's forward and
+# backward on a lane the loss counts (Huber's 3 left out).
+BOUNCE_OPS = {"fwd": 107, "bwd": 183, "bwd_origin": 273}
+RAY_TAIL_OPS = {"fwd": 21, "bwd": 24}
+
+
+def bounce_bound(args, out, backward=None):
+    """The least time (ms) and what bounds it for one launch of
+    csrc/bounce.cu's bounce forward (backward=None) or backward
+    (backward="d" for the new direction's cotangent alone, "both"),
+    from this run's inputs: every byte the launch must move, each read
+    once (a lane's rays, triangle and face id only where it is active and
+    hit, as the kernel reads them) and each output written once, at the
+    HBM rate, against its operations at the FP32 (or FP64: half) rate."""
+    origin, direction, g9, hit, active, safe_id, park = args[:7]
+    o_out, d_out, alive, tri = out
+    n, s = origin.shape[0], origin.element_size()
+    live = int((hit & active).sum())
+    n_alive = int(alive.sum())
+    if backward is None:
+        nbytes = (n + int(active.sum()) + live * 15 * s + n_alive * 8
+                  + 3 * s + n * (6 * s + 1 + 8))
+        ops = live * BOUNCE_OPS["fwd"]
+    else:
+        both = backward == "both"
+        nbytes = (n + n_alive * (15 * s + (6 if both else 3) * s)
+                  + n * (12 if not both else 15) * s)
+        ops = n_alive * BOUNCE_OPS["bwd_origin" if both else "bwd"]
+    peak = FP32_PEAK if s == 4 else FP32_PEAK / 2
+    by_bytes, by_ops = nbytes / HBM_RATE * 1e3, ops / peak * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def ray_tail_bound(args, backward=False):
+    """The same for the ray-loss tail's forward or backward: the three masks
+    as the kernel reads them (active where lane_valid, exit_hit where both),
+    a counted lane's origin, direction and screen point, the loss (or the
+    cotangent and the [N,3] gradient)."""
+    origin, direction, sp, lane_valid, active, exit_hit = args
+    n, s = origin.shape[0], origin.element_size()
+    both = lane_valid & active
+    counted = int((both & ~exit_hit).sum())
+    nbytes = (n + int(lane_valid.sum()) + int(both.sum()) + counted * 9 * s
+              + (s + n * 3 * s if backward else s))
+    ops = counted * RAY_TAIL_OPS["bwd" if backward else "fwd"]
+    peak = FP32_PEAK if s == 4 else FP32_PEAK / 2
+    by_bytes, by_ops = nbytes / HBM_RATE * 1e3, ops / peak * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def chain_phase(res, hp, cap, meshes):
+    """Phase 15: csrc/bounce.cu's four kernels against their plain versions
+    on the main path's own inputs. For each mesh of `meshes` (name ->
+    (vertices, faces)), float32 and float64, compat off and on: the ray
+    loss's trace of capture view 0 (1280x960) through the step's oracle,
+    with each bounce's chain inputs recorded; every output of both bounces
+    (o_out, d_out, active, face ids) and of their backward (d_origin,
+    d_direction, dg9; the new direction's cotangent alone, as the loss
+    sends it, and both cotangents), and the tail's loss and gradient at
+    Huber 0 and 0.1, bit for bit (integer views) with the plain version on
+    the card. Then on dog_mid45k float32: each kernel's time by CUDA events
+    and its profiled device time, the plain versions' times and the bounds
+    (`bounce_bound`, `ray_tail_bound`). Returns the phase's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.mesh import build_mesh_state
+    from drt_tpu_torch.render import bounce as TB
+    from drt_tpu_torch.render.trace import trace_exit
+    t_phase = time.time()
+    dev = cap.views.origin.device
+    fn = get_intersect_fn("auto")
+    sp0, valid, _m, o0, d0, _c = cap.views.take(0)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {"checked": [], "max_abs_err": 0.0}
+
+    def hold(what, got, want):
+        for k, (a, b) in enumerate(zip(got, want)):
+            if (a is None) != (b is None):
+                fail(f"chain: {what}: output {k} is None on one side")
+            if a is None:
+                continue
+            if not same_bits(a, b):
+                n_diff = (int((int_view(a) != int_view(b)).sum())
+                          if a.is_floating_point() else int((a != b).sum()))
+                fail(f"chain: {what}: output {k} differs from the plain "
+                     f"version on {n_diff} of {a.numel()} elements (max "
+                     f"|diff| {max_abs_diff(a, b):.3g})")
+        out["checked"].append(what)
+
+    timed = None
+    for label, (v, f) in meshes.items():
+        for dtype in (torch.float32, torch.float64):
+            ms = build_mesh_state(v, f, dtype=dtype, device=dev)
+            sp, o, d = (x.to(dtype) for x in (sp0, o0, d0))
+            for compat in (False, True):
+                rec = []
+                real = TB.bounce_cuda
+
+                def spy(*a, **k):
+                    got = real(*a, **k)
+                    rec.append((a, k, got))
+                    return got
+                TB.bounce_cuda = spy
+                try:
+                    with torch.no_grad():
+                        oe, de, act, exit_hit, _, _ = trace_exit(
+                            o, d, ms, fn, hp.ior, hp.ext_ior,
+                            lane_mask=valid, compat=compat)
+                finally:
+                    TB.bounce_cuda = real
+                name = (f"{label} {str(dtype)[6:]} compat "
+                        f"{'on' if compat else 'off'}")
+                if len(rec) != 2:
+                    fail(f"chain: {name}: {len(rec)} bounce launches in the "
+                         "trace, expected 2")
+                for b, (a, k, got) in enumerate(rec):
+                    what = f"{name} bounce {b + 1}"
+                    hold(what, got, TB.bounce_plain(*a, **k))
+                    n = a[0].shape[0]
+                    gd = torch.randn(n, 3, generator=gen, device=dev,
+                                     dtype=dtype)
+                    go = torch.randn(n, 3, generator=gen, device=dev,
+                                     dtype=dtype)
+                    for cots in ((None, gd), (go, gd)):
+                        bw = (*a[:3], got[2], *cots, *a[7:])
+                        hold(f"{what} backward"
+                             f"{'' if cots[0] is None else ' (both)'}",
+                             TB.bounce_cuda_backward(*bw),
+                             TB.bounce_plain_backward(*bw))
+                    if (label, dtype, compat, b) == (
+                            "dog_mid45k", torch.float32, False, 1):
+                        timed = (a, got, gd, go)
+                targs = (oe, de, sp, valid, act, exit_hit)
+                g = torch.rand((), generator=gen, device=dev, dtype=dtype)
+                for huber in (0.0, 0.1):
+                    what = f"{name} ray tail, Huber {huber}"
+                    hold(what, (TB.ray_tail_cuda(*targs, huber),
+                                TB.ray_tail_cuda_backward(*targs, huber, g)),
+                         (TB.ray_tail_plain(*targs, huber),
+                          TB.ray_tail_plain_backward(*targs, huber, g)))
+                if (label, dtype, compat) == ("dog_mid45k", torch.float32,
+                                              False):
+                    tail_args = targs
+                print(f"chain: {name}: both bounces (active after "
+                      f"{[int(r[2][2].sum()) for r in rec]} of "
+                      f"{o.shape[0]}), their backward and the tail bit for "
+                      "bit with the plain versions")
+            del ms
+    torch.cuda.synchronize()
+    # times on the bounce-2 chain and the tail of dog_mid45k, float32
+    a, got, gd, go = timed
+    bw = (*a[:3], got[2], None, gd, *a[7:])
+    calls = {
+        "bounce": lambda: TB.bounce_cuda(*a),
+        "bounce_backward": lambda: TB.bounce_cuda_backward(*bw),
+        "ray_tail": lambda: TB.ray_tail_cuda(*tail_args, 0.0),
+        "ray_tail_backward": lambda: TB.ray_tail_cuda_backward(
+            *tail_args, 0.0, torch.ones((), device=dev)),
+    }
+    plain = {
+        "bounce": lambda: TB.bounce_plain(*a),
+        "bounce_backward": lambda: TB.bounce_plain_backward(*bw),
+        "ray_tail": lambda: TB.ray_tail_plain(*tail_args, 0.0),
+        "ray_tail_backward": lambda: TB.ray_tail_plain_backward(
+            *tail_args, 0.0, torch.ones((), device=dev)),
+    }
+    before = chain_counts()
+    ms_ = {k: cuda_ms(f, 20) for k, f in calls.items()}
+    plain_ms = {k: cuda_ms(f, 5) for k, f in plain.items()}
+    if chain_counts() == before:
+        fail("chain: the timed calls launched no kernel")
+    # each call's device operations under torch.profiler, a profile a call
+    # (no ranges: the kernels launch from ctypes, inside no torch
+    # operation); in this process a profile loses its first device
+    # operations, so spin kernels go first and are not counted (phase 14)
+    dev_t = torch.autograd.DeviceType.CUDA
+    spans, kernel_ms, reps = {}, {}, 5
+    for k, f in calls.items():
+        f()
+        torch.cuda.synchronize()
+        kernel = (k.replace("_backward", "")
+                  + ("_bwd_kernel" if "backward" in k else "_fwd_kernel"))
+        attempt = 0
+        while True:
+            attempt += 1
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(SENTINELS):
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                for _ in range(reps):
+                    f()
+                torch.cuda.synchronize()
+            ops = [e for e in prof.events()
+                   if e.device_type == dev_t and not e.is_user_annotation
+                   and "spin_kernel" not in e.name]
+            by_op = {}
+            for e in ops:
+                key = e.name.split("(")[0].split("<")[0].replace("void ", "")
+                by_op.setdefault(key, []).append(
+                    (e.time_range.end - e.time_range.start) / 1e3)
+            if len(by_op.get(kernel, ())) == reps or not profile_again(
+                    attempt, f"the profile of {k} holds "
+                    f"{len(by_op.get(kernel, ()))} of {reps} {kernel}"):
+                break
+        if len(by_op.get(kernel, ())) != reps:
+            fail(f"chain: the profile of {k} holds no {reps} {kernel}: "
+                 f"{by_op}")
+        kernel_ms[kernel] = statistics.median(by_op[kernel])
+        spans[k] = {"ms": sum(sum(v) for v in by_op.values()) / reps,
+                    "ops": len(ops) / reps,
+                    "by_op": {n: statistics.median(v)
+                              for n, v in by_op.items()}}
+    bounds = {"bounce": bounce_bound(a, got),
+              "bounce_backward": bounce_bound(a, got, backward="d"),
+              "ray_tail": ray_tail_bound(tail_args),
+              "ray_tail_backward": ray_tail_bound(tail_args, backward=True)}
+    out.update(ms=ms_, plain_ms=plain_ms, profiled=spans,
+               kernel_ms=kernel_ms,
+               bound_ms={k: b[0] for k, b in bounds.items()},
+               bound_by={k: b[1] for k, b in bounds.items()},
+               lanes=a[0].shape[0], alive=int(got[2].sum()),
+               counted=int((tail_args[3] & tail_args[4]
+                            & ~tail_args[5]).sum()))
+    for k in calls:
+        print(f"chain: {k} (dog_mid45k bounce 2, float32, "
+              f"{a[0].shape[0]} lanes): {ms_[k]:.4f} ms (CUDA events, with "
+              f"its wrapper), device {spans[k]['ms']:.4f} ms in "
+              f"{spans[k]['ops']:g} operation(s) {spans[k]['by_op']}, bound "
+              f"{bounds[k][0]:.4f} ms ({bounds[k][1]}), plain version "
+              f"{plain_ms[k]:.3f} ms")
+    out["phase_s"] = time.time() - t_phase
+    print(f"chain: {len(out['checked'])} checks bit for bit, phase "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
+def chain_entries(chain):
+    """The kernels line's entries of csrc/bounce.cu: the bounce chain
+    (forward and backward launches) and the ray-loss tail; launches by
+    path from the main path's runs (CHAIN_LAUNCHES), times from phase 15."""
+    entries = []
+    for i, (name, replaces) in enumerate((
+            ("bounce", "drt_tpu/render/trace.py:207"),
+            ("ray_tail", "drt_tpu/optimize/losses.py:77"))):
+        fwd, bwd = name, f"{name}_backward"
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "drt_tpu_torch/csrc/bounce.cu",
+            "replaces": replaces,
+            "kernels": [f"{name}_fwd_kernel", f"{name}_bwd_kernel"],
+            "launches": sum(c[i] for c in CHAIN_LAUNCHES.values()),
+            "launches_by_path": {p: c[i] for p, c in CHAIN_LAUNCHES.items()},
+            "launches_per_step": CHAIN_PER_STEP[i],
+            "shape": ("bounce 2 of the ray view, 1280x960 on dog_mid45k, "
+                      f"float32 ({chain['alive']} of {chain['lanes']} lanes "
+                      "active after it)" if name == "bounce" else
+                      "the ray view's tail, 1280x960 on dog_mid45k, float32 "
+                      f"({chain['counted']} lanes counted)"),
+            "max_abs_err": chain["max_abs_err"],
+            "ms": chain["ms"][fwd] + chain["ms"][bwd],
+            "ms_from": "CUDA events around the forward and the backward "
+                       "launch (each with its wrapper), summed",
+            "fwd_ms": chain["ms"][fwd],
+            "bwd_ms": chain["ms"][bwd],
+            "profiled_ms": chain["profiled"][fwd]["ms"]
+            + chain["profiled"][bwd]["ms"],
+            "profiled_ops": chain["profiled"][fwd]["ops"]
+            + chain["profiled"][bwd]["ops"],
+            "kernel_ms": {k: t for k, t in chain["kernel_ms"].items()
+                          if k.startswith(name + "_")},
+            "plain_ms": chain["plain_ms"][fwd] + chain["plain_ms"][bwd],
+            "bound_ms": chain["bound_ms"][fwd] + chain["bound_ms"][bwd],
+            "bound_by": chain["bound_by"][fwd],
+            "fwd_bound_ms": chain["bound_ms"][fwd],
+            "bwd_bound_ms": chain["bound_ms"][bwd],
+            "library_ms": None,
+            "library": "none: no PyTorch call computes it",
+            "checked": len(chain["checked"]),
+        })
+    return entries
+
+
 def main():
     # cuBLAS's fixed workspace, which torch.use_deterministic_algorithms
     # (phase 11a) asks for; it is read when cuBLAS starts
@@ -2810,7 +3163,7 @@ def main():
     CK.counters.reset()                        # main path starts here
     for it in range(3):
         calls0, seen0 = CK.counters.calls, counts()
-        sc0 = CK.counters.scatter_launches
+        sc0, chain0 = CK.counters.scatter_launches, chain_counts()
         ray_idx = next(ray_gen)
         silh_idx = [next(silh_gen) for _ in range(8)]
         torch.cuda.synchronize()
@@ -2823,13 +3176,16 @@ def main():
         d_calls = CK.counters.calls - calls0
         d_seen = tuple(b - a for a, b in zip(seen0, counts()))
         d_scatter = CK.counters.scatter_launches - sc0
+        d_chain = tuple(b - a for a, b in zip(chain0, chain_counts()))
+        note_chain("train", d_chain, CHAIN_PER_STEP)
         print(f"step {it}: {times[-1]:.1f} ms, loss {losses[-1]:.6g} "
               f"(ray {float(aux['ray']):.6g} vh {float(aux['vh']):.6g} "
               f"sm {float(aux['sm']):.6g}), valid rays "
               f"{int(aux['valid_rays'])}, max grad "
               f"{float(aux['max_grad']):.3g}, queries {d_calls}, "
               f"closest-hit, prepass and packing launches {d_seen}, scatter "
-              f"launches {d_scatter}")
+              f"launches {d_scatter}, bounce chain and ray-loss tail "
+              f"launches {d_chain}")
         if d_calls != per_step or d_seen != (per_step,) * 3:
             fail(f"step {it}: {d_calls} queries, launches {d_seen}, expected "
                  f"{per_step} of each")
@@ -2967,8 +3323,11 @@ def main():
                 grad_clamp=0.0, ray_chunk=rc)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            st, ls, ms = run_steps(label, step_c, init_c(ms45), hp.start_lr,
-                                   ms45, cap, hp.seed, 1, expect)
+            # a checkpointed chunk runs its forward again in the backward
+            st, ls, ms = run_steps(
+                label, step_c, init_c(ms45), hp.start_lr, ms45, cap,
+                hp.seed, 1, expect, chain=("chunked", (
+                    (6 * n_chunks, 3 * n_chunks) if rc else CHAIN_PER_STEP)))
         k = n_chunks if rc else 1
         ids = [torch.cat([rec.hits[3 * i + q].tri_id for i in range(k)])
                [:n_rays] for q in range(3)]
@@ -3083,6 +3442,9 @@ def main():
         lod_s = time.time() - t0
         lod_launches = counts()                # main path ends here
         lod_scatters = CK.counters.scatter_launches
+        n_steps = hp_lod.num_passes * hp_lod.iters
+        note_chain("lod", chain_counts(),
+                   tuple(n_steps * k for k in CHAIN_PER_STEP))
         if CK.counters.cg_launches != 0:
             fail(f"lod: {CK.counters.cg_launches} CG launches in sgd + "
                  "none steps, reckoned 0")
@@ -3188,6 +3550,14 @@ def main():
     if min(cg_main[1:]) < 1:
         fail(f"cg: the main path's steps launched the CG kernel {cg_main} "
              "times (all, shared route, global route; phases 6 and 13)")
+
+    # -- 15. the bounce chain and the ray-loss tail ------------------------
+    missing = [p for p in ("train", "steps", "chunked", "lod", "cli",
+                           "parallel", "graph") if p not in CHAIN_LAUNCHES]
+    if missing:
+        fail(f"chain: no bounce or tail launch counted on {missing}")
+    chain_out = chain_phase(RES, hp, cap, {"dog_mid45k": (v45, f45),
+                                           "dog_mid90k": (v90, f90)})
 
     total = [sum(x) for x in zip(launches, lod_launches, cli_launches,
                                  par_launches, graph_launches)]
@@ -3297,6 +3667,7 @@ def main():
                      scatter_step, lod_scatters, scatter_route_launches)]
     kernels[-1]["launches_graph"] = graph_scatters
     kernels.extend(cg_entries(cg_out, cg_steps, graph_cg))
+    kernels.extend(chain_entries(chain_out))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -64,6 +64,31 @@ def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
     return x
 
 
+def tree_sum(values: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """The sum (0-d) of values [N] in the fixed order of the kernels'
+    reductions (csrc/cg.cu, csrc/bounce.cu): value i added, in ascending
+    i, to +0 in thread i % T of T = prod(shape) threads; the threads laid
+    out as `shape` (each a power of two), then a halving tree over each
+    dimension from the last to the first (element i takes element i + h
+    for h = n/2, ..., 1)."""
+    threads = 1
+    for n in shape:
+        threads *= n
+    rows = -(-values.shape[0] // threads)
+    padded = torch.cat([values, values.new_zeros(rows * threads
+                                                 - values.shape[0])])
+    acc = values.new_zeros(threads)
+    for row in padded.reshape(rows, threads):
+        acc = acc + row
+    acc = acc.reshape(shape)
+    for dim in reversed(range(len(shape))):
+        h = acc.shape[dim] // 2
+        while h:
+            acc = acc.narrow(dim, 0, h) + acc.narrow(dim, h, h)
+            h //= 2
+    return acc.reshape(())
+
+
 def dot3(a: torch.Tensor, b: torch.Tensor, keepdims: bool = False):
     """Batched 3-vector dot product (reference DiffRender.py:24-29)."""
     out = torch.sum(a * b, dim=-1)

@@ -14,7 +14,9 @@ The wrappers:
   csrc/closest_hit.cu, the three kernels of an oracle query;
 - geometry/scatter.py: csrc/scatter.cu, the row scatter-add;
 - optimize/precondition.py: csrc/cg.cu, the Sobolev preconditioner's
-  conjugate-gradient solve.
+  conjugate-gradient solve;
+- render/bounce.py: csrc/bounce.cu, a bounce's per-lane chain after its
+  oracle query and the ray loss's per-lane tail, forward and backward.
 
 `counters` counts each kernel's launches; a wrapper adds one only where it
 launches its kernel (never on the plain version's path). A CUDA graph's
@@ -48,7 +50,11 @@ class LaunchCounter:
     `scatter_grid_launches` the grid route), and of the conjugate-gradient
     solve (`cg_launches`, one a solve on CUDA tensors, of which
     `cg_shared_launches` took the shared route and `cg_global_launches` the
-    global route)."""
+    global route), and of csrc/bounce.cu: a bounce's chain
+    (`bounce_launches`, forward and backward, of which
+    `bounce_backward_launches` backward) and the ray loss's tail
+    (`ray_tail_launches`, of which `ray_tail_backward_launches`
+    backward)."""
 
     def __init__(self):
         self.reset()
@@ -64,6 +70,10 @@ class LaunchCounter:
         self.cg_launches = 0
         self.cg_shared_launches = 0
         self.cg_global_launches = 0
+        self.bounce_launches = 0
+        self.bounce_backward_launches = 0
+        self.ray_tail_launches = 0
+        self.ray_tail_backward_launches = 0
 
     def snapshot(self) -> dict:
         """Every count, by name."""
@@ -173,6 +183,17 @@ _ENTRIES = {
     "cg_shared_bytes": ([_LL, _CI, _CI, _CI], _LL),
     "cg_shared_scratch_bytes": ([_LL, _CI], _LL),
     "cg_shared_budget": ([], _CI),
+    # bounce.cu
+    "bounce_launch": ([_VP] * 7 + [_LL, _CI, _CD, _CD, _CD, _CI]
+                      + [_VP] * 5, _CI),
+    "bounce_backward_launch": ([_VP] * 6 + [_LL, _CI, _CD, _CD, _CD, _CI]
+                               + [_VP] * 4, _CI),
+    "ray_tail_launch": ([_VP] * 6 + [_LL, _CI, _CD] + [_VP] * 4, _CI),
+    "ray_tail_backward_launch": ([_VP] * 6 + [_LL, _CI, _CD] + [_VP] * 3,
+                                 _CI),
+    "bounce_block": ([], _CI),
+    "ray_tail_block": ([], _CI),
+    "ray_tail_blocks": ([], _CI),
     # errors.cu
     "drt_error_string": ([_CI], ctypes.c_char_p),
 }
@@ -195,6 +216,16 @@ _SIGNATURES = {
                     "scratch stream",
     "cg_shared_signature": "b x0 f64 nbr valid vp c d lam tol2 maxiter x "
                            "trips scratch stream",
+    "bounce_signature": "org dir g9 hit active safe_id park_o n f64 int_ior "
+                        "ext_ior offset_eps compat o_out d_out act_out "
+                        "tri_out stream",
+    "bounce_backward_signature": "org dir g9 alive go gd n f64 int_ior "
+                                 "ext_ior offset_eps compat d_org d_dir dg9 "
+                                 "stream",
+    "ray_tail_signature": "org dir sp lane_valid active exit_hit n f64 huber "
+                          "loss partials counter stream",
+    "ray_tail_backward_signature": "org dir sp lane_valid active exit_hit n "
+                                   "f64 huber g d_dir stream",
 }
 
 

@@ -20,10 +20,11 @@ import torch
 
 from drt_tpu_torch.geometry.metrics import dihedral_cos
 from drt_tpu_torch.geometry.scatter import scatter_rows
-from drt_tpu_torch.geometry.vec import clip, safe_normalize
+from drt_tpu_torch.geometry.vec import clip
+from drt_tpu_torch.render.bounce import ray_tail
 from drt_tpu_torch.render.chunked import auto_ray_chunk, chunked_sum
 from drt_tpu_torch.render.silhouette import primary_visibility
-from drt_tpu_torch.render.trace import render_transparent
+from drt_tpu_torch.render.trace import trace_exit
 
 
 class LossWeights(NamedTuple):
@@ -56,25 +57,22 @@ def ray_loss(mesh, view, intersect_fn: Callable, ior: float,
     def body(screen_pixel, valid, origin, ray_dir):
         # lane_mask=valid: matting-invalid pixels (and the chunked path's
         # padding lanes, padded valid=False) start inactive.
-        res = render_transparent(origin, ray_dir, mesh, intersect_fn, ior,
-                                 ext_ior, lane_mask=valid, compat=compat)
-        # target: from the (detached) exit origin to the matted screen point
-        target = safe_normalize(screen_pixel - res.origin.detach())
-        diff = res.direction - target
-        w = valid & res.valid
-        stats = dict(res.stats)
+        o, d, active, exit_hit, stats, tris = trace_exit(
+            origin, ray_dir, mesh, intersect_fn, ior, ext_ior,
+            lane_mask=valid, compat=compat)
         if collect_evidence:
             # both bounces' rows in one scatter, in the order JAX adds them
+            w = valid & active & torch.logical_not(exit_hit)
             wf = w.float()[:, None].expand(-1, 3).reshape(-1, 1)
-            idx = torch.cat([mesh.faces[tri].reshape(-1) for tri in res.tris])
+            idx = torch.cat([mesh.faces[tri].reshape(-1) for tri in tris])
             stats["vertex_evidence"] = scatter_rows(
-                wf.repeat(len(res.tris), 1), idx, mesh.vertices.shape[0])[:, 0]
-        s = torch.where(w[:, None], diff * diff,
-                        torch.zeros_like(diff)).sum(1)
-        if huber:
-            r = torch.sqrt(clip(s, 1e-24))
-            s = torch.where(r <= huber, s, 2.0 * huber * r - huber * huber)
-        return torch.where(w, s, torch.zeros_like(s)).sum(), stats
+                wf.repeat(len(tris), 1), idx, mesh.vertices.shape[0])[:, 0]
+        # the tail (render/bounce.py, one kernel each way on the card): the
+        # target from the (detached) exit origin to the matted screen point,
+        # the squared difference of the exit direction, the Huber branch,
+        # the sum over the lanes that count
+        return ray_tail(o, d, screen_pixel, valid, active, exit_hit,
+                        huber), stats
 
     return chunked_sum(body, (screen_pixel, valid, origin, ray_dir),
                        ray_chunk, pad_values=(0.0, False, 0.0, 1.0))

@@ -42,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from drt_tpu_torch import kernels
+from drt_tpu_torch.geometry.vec import tree_sum
 
 
 def laplacian_matvec(x: torch.Tensor, neighbors: torch.Tensor,
@@ -146,30 +147,11 @@ def cg_route(vp: int, c: int, d: int, dtype) -> str:
         else "global"
 
 
-def _halve(s: torch.Tensor, dim: int) -> torch.Tensor:
-    """The halving tree over `dim` (a power of two long): element i takes
-    element i + h for h = n/2, ..., 1."""
-    while s.shape[dim] > 1:
-        h = s.shape[dim] // 2
-        s = s.narrow(dim, 0, h) + s.narrow(dim, h, h)
-    return s
-
-
 def ordered_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """u.v (0-d) summed in csrc/cg.cu's fixed order: each product rounded,
     then each thread's products added to +0 in order, then the trees over
     lanes, warps and CTAs."""
-    prod = (u * v).reshape(-1)
-    rows = max(1, -(-prod.shape[0] // CG_THREADS))
-    prod = torch.cat([prod, prod.new_zeros(rows * CG_THREADS
-                                           - prod.shape[0])])
-    s = prod.new_zeros(CG_THREADS)
-    for row in prod.reshape(rows, CG_THREADS):
-        s = s + row
-    s = s.reshape(CG_CTAS, CG_BLOCK // 32, 32)
-    for dim in (2, 1, 0):
-        s = _halve(s, dim)
-    return s.reshape(())
+    return tree_sum((u * v).reshape(-1), (CG_CTAS, CG_BLOCK // 32, 32))
 
 
 @torch.no_grad()

@@ -5,6 +5,12 @@ Static lanes with an `active` mask instead of ray compaction: every lane
 keeps its pixel by position, dead lanes are parked outside the mesh so later
 oracle queries spend no work on them, and all math stays finite on masked
 lanes so the backward pass never sees NaN.
+
+A bounce is its oracle query, the gather of each lane's triangle
+(`_gather_tri9`) and the chain after it, which XLA fuses in the JAX package
+and which here is one kernel forward and one backward
+(render/bounce.py `bounce_chain`, csrc/bounce.cu; its plain version on CPU
+tensors). `refract_ray` stays for its other callers and the debug checks.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from drt_tpu_torch.geometry.mt import moller_trumbore_verts
 from drt_tpu_torch.geometry.scatter import scatter_rows
 from drt_tpu_torch.geometry.vec import (clip, const_like, dot3,
                                        fresnel_dielectric, refract)
+from drt_tpu_torch.render.bounce import bounce_chain
 
 
 def debug_enabled() -> bool:
@@ -123,18 +130,31 @@ def _gather_tri9(vertices, faces, safe_id):
     return _GatherTri9.apply(vertices, faces, safe_id)
 
 
-def _park_rays(origin, direction, active, mesh):
-    """Replace dead lanes' rays with a ray outside the mesh AABB pointing
-    away from it, so later queries give them zero candidate/MT work. The box
-    is over the whole padded vertex array, as in the JAX package."""
-    v = mesh.vertices.detach()
-    vmin = v.amin(dim=0)
-    vmax = v.amax(dim=0)
-    park_o = (vmin - (vmax - vmin) - 1.0).to(origin.dtype)
-    park_d = torch.full((3,), -0.57735027, dtype=direction.dtype,
-                        device=direction.device)
-    m = active[..., None]
-    return torch.where(m, origin, park_o), torch.where(m, direction, park_d)
+def _park_rays(mesh, dtype):
+    """The origin [3] of the ray every dead lane is parked on, outside the
+    mesh AABB; its direction, -0.57735027 in each component
+    (render/bounce.py PARK_DIRECTION), points away from the box. Later
+    queries give a parked lane zero candidate/MT work. The box is over the
+    whole padded vertex array, as in the JAX package."""
+    vmin, vmax = torch.aminmax(mesh.vertices.detach(), dim=0)
+    return (vmin - (vmax - vmin) - 1.0).to(dtype)
+
+
+def _debug_bounce(origin, direction, g9, hit, int_ior, ext_ior, offset_eps,
+                  compat, o_out, d_out, active):
+    """DRT_TPU_DEBUG's two checks beside the kernel: the TIR cross-check on
+    a side recomputation of the chain that feeds nothing, and finite rays
+    on what the chain returned."""
+    with torch.no_grad():
+        _u, _v, t, n = moller_trumbore_verts(
+            origin, direction, g9[:, 0:3], g9[:, 3:6], g9[:, 6:9])
+        t = torch.where(hit, t, torch.ones_like(t))
+        refract_ray(origin, direction, t, n, int_ior, ext_ior, offset_eps,
+                    compat=compat)          # checks FrDielectric/Refract
+    # active lanes must carry finite rays into the next query
+    fin = torch.isfinite(o_out).all(-1) & torch.isfinite(d_out).all(-1)
+    _debug_check(torch.logical_not(active) | fin,
+                 "non-finite ray after bounce")
 
 
 def _bounce(origin, direction, active, mesh, intersect_fn, int_ior, ext_ior,
@@ -144,21 +164,14 @@ def _bounce(origin, direction, active, mesh, intersect_fn, int_ior, ext_ior,
     hit = hits.hit
     safe_id = torch.where(hit, hits.tri_id, 0).long()
     g9 = _gather_tri9(mesh.vertices, mesh.faces, safe_id)
-    _u, _v, t, n = moller_trumbore_verts(
-        origin, direction, g9[:, 0:3], g9[:, 3:6], g9[:, 6:9])
-    t = torch.where(hit, t, torch.ones_like(t))       # finite on masked lanes
-    refracted, new_o, new_d = refract_ray(
-        origin, direction, t, n, int_ior, ext_ior, offset_eps, compat=compat)
-    active = active & hit & refracted
-    m = active[..., None]
-    o_out, d_out = _park_rays(torch.where(m, new_o, origin),
-                              torch.where(m, new_d, direction), active, mesh)
+    o_out, d_out, active, tri = bounce_chain(
+        origin, direction, g9, hit, active, safe_id,
+        _park_rays(mesh, origin.dtype), int_ior, ext_ior, offset_eps,
+        compat=compat)
     if debug_enabled():
-        # active lanes must carry finite rays into the next query
-        fin = torch.isfinite(o_out).all(-1) & torch.isfinite(d_out).all(-1)
-        _debug_check(torch.logical_not(active) | fin,
-                     "non-finite ray after bounce")
-    return o_out, d_out, active, torch.where(active, safe_id, 0)
+        _debug_bounce(origin, direction, g9, hit, int_ior, ext_ior,
+                      offset_eps, compat, o_out, d_out, active)
+    return o_out, d_out, active, tri
 
 
 def trace2(origin, direction, mesh, intersect_fn: Callable,
@@ -186,21 +199,35 @@ def trace2(origin, direction, mesh, intersect_fn: Callable,
     return o, d, active, stats, tuple(tris)
 
 
+def trace_exit(origin, direction, mesh, intersect_fn: Callable,
+               int_ior: float, ext_ior: float = 1.00029,
+               offset_eps: float = 1e-5, compat: bool = False,
+               lane_mask=None):
+    """Two bounces, then the exit query (the reference's third, occlusion
+    query, DiffRender.py:420-432). Returns (origin, direction, active,
+    exit_hit, stats, tris): a lane is valid where active and not exit_hit;
+    its rays are not zeroed (render_transparent zeroes them, the ray loss's
+    tail masks them)."""
+    o, d, active, stats, tris = trace2(origin, direction, mesh, intersect_fn,
+                                       int_ior, ext_ior, offset_eps,
+                                       compat=compat, lane_mask=lane_mask)
+    exit_hit = intersect_fn(o, d, mesh.vertices, mesh.faces,
+                            mesh.face_valid, coherent=False).hit
+    stats["occluded_exit"] = (active & exit_hit).sum()
+    stats["valid_rays"] = (active & torch.logical_not(exit_hit)).sum()
+    return o, d, active, exit_hit, stats, tris
+
+
 def render_transparent(origin, direction, mesh, intersect_fn: Callable,
                        int_ior: float, ext_ior: float = 1.00029,
                        offset_eps: float = 1e-5, compat: bool = False,
                        lane_mask=None) -> TraceResult:
-    """Two bounces, then the exit ray must escape the mesh (the reference's
-    third, occlusion query, DiffRender.py:420-432). Invalid lanes are
-    zeroed."""
-    o, d, active, stats, tris = trace2(origin, direction, mesh, intersect_fn,
-                                       int_ior, ext_ior, offset_eps,
-                                       compat=compat, lane_mask=lane_mask)
-    hits = intersect_fn(o, d, mesh.vertices, mesh.faces, mesh.face_valid,
-                        coherent=False)
-    valid = active & torch.logical_not(hits.hit)
-    stats["occluded_exit"] = (active & hits.hit).sum()
-    stats["valid_rays"] = valid.sum()
+    """Two bounces, then the exit ray must escape the mesh (`trace_exit`).
+    Invalid lanes are zeroed."""
+    o, d, active, exit_hit, stats, tris = trace_exit(
+        origin, direction, mesh, intersect_fn, int_ior, ext_ior, offset_eps,
+        compat=compat, lane_mask=lane_mask)
+    valid = active & torch.logical_not(exit_hit)
     m = valid[..., None]
     return TraceResult(torch.where(m, o, torch.zeros_like(o)),
                        torch.where(m, d, torch.zeros_like(d)), valid,

@@ -4,6 +4,8 @@
     python3 scripts/profile_torch_step.py [--views 2] [--steps 3]
         [--optimizer sgd|adam|uadam] [--precond none|sobolev|h1]
         [--record reports/torch_step_ab.json]
+        [--ranges reports/torch_step_ranges.json --label this]
+        [--only-ranges]
 
 Same configuration as chip_smoke.py's train phase (synthetic capture of
 dog_mid90k at 1280x960, steps from dog_mid45k, HyperParams() weights,
@@ -32,9 +34,27 @@ the device's idle share of the host time, the device operations, and for
 the eager step the host time inside the oracle queries, `total_loss` (the
 forward, queries included) and `torch.autograd.grad` (the backward), the
 rest being the normals, the update and Python.
+
+Then the step's device time by range (`range_breakdown`), for an eager step
+and for a replay of its CUDA graph: the ray view's oracle queries, the
+bounce 1 and bounce 2 chains (everything of `render.trace._bounce` after
+its query: gather, re-intersection, refraction, masks, parking), the ray
+loss's tail (`ray_loss` outside its trace and queries), the silhouette
+views (their queries apart), the smoothness term, the normals
+(`MeshState.with_vertices`) and the rest, each forward and backward. The
+ranges are `record_function`s put around those functions of whichever
+tree is imported, so the script reads a parent tree's step as well as
+this one's (copy it into the unpacked tree and run it there). A backward
+operation belongs to the range of the forward operation that made its
+autograd node (the profiler's sequence numbers). A replay has no host
+ranges: its device operations are matched to the eager step's by kernel
+name in order (difflib), and what matches nothing counts to "unmatched".
+`--ranges PATH` writes both tables into PATH under "runs", keyed by
+`--label` and the optimizer pair; `--only-ranges` skips everything else.
 """
 
 import argparse
+import contextlib
 import os
 import statistics
 import subprocess
@@ -57,6 +77,11 @@ def main():
     ap.add_argument("--trace-dir", default=os.path.join(
         HERE, "build", "torch_step_traces"))
     ap.add_argument("--record", help="JSON file for the CG line's numbers")
+    ap.add_argument("--ranges", help="JSON file for the table by range")
+    ap.add_argument("--label", default="this",
+                    help="the tree's name in --ranges (this, parent)")
+    ap.add_argument("--only-ranges", action="store_true",
+                    help="measure the table by range alone")
     args = ap.parse_args()
 
     import torch
@@ -93,6 +118,10 @@ def main():
                    precond_lambda=hp.precond_lambda, cg_iters=hp.cg_iters)
     lr = hp.start_lr if args.optimizer == "sgd" else 0.01
     print(f"optimizer {args.optimizer}, precond {args.precond}, lr {lr}")
+    if args.only_ranges:
+        range_breakdown(args, step_kw, lr, weights, res, budget, ms, cap,
+                        silh, smi.stdout.strip())
+        return
 
     acc = defaultdict(float)
     kind_now = [""]
@@ -224,6 +253,210 @@ def main():
     print(prof.key_averages().table(sort_by="cuda_time_total",
                                     row_limit=20, max_name_column_width=60))
     joint_trace(args, step_kw, lr, weights, res, budget, ms, cap, silh)
+    range_breakdown(args, step_kw, lr, weights, res, budget, ms, cap, silh,
+                    smi.stdout.strip())
+
+
+RANGES = ("oracle: ray view", "bounce 1 chain", "bounce 2 chain",
+          "ray-loss tail", "oracle: silhouette views", "silhouette views",
+          "smoothness", "normals")
+
+
+@contextlib.contextmanager
+def step_ranges():
+    """For the duration, the step's parts run inside `record_function`
+    ranges named as RANGES, by patching the functions of the imported
+    tree. Yields the oracle wrapper to hand to make_train_step."""
+    from torch.profiler import record_function
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.mesh import state as mesh_state
+    from drt_tpu_torch.optimize import losses
+    from drt_tpu_torch.render import trace
+    base = get_intersect_fn("auto")
+    top = []                          # the loss term being evaluated
+    bounces = [0]
+
+    def ranged(name, fn, outer=False):
+        def wrapper(*a, **k):
+            with record_function(name() if callable(name) else name):
+                if outer:
+                    top.append(name)
+                try:
+                    return fn(*a, **k)
+                finally:
+                    if outer:
+                        top.pop()
+        return wrapper
+
+    def bounce_name():
+        bounces[0] += 1
+        return f"bounce {2 - bounces[0] % 2} chain"
+
+    def oracle_name():
+        return ("oracle: silhouette views" if top[-1:] == ["silhouette views"]
+                else "oracle: ray view")
+    saved = [(losses, "ray_loss"), (losses, "silhouette_loss"),
+             (losses, "smooth_loss"), (trace, "_bounce"),
+             (mesh_state.MeshState, "with_vertices")]
+    saved = [(m, a, getattr(m, a)) for m, a in saved]
+    losses.ray_loss = ranged("ray-loss tail", losses.ray_loss, True)
+    losses.silhouette_loss = ranged("silhouette views",
+                                    losses.silhouette_loss, True)
+    losses.smooth_loss = ranged("smoothness", losses.smooth_loss)
+    trace._bounce = ranged(bounce_name, trace._bounce)
+    mesh_state.MeshState.with_vertices = ranged(
+        "normals", mesh_state.MeshState.with_vertices)
+    try:
+        yield ranged(oracle_name, base)
+    finally:
+        for m, a, f in saved:
+            setattr(m, a, f)
+
+
+def device_ops(prof):
+    """The profile's device operations in start order, as (name, us,
+    correlation id), from kineto's own events (user annotations left
+    out)."""
+    import torch
+    dev_t = torch.autograd.DeviceType.CUDA
+    ops = sorted((k.start_ns(), k.name(), k.duration_ns() / 1e3,
+                  k.correlation_id())
+                 for k in prof.profiler.kineto_results.events()
+                 if k.device_type() == dev_t and not k.is_user_annotation())
+    return [op[1:] for op in ops]
+
+
+def label_ops(prof):
+    """The profile's device operations in start order, each with its range
+    (`label_by_host_time`, from the CUDA runtime call of the same
+    correlation id that launched it). Returns (range, name, us) rows."""
+    import torch
+    dev_t = torch.autograd.DeviceType.CUDA
+    host = [k for k in prof.profiler.kineto_results.events()
+            if k.device_type() != dev_t]
+    launch_at = {k.correlation_id(): k.start_ns() for k in host
+                 if k.name().startswith("cuda")}
+    return label_by_host_time(host, [(name, us, launch_at.get(corr))
+                                     for name, us, corr in device_ops(prof)])
+
+
+def label_by_host_time(host, ops):
+    """Label each (name, us, host time of its launch) of `ops` by the host
+    events around its launch: inside a RANGES range (forward: the
+    innermost) or inside an autograd node (backward: the range of the
+    forward operation that made the node, by its sequence number,
+    " (backward)" added); "rest" otherwise. By host time alone: the
+    kernels' own launches (ctypes) run inside no torch operation."""
+    import bisect
+    ranges = sorted((k.start_ns(), k.end_ns(), k.name()) for k in host
+                    if k.name() in RANGES)
+    nodes = sorted((k.start_ns(), k.end_ns(), k.sequence_nr()) for k in host
+                   if k.scope() == 1 and k.sequence_nr() >= 0)
+    starts = ([r[0] for r in ranges], [n[0] for n in nodes])
+
+    def innermost(spans, first, t):
+        """The span that holds t and started last, or None."""
+        for span in reversed(spans[:bisect.bisect_right(first, t)]):
+            if span[1] >= t:
+                return span
+        return None
+    # An operation records the sequence number the next autograd node will
+    # take; the one that makes the node records it last, so the latest
+    # forward operation of a number names the node's range.
+    seq_range = {}
+    for k in sorted(host, key=lambda k: k.start_ns()):
+        if k.sequence_nr() >= 0 and k.scope() != 1:
+            span = innermost(ranges, starts[0], k.start_ns())
+            if span is not None:
+                seq_range[k.sequence_nr()] = span[2]
+    out = []
+    for name, us, t in ops:
+        label = "rest"
+        if t is not None:
+            span = innermost(ranges, starts[0], t)
+            node = innermost(nodes, starts[1], t)
+            if node is not None and (span is None or node[0] > span[0]):
+                label = seq_range.get(node[2], "rest") + " (backward)"
+            elif span is not None:
+                label = span[2]
+        out.append((label, name, us))
+    return out
+
+
+def table(labelled):
+    """{range: {"device_ms", "device_ops", "top"}} from (range, name, us)
+    rows; "top" the range's 3 longest kernels by name (ms)."""
+    t, by_name = {}, {}
+    for label, name, us in labelled:
+        row = t.setdefault(label, {"device_ms": 0.0, "device_ops": 0})
+        row["device_ms"] += us / 1e3
+        row["device_ops"] += 1
+        names = by_name.setdefault(label, {})
+        names[name] = names.get(name, 0.0) + us / 1e3
+    for label, row in t.items():
+        row["top"] = dict(sorted(by_name[label].items(),
+                                 key=lambda kv: -kv[1])[:3])
+    return dict(sorted(t.items(), key=lambda kv: -kv[1]["device_ms"]))
+
+
+def range_breakdown(args, step_kw, lr, weights, res, budget, ms, cap, silh,
+                    device):
+    """The step's device time and operations by range, eager and replayed
+    (see the module docstring), printed and written to --ranges."""
+    import difflib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import drt_tpu_torch.optimize.loop as loop
+    dev = ms.vertices.device
+    ray = [[i % args.views] for i in range(3)]
+    with step_ranges() as oracle:
+        init, step, _ = loop.make_train_step(oracle, weights, *res, budget,
+                                             **step_kw)
+        state = init(ms)
+        step(state, lr, ms, cap.views, 0, silh)          # warm-up
+        run = loop.GraphedTrainStep(step, init(ms), lr, ms, cap.views,
+                                    torch.tensor(ray, device=dev),
+                                    torch.tensor([silh] * 3, device=dev))
+        for _ in range(2):                  # the warm-up, the capture
+            run()
+        torch.cuda.synchronize()
+        profiles = {}
+        for kind in ("eager", "replay"):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                if kind == "eager":
+                    step(state, lr, ms, cap.views, 0, silh)
+                else:
+                    run()
+                torch.cuda.synchronize()
+            profiles[kind] = prof
+        run.close()
+    eager = label_ops(profiles["eager"])
+    replay = [(n, us) for n, us, _ in device_ops(profiles["replay"])]
+    matcher = difflib.SequenceMatcher(None, [n for _, n, _ in eager],
+                                      [n for n, _ in replay], autojunk=False)
+    labels = ["unmatched"] * len(replay)
+    for blk in matcher.get_matching_blocks():
+        for k in range(blk.size):
+            labels[blk.b + k] = eager[blk.a + k][0]
+    replayed = [(lab, n, us) for lab, (n, us) in zip(labels, replay)]
+    out = {"device": device, "script": "scripts/profile_torch_step.py",
+           "tree": args.label, "eager": table(eager),
+           "replay": table(replayed),
+           "eager_device_ops": len(eager), "replay_device_ops": len(replay),
+           "eager_device_busy_ms": sum(us for *_, us in eager) / 1e3,
+           "replay_device_busy_ms": sum(us for _, us in replay) / 1e3}
+    for kind in ("eager", "replay"):
+        print(f"by range, {kind} step ({out[kind + '_device_ops']} device "
+              f"operations, {out[kind + '_device_busy_ms']:.3f} ms busy):")
+        for name, row in out[kind].items():
+            print(f"  {name:40s} {row['device_ms']:8.3f} ms "
+                  f"{row['device_ops']:5d} ops")
+    if args.ranges:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from ab_torch_step import record
+        record(args.ranges, "runs",
+               f"{args.label}: {args.optimizer} + {args.precond}", out)
 
 
 def joint_trace(args, step_kw, lr, weights, res, budget, ms, cap, silh):

@@ -8,7 +8,11 @@ bit for bit; the prepass kernel must give the lists and counts of
 packing kernel every output of `pack_plain` bit for bit (int32 views).
 At the end, the train step as one CUDA graph (`GraphedTrainStep`) against
 the eager step bit for bit, its launch counts, its deferred bounds check
-and the memory it gives back."""
+and the memory it gives back. Last, csrc/bounce.cu's four kernels (a
+bounce's chain and the ray-loss tail, forward and backward) against
+their plain versions bit for bit, float32 and float64, compat on and off,
+Huber 0 and 0.1, on an empty batch, one lane, a batch that is no
+multiple of the block, a full view's lanes and all lanes dead."""
 
 import os
 
@@ -1309,3 +1313,177 @@ def test_cg_shared_bytes_agree_with_the_source(dev):
                         vp, c, d, torch.float64 if f64 else torch.float32)
                     got = lib.cg_shared_bytes(vp, c, d, f64)
                     assert got == (-1 if want is None else want), (vp, c, d)
+
+
+# -- csrc/bounce.cu: a bounce's chain and the ray loss's tail ------------------
+
+def _bits(t):
+    """A tensor's bits (so that -0 is not +0 and NaNs compare)."""
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def _bounce_inputs(dev, dtype, n, seed=0, dead=False):
+    """A bounce's inputs on the card, as the step gives them: rays at (and
+    from inside) a 50-unit icosphere, their hits from the kernel oracle,
+    each lane's triangle (`_gather_tri9`), every tenth lane dead (all of
+    them with dead=True), the parked origin; a few lanes on a triangle
+    shrunk to a point and at cos_i = +-1 exactly."""
+    from drt_tpu_torch.render.trace import _gather_tri9, _park_rays
+    v, f = make_icosphere(subdivisions=3, radius=50.0)
+    ms = build_mesh_state(v, f, dtype=dtype, device=dev)
+    keep, n = n, max(n, 8)
+    o1, d1 = _rays((n + 1) // 2, seed, inside=False)
+    o2, d2 = _rays(n - (n + 1) // 2, seed + 1, inside=True)
+    o = torch.cat([o1, o2]).to(dev, dtype)
+    d = torch.cat([d1, d2]).to(dev, dtype)
+    hits = CK.intersect_cuda(o, d, ms.vertices, ms.faces, ms.face_valid,
+                             coherent=False)
+    hit = hits.hit.clone()
+    safe_id = torch.where(hit, hits.tri_id, 0).long()
+    g9 = _gather_tri9(ms.vertices, ms.faces, safe_id).detach().clone()
+    g9[:2] = g9[:2, :3].repeat(1, 3)                      # a point: det 0
+    g9[2:4] = torch.tensor([0, 0, 0, 1, 0, 0, 0, 1, 0], dtype=dtype)
+    o[2:4] = torch.tensor([[0.2, 0.3, 5.0], [0.1, 0.1, -5.0]], dtype=dtype)
+    d[2:4] = torch.tensor([[0, 0, -1.0], [0, 0, 1.0]], dtype=dtype)
+    hit[:4] = True
+    active = (torch.arange(n, device=dev) % 10 != 7) & (not dead)
+    return tuple(x[:keep].contiguous() for x in (o, d, g9, hit, active,
+                                                 safe_id)) + (
+        _park_rays(ms, dtype),)
+
+
+@pytest.mark.parametrize("n", [4099, 0, 1])
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bounce_kernel_matches_plain(dev, dtype, compat, n):
+    """Forward, and backward with cotangents on d_out alone and on both
+    outputs: every output bit for bit with the plain version on the card;
+    n = 4099 is no multiple of the block, 0 and 1 the smallest batches."""
+    import drt_tpu_torch.render.bounce as TB
+    args = _bounce_inputs(dev, dtype, n)
+    k = (1.4723, 1.00029, 1e-5, compat)
+    before = CK.counters.snapshot()
+    got = TB.bounce_cuda(*args, *k)
+    torch.cuda.synchronize()
+    want = TB.bounce_plain(*args, *k)
+    assert CK.counters.bounce_launches == before["bounce_launches"] + (n > 0)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(_bits(g), _bits(w))
+    if n > 100:
+        assert int(got[2].sum()) > n // 10
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    go, gd = (torch.randn(n, 3, generator=gen, dtype=dtype).to(dev)
+              for _ in range(2))
+    for cot_o in (None, go):
+        for need_o, need_d in ((True, True), (False, True), (True, False)):
+            g = TB.bounce_cuda_backward(*args[:3], got[2], cot_o, gd, *k,
+                                        need_origin=need_o,
+                                        need_direction=need_d)
+            w = TB.bounce_plain_backward(*args[:3], want[2], cot_o, gd, *k,
+                                         need_origin=need_o,
+                                         need_direction=need_d)
+            torch.cuda.synchronize()
+            for a, b in zip(g, w):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert torch.equal(_bits(a), _bits(b))
+    g = TB.bounce_cuda_backward(*args[:3], got[2], go, None, *k)
+    w = TB.bounce_plain_backward(*args[:3], want[2], go, None, *k)
+    for a, b in zip(g, w):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bounce_kernel_all_lanes_dead(dev, dtype):
+    """Every lane dead: parked rays, face id 0, zero gradients."""
+    import drt_tpu_torch.render.bounce as TB
+    args = _bounce_inputs(dev, dtype, 1000, dead=True)
+    k = (1.4723, 1.00029, 1e-5, False)
+    got = TB.bounce_cuda(*args, *k)
+    want = TB.bounce_plain(*args, *k)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+    assert not got[2].any() and not got[3].any()
+    assert torch.equal(got[0], args[6].expand(1000, 3))
+    gd = torch.ones(1000, 3, dtype=dtype, device=dev)
+    d_o, d_d, dg9 = TB.bounce_cuda_backward(*args[:3], got[2], gd, gd, *k)
+    assert not d_o.any() and not d_d.any() and not dg9.any()
+
+
+def _tail_inputs(dev, dtype, n, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    o = torch.randn(n, 3, generator=gen, dtype=dtype) * 5
+    d = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen,
+                                                  dtype=dtype), dim=1)
+    sp = torch.randn(n, 3, generator=gen, dtype=dtype) * 40
+    masks = [torch.rand(n, generator=gen) > p for p in (0.1, 0.3, 0.8)]
+    return [x.to(dev) for x in (o, d, sp, *masks)]
+
+
+@pytest.mark.parametrize("n", [1228800, 4099, 1, 0])
+@pytest.mark.parametrize("huber", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ray_tail_kernel_matches_plain(dev, dtype, huber, n):
+    """The loss (its fixed-order sum) and its gradient bit for bit with the
+    plain version on the card, twice for the same bits; a full view's
+    lanes, a batch that is no multiple of the block, one lane, none."""
+    import drt_tpu_torch.render.bounce as TB
+    args = _tail_inputs(dev, dtype, n)
+    before = CK.counters.ray_tail_launches
+    got = TB.ray_tail_cuda(*args, huber)
+    again = TB.ray_tail_cuda(*args, huber)
+    want = TB.ray_tail_plain(*args, huber)
+    torch.cuda.synchronize()
+    assert CK.counters.ray_tail_launches == before + 2
+    assert got.shape == () and got.dtype == dtype
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(again), _bits(want))
+    g = torch.full((), 0.75, dtype=dtype, device=dev)
+    d_k = TB.ray_tail_cuda_backward(*args, huber, g)
+    d_p = TB.ray_tail_plain_backward(*args, huber, g)
+    assert torch.equal(_bits(d_k), _bits(d_p))
+    if n > 1:
+        assert d_k.abs().sum() > 0
+
+
+def test_bounce_and_tail_functions_on_the_card_take_the_kernels(dev):
+    """The autograd Functions on CUDA tensors: one kernel launch each way,
+    and the plain versions never called."""
+    import drt_tpu_torch.render.bounce as TB
+    calls = []
+    saved = {name: getattr(TB, name) for name in (
+        "bounce_plain", "bounce_plain_backward", "ray_tail_plain",
+        "ray_tail_plain_backward")}
+
+    def spy(name):
+        def fn(*a, **k):
+            calls.append(name)
+            return saved[name](*a, **k)
+        return fn
+    for name in saved:
+        setattr(TB, name, spy(name))
+    try:
+        args = _bounce_inputs(dev, torch.float32, 4099)
+        leaves = [a.clone().requires_grad_(True) for a in args[:3]]
+        before = CK.counters.snapshot()
+        o, d, alive, _ = TB.bounce_chain(*leaves, *args[3:], 1.4723,
+                                         1.00029, 1e-5)
+        t = _tail_inputs(dev, torch.float32, 4099)
+        loss = TB.ray_tail(o, d, t[2], t[3], alive, t[5], 0.1)
+        loss.backward()
+        torch.cuda.synchronize()
+        after = CK.counters.snapshot()
+    finally:
+        for name, fn in saved.items():
+            setattr(TB, name, fn)
+    assert calls == []
+    assert after["bounce_launches"] - before["bounce_launches"] == 2
+    assert after["bounce_backward_launches"] \
+        - before["bounce_backward_launches"] == 1
+    assert after["ray_tail_launches"] - before["ray_tail_launches"] == 2
+    assert leaves[0].grad is None          # the exit origin is detached
+    assert leaves[1].grad.abs().sum() > 0 and leaves[2].grad.abs().sum() > 0
