@@ -16,12 +16,13 @@ The wrappers:
 - optimize/precondition.py: csrc/cg.cu, the Sobolev preconditioner's
   conjugate-gradient solve;
 - render/bounce.py: csrc/bounce.cu, a bounce's per-lane chain after its
-  oracle query and the ray loss's per-lane tail, forward and backward.
+  oracle query and the ray loss's per-lane tail, forward and backward;
+- spans.py: csrc/span.cu, the train step's device span markers.
 
 `counters` counts each kernel's launches; a wrapper adds one only where it
 launches its kernel (never on the plain version's path). A CUDA graph's
 replay adds the launches its capture recorded (optimize/loop.py
-`GraphedTrainStep`).
+`GraphedTrainStep`). The span markers are counted nowhere.
 """
 
 from __future__ import annotations
@@ -194,6 +195,9 @@ _ENTRIES = {
     "bounce_block": ([], _CI),
     "ray_tail_block": ([], _CI),
     "ray_tail_blocks": ([], _CI),
+    # span.cu
+    "span_mark_launch": ([_CI, _VP, ctypes.POINTER(_VP)], _CI),
+    "span_nodes_set_enabled": ([_VP, ctypes.POINTER(_VP), _CI, _CI], _CI),
     # errors.cu
     "drt_error_string": ([_CI], ctypes.c_char_p),
 }
@@ -226,6 +230,10 @@ _SIGNATURES = {
                           "loss partials counter stream",
     "ray_tail_backward_signature": "org dir sp lane_valid active exit_hit n "
                                    "f64 huber g d_dir stream",
+    "span_signature": "kind stream node",
+    # the markers' kinds, in the order of the `kind` argument (spans.py)
+    "span_kinds_signature": "step normals ray silhouette smooth backward "
+                            "update end",
 }
 
 

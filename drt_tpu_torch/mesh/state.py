@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from drt_tpu_torch import spans
 from drt_tpu_torch.geometry.normals import vertex_normals
 from drt_tpu_torch.mesh.topology import (
     MeshTopology, build_topology, mean_edge_length, morton_order_faces,
@@ -51,9 +52,19 @@ class MeshState:
 
     def with_vertices(self, vertices: torch.Tensor) -> "MeshState":
         """Swap vertices and recompute vertex normals (reference
-        `update_verticex`, DiffRender.py:378-384)."""
-        normals = vertex_normals(vertices, self.faces, self.face_valid)
+        `update_verticex`, DiffRender.py:378-384): the train step's
+        `normals` chain (drt_tpu_torch/spans.py)."""
+        normals = spans.chain_output("normals", vertex_normals(
+            spans.chain_input("normals", vertices), self.faces,
+            self.face_valid))
         return dataclasses.replace(self, vertices=vertices, normals=normals)
+
+    def chain(self, name: str) -> "MeshState":
+        """The same state with `vertices` behind a view that the train
+        step's chain `name` alone reads (spans.chain_input), so its
+        backward segment closes when its vertex gradient is complete."""
+        return dataclasses.replace(
+            self, vertices=spans.chain_input(name, self.vertices))
 
     def host_arrays(self) -> tuple[np.ndarray, np.ndarray]:
         """Unpadded (vertices [V,3] f64, faces [F,3] i64) on the host."""

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from drt_tpu_torch import kernels
+from drt_tpu_torch import kernels, spans
 from drt_tpu_torch.config import HyperParams
 from drt_tpu_torch.data.views import CaptureData
 from drt_tpu_torch.geometry.scatter import (deferred_bounds_check,
@@ -180,34 +180,52 @@ def make_train_step(intersect_fn: Callable, weights: LossWeights,
             w = w._replace(vh_w=w.vh_w if silh_view_idx else 0.0,
                            sm_w=0.0 if ray_mesh.rank else w.sm_w)
         p = state["params"].detach().requires_grad_(True)
-        if precond == "sobolev":
-            vert = sobolev_solve(p, mesh.neighbors, mesh.neighbor_valid,
-                                 precond_lambda, maxiter=cg_iters)
-        else:
-            vert = state["init_v"] + p
-        loss, aux = total_loss(mesh.with_vertices(vert), views,
-                               ray_view_idx, silh_view_idx, intersect_fn, w,
-                               resy, resx, silhouette_budget,
+        with spans.span("normals", p):
+            if precond == "sobolev":
+                vert = sobolev_solve(p, mesh.neighbors, mesh.neighbor_valid,
+                                     precond_lambda, maxiter=cg_iters)
+            else:
+                vert = state["init_v"] + p
+            mesh_v = mesh.with_vertices(vert)
+        loss, aux = total_loss(mesh_v, views, ray_view_idx, silh_view_idx,
+                               intersect_fn, w, resy, resx,
+                               silhouette_budget,
                                collect_evidence=collect_evidence,
                                ray_chunk=ray_chunk)
         if loss.requires_grad:
-            (g,) = torch.autograd.grad(loss, p)
+            with spans.span("backward", p):
+                (g,) = torch.autograd.grad(loss, p)
         else:                      # every weight of w is zero
             g = torch.zeros_like(p)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, g
 
     def step(state, lr, mesh: MeshState, views, ray_view_idx,
              silh_view_idx):
+        with spans.step_span(state["params"]):
+            if precond == "h1":
+                # Split gradients: the ray term (evidence-preconditioned)
+                # against the regularizers (vh + sm). A zero weight skips
+                # its term, so the two passes make the oracle queries of
+                # one.
+                grads = (
+                    loss_and_grad(state, mesh, views, ray_view_idx,
+                                  silh_view_idx,
+                                  weights._replace(vh_w=0.0, sm_w=0.0),
+                                  collect_evidence=True),
+                    loss_and_grad(state, mesh, views, ray_view_idx,
+                                  silh_view_idx,
+                                  weights._replace(ray_w=0.0)))
+            else:
+                grads = (loss_and_grad(state, mesh, views, ray_view_idx,
+                                       silh_view_idx, weights),)
+            with spans.span("update", state["params"]):
+                return update(state, lr, mesh, grads)
+
+    def update(state, lr, mesh, grads):
+        """The step after its gradient: the preconditioner, the limit hook
+        and the optimizer; `grads` holds loss_and_grad's results."""
         if precond == "h1":
-            # Split gradients: the ray term (evidence-preconditioned)
-            # against the regularizers (vh + sm). A zero weight skips its
-            # term, so the two passes make the oracle queries of one.
-            l_ray, aux, g_ray = loss_and_grad(
-                state, mesh, views, ray_view_idx, silh_view_idx,
-                weights._replace(vh_w=0.0, sm_w=0.0), collect_evidence=True)
-            l_reg, aux_reg, g_reg = loss_and_grad(
-                state, mesh, views, ray_view_idx, silh_view_idx,
-                weights._replace(ray_w=0.0))
+            (l_ray, aux, g_ray), (l_reg, aux_reg, g_reg) = grads
             ev = aux.pop("vertex_evidence")     # float32 counts
             aux.update({k: aux_reg[k] for k in ("vh", "sm", "silh_edge_max")})
             if ray_mesh is not None:
@@ -232,8 +250,7 @@ def make_train_step(intersect_fn: Callable, weights: LossWeights,
             loss = l_ray + l_reg
             aux["evidence_mean"] = c_bar
         else:
-            loss, aux, g = loss_and_grad(state, mesh, views, ray_view_idx,
-                                         silh_view_idx, weights)
+            ((loss, aux, g),) = grads
             if ray_mesh is not None:
                 loss, g = _reduce_over_ranks(ray_mesh, aux, loss, g)
         g = limit_grad(g, clamp)
@@ -318,6 +335,14 @@ class GraphedTrainStep:
     adds to `kernels.counters` the launches its capture recorded, so the
     counts read as the eager steps' would.
 
+    The step's device spans (drt_tpu_torch/spans.py): the capture records
+    their markers and keeps their graph nodes (`markers`), which are
+    disabled right after `instantiate`. Each call compares whether a torch
+    profiler records with the markers' state and, where they differ,
+    switches every marker node on or off in one native call, with no new
+    capture; a profiled call also runs inside a host range named
+    `train_step`.
+
     Inside the wrapper every scatter ORs its out-of-range flag into
     `bounds_word` and reads nothing; the owner reads the word once, after
     `close()` (`optimize` reads it with the silhouette-edge maximum) and
@@ -367,17 +392,20 @@ class GraphedTrainStep:
         self._graph = None
         self._out = None
         self._replay_launches = None
+        self.markers = []
+        self._markers_on = False
         self.setup = {"warmup_s": 0.0}
 
     def _body(self):
-        ray = self._ray_idx.index_select(0, self._it)[0]
-        silh = self._silh_idx.index_select(0, self._it)[0]
-        new, loss, aux = self._step(self.state, self.lr, self._mesh,
-                                    self._views, ray, silh)
-        self._it.add_(1)
-        for k, v in new.items():
-            if v is not self.state[k]:
-                self.state[k].copy_(v)
+        with spans.step_span(self.lr):
+            ray = self._ray_idx.index_select(0, self._it)[0]
+            silh = self._silh_idx.index_select(0, self._it)[0]
+            new, loss, aux = self._step(self.state, self.lr, self._mesh,
+                                        self._views, ray, silh)
+            self._it.add_(1)
+            for k, v in new.items():
+                if v is not self.state[k]:
+                    self.state[k].copy_(v)
         return loss, aux
 
     def _capture(self):
@@ -388,11 +416,14 @@ class GraphedTrainStep:
         before = kernels.counters.snapshot()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self._stream):
+        with spans.capturing() as markers, \
+                torch.cuda.graph(graph, stream=self._stream):
             self._out = self._body()
         t1 = time.perf_counter()
         graph.instantiate()
+        spans.set_enabled(graph, markers, False)
         t2 = time.perf_counter()
+        self.markers, self._markers_on = markers, False
         after = kernels.counters.snapshot()
         # the capture recorded these launches and ran none of them
         self._replay_launches = {k: after[k] - before[k] for k in after}
@@ -410,6 +441,12 @@ class GraphedTrainStep:
         if self._calls < 0:
             raise RuntimeError("GraphedTrainStep: closed")
         self._calls += 1
+        if spans.recording():
+            with torch.profiler.record_function("train_step"):
+                return self._call()
+        return self._call()
+
+    def _call(self):
         cur = torch.cuda.current_stream(self.lr.device)
         self._stream.wait_stream(cur)
         with torch.cuda.stream(self._stream):
@@ -422,6 +459,10 @@ class GraphedTrainStep:
                 if self._graph is None:
                     with deferred_bounds_check(self.bounds_word):
                         self._capture()
+                on = spans.recording()
+                if on != self._markers_on:
+                    spans.set_enabled(self._graph, self.markers, on)
+                    self._markers_on = on
                 self._graph.replay()
                 kernels.counters.add(self._replay_launches)
                 out = self._out

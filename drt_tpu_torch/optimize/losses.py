@@ -18,6 +18,7 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
+from drt_tpu_torch import spans
 from drt_tpu_torch.geometry.metrics import dihedral_cos
 from drt_tpu_torch.geometry.scatter import scatter_rows
 from drt_tpu_torch.geometry.vec import clip
@@ -141,37 +142,52 @@ def total_loss(mesh, views, ray_view_idx, silh_view_idx: Sequence[int],
     averaged; silh_view_idx a sequence of ints (the reference uses 8).
     Either may be an int64 tensor of indices on the views' device instead,
     read on the device (`ViewBatch.take`), as a CUDA graph of the step
-    selects its views. Returns (total, aux)."""
+    selects its views. Returns (total, aux).
+
+    Each term is a chain of the step's spans (drt_tpu_torch/spans.py),
+    forward and backward; each reads the vertices through a view of its
+    own (`MeshState.chain`)."""
     zero = mesh.vertices.new_zeros(())
+    at = mesh.vertices
     if weights.ray_w:
-        rls, trace_stats = [], {}
-        for i in _view_indices(ray_view_idx):
-            rl_i, st = ray_loss(mesh, views.take(i), intersect_fn,
-                                weights.ior, weights.ext_ior,
-                                collect_evidence=collect_evidence,
-                                huber=weights.huber, ray_chunk=ray_chunk,
-                                compat=weights.compat)
-            rls.append(rl_i)
-            for k, v in st.items():
-                trace_stats[k] = v if k not in trace_stats \
-                    else trace_stats[k] + v
-        rl = torch.stack(rls).mean()
+        with spans.span("ray", at):
+            chain = mesh.chain("ray")
+            rls, trace_stats = [], {}
+            for i in _view_indices(ray_view_idx):
+                rl_i, st = ray_loss(chain, views.take(i), intersect_fn,
+                                    weights.ior, weights.ext_ior,
+                                    collect_evidence=collect_evidence,
+                                    huber=weights.huber,
+                                    ray_chunk=ray_chunk,
+                                    compat=weights.compat)
+                rls.append(rl_i)
+                for k, v in st.items():
+                    trace_stats[k] = v if k not in trace_stats \
+                        else trace_stats[k] + v
+            rl = spans.chain_output("ray", torch.stack(rls).mean())
     else:
         rl, trace_stats = zero, {}
 
     if weights.vh_w:
-        vhs, counts = zip(*(silhouette_loss(
-            mesh, views.take(i, rays=False), intersect_fn,
-            silhouette_budget, resy, resx,
-            bilinear_mask=weights.bilinear_mask)
-            for i in _view_indices(silh_view_idx)))
-        vh = torch.stack(vhs).sum()
-        silh_edge_max = torch.stack(counts).max()
+        with spans.span("silhouette", at):
+            chain = mesh.chain("silhouette")
+            vhs, counts = zip(*(silhouette_loss(
+                chain, views.take(i, rays=False), intersect_fn,
+                silhouette_budget, resy, resx,
+                bilinear_mask=weights.bilinear_mask)
+                for i in _view_indices(silh_view_idx)))
+            vh = spans.chain_output("silhouette", torch.stack(vhs).sum())
+            silh_edge_max = torch.stack(counts).max()
     else:
         vh, silh_edge_max = zero, torch.zeros((), dtype=torch.int64,
                                               device=zero.device)
 
-    sm = smooth_loss(mesh) if weights.sm_w else zero
+    if weights.sm_w:
+        with spans.span("smooth", at):
+            sm = spans.chain_output("smooth",
+                                    smooth_loss(mesh.chain("smooth")))
+    else:
+        sm = zero
 
     total = (weights.ray_w * 217.5 / resy / resy * rl
              + weights.vh_w * 217.5 / resy * vh

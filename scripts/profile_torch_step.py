@@ -36,25 +36,20 @@ forward, queries included) and `torch.autograd.grad` (the backward), the
 rest being the normals, the update and Python.
 
 Then the step's device time by range (`range_breakdown`), for an eager step
-and for a replay of its CUDA graph: the ray view's oracle queries, the
-bounce 1 and bounce 2 chains (everything of `render.trace._bounce` after
-its query: gather, re-intersection, refraction, masks, parking), the ray
-loss's tail (`ray_loss` outside its trace and queries), the silhouette
-views (their queries apart), the smoothness term, the normals
-(`MeshState.with_vertices`) and the rest, each forward and backward. The
-ranges are `record_function`s put around those functions of whichever
-tree is imported, so the script reads a parent tree's step as well as
-this one's (copy it into the unpacked tree and run it there). A backward
-operation belongs to the range of the forward operation that made its
-autograd node (the profiler's sequence numbers). A replay has no host
-ranges: its device operations are matched to the eager step's by kernel
-name in order (difflib), and what matches nothing counts to "unmatched".
-`--ranges PATH` writes both tables into PATH under "runs", keyed by
-`--label` and the optimizer pair; `--only-ranges` skips everything else.
+and for a replay of its CUDA graph, read from the program's own device
+spans (drt_tpu_torch/spans.py, reduced by port_bench/spans.py; a profiler
+that records switches them on in both): each operation under the
+innermost span open at its start, a chain's backward segment as
+"<chain> (backward)", the oracle's kernels as "oracle: <span>", the
+markers apart. For the eager step also the share of the backward's device
+time that the spans put in the same chain as the profiler's sequence
+numbers do (`backward_agreement`), and the span, torch operation and
+input shapes of each GEMM kernel (`launchers`). `--ranges PATH` writes
+both tables into PATH under "runs", keyed by `--label` and the optimizer
+pair; `--only-ranges` skips everything else.
 """
 
 import argparse
-import contextlib
 import os
 import statistics
 import subprocess
@@ -257,129 +252,163 @@ def main():
                     smi.stdout.strip())
 
 
-RANGES = ("oracle: ray view", "bounce 1 chain", "bounce 2 chain",
-          "ray-loss tail", "oracle: silhouette views", "silhouette views",
-          "smoothness", "normals")
-
-
-@contextlib.contextmanager
-def step_ranges():
-    """For the duration, the step's parts run inside `record_function`
-    ranges named as RANGES, by patching the functions of the imported
-    tree. Yields the oracle wrapper to hand to make_train_step."""
-    from torch.profiler import record_function
-    from drt_tpu_torch.intersect.api import get_intersect_fn
-    from drt_tpu_torch.mesh import state as mesh_state
-    from drt_tpu_torch.optimize import losses
-    from drt_tpu_torch.render import trace
-    base = get_intersect_fn("auto")
-    top = []                          # the loss term being evaluated
-    bounces = [0]
-
-    def ranged(name, fn, outer=False):
-        def wrapper(*a, **k):
-            with record_function(name() if callable(name) else name):
-                if outer:
-                    top.append(name)
-                try:
-                    return fn(*a, **k)
-                finally:
-                    if outer:
-                        top.pop()
-        return wrapper
-
-    def bounce_name():
-        bounces[0] += 1
-        return f"bounce {2 - bounces[0] % 2} chain"
-
-    def oracle_name():
-        return ("oracle: silhouette views" if top[-1:] == ["silhouette views"]
-                else "oracle: ray view")
-    saved = [(losses, "ray_loss"), (losses, "silhouette_loss"),
-             (losses, "smooth_loss"), (trace, "_bounce"),
-             (mesh_state.MeshState, "with_vertices")]
-    saved = [(m, a, getattr(m, a)) for m, a in saved]
-    losses.ray_loss = ranged("ray-loss tail", losses.ray_loss, True)
-    losses.silhouette_loss = ranged("silhouette views",
-                                    losses.silhouette_loss, True)
-    losses.smooth_loss = ranged("smoothness", losses.smooth_loss)
-    trace._bounce = ranged(bounce_name, trace._bounce)
-    mesh_state.MeshState.with_vertices = ranged(
-        "normals", mesh_state.MeshState.with_vertices)
-    try:
-        yield ranged(oracle_name, base)
-    finally:
-        for m, a, f in saved:
-            setattr(m, a, f)
-
-
-def device_ops(prof):
-    """The profile's device operations in start order, as (name, us,
-    correlation id), from kineto's own events (user annotations left
-    out)."""
+def device_rows(prof):
+    """The profile's device operations in start order, as (name, start us,
+    end us, correlation id), from kineto's own events (user annotations
+    left out)."""
     import torch
     dev_t = torch.autograd.DeviceType.CUDA
-    ops = sorted((k.start_ns(), k.name(), k.duration_ns() / 1e3,
-                  k.correlation_id())
-                 for k in prof.profiler.kineto_results.events()
-                 if k.device_type() == dev_t and not k.is_user_annotation())
-    return [op[1:] for op in ops]
+    rows = sorted((k.start_ns() / 1e3, k.name(),
+                   (k.start_ns() + k.duration_ns()) / 1e3,
+                   k.correlation_id())
+                  for k in prof.profiler.kineto_results.events()
+                  if k.device_type() == dev_t and not k.is_user_annotation())
+    return [(name, s, e, corr) for s, name, e, corr in rows]
+
+
+CHAINS = ("normals", "ray", "silhouette", "smooth")
+
+
+def span_label(open_spans, name):
+    """A device operation's range from the spans open at its start: the
+    innermost, " (backward)" added to a chain's backward segment,
+    "oracle: " before the oracle's kernels."""
+    from port_bench.spans import ORACLE
+    from port_bench.tracing import kernel_of
+    if not open_spans:
+        return "outside the spans"
+    label = open_spans[-1]
+    if label in CHAINS and "backward" in open_spans:
+        label += " (backward)"
+    return ("oracle: " + label if kernel_of(name) in ORACLE else label)
 
 
 def label_ops(prof):
-    """The profile's device operations in start order, each with its range
-    (`label_by_host_time`, from the CUDA runtime call of the same
-    correlation id that launched it). Returns (range, name, us) rows."""
+    """(range, name, us) of each device operation of a profile, by the
+    program's span markers (port_bench/spans.py); the markers themselves
+    under "markers"."""
+    from port_bench import spans as PS
+    rows = device_rows(prof)
+    ops, _ = PS.walk([(n, s, e) for n, s, e, _ in rows])
+    out = [(span_label(open_, name), name, e - s) for open_, name, s, e in ops]
+    out += [("markers", n, e - s) for n, s, e, _ in rows
+            if PS.marker(n) is not None]
+    return out
+
+
+def backward_agreement(prof):
+    """Of the device time inside `backward`, the share that the spans put
+    in the same chain (or in none) as the profiler's sequence numbers do:
+    a backward operation belongs to the chain whose forward span (on the
+    host, between its markers' launches) held the forward operation that
+    made its autograd node. By host time: the kernels' own launches
+    (ctypes) run inside no torch operation. An operation that the engine
+    launches between nodes (the sums into a node's input buffer) belongs
+    to the node that ran last before it; cuBLAS launches through the
+    driver API ("cu..." calls)."""
+    import bisect
     import torch
+    from port_bench import spans as PS
+    from port_bench.tracing import kernel_of
     dev_t = torch.autograd.DeviceType.CUDA
     host = [k for k in prof.profiler.kineto_results.events()
             if k.device_type() != dev_t]
     launch_at = {k.correlation_id(): k.start_ns() for k in host
-                 if k.name().startswith("cuda")}
-    return label_by_host_time(host, [(name, us, launch_at.get(corr))
-                                     for name, us, corr in device_ops(prof)])
-
-
-def label_by_host_time(host, ops):
-    """Label each (name, us, host time of its launch) of `ops` by the host
-    events around its launch: inside a RANGES range (forward: the
-    innermost) or inside an autograd node (backward: the range of the
-    forward operation that made the node, by its sequence number,
-    " (backward)" added); "rest" otherwise. By host time alone: the
-    kernels' own launches (ctypes) run inside no torch operation."""
-    import bisect
-    ranges = sorted((k.start_ns(), k.end_ns(), k.name()) for k in host
-                    if k.name() in RANGES)
-    nodes = sorted((k.start_ns(), k.end_ns(), k.sequence_nr()) for k in host
-                   if k.scope() == 1 and k.sequence_nr() >= 0)
-    starts = ([r[0] for r in ranges], [n[0] for n in nodes])
+                 if k.name().startswith("cu")}
+    rows = device_rows(prof)
+    # the forward chains' and the backward's spans on the host, from their
+    # markers' launches
+    stack, fwd, bwd = [], [], []
+    for name, _, _, corr in rows:
+        kind = PS.marker(name)
+        if kind is None or corr not in launch_at:
+            continue
+        if kind != PS.END:
+            stack.append((kind, launch_at[corr]))
+        elif stack:
+            kind, t0 = stack.pop()
+            if kind == "backward":
+                bwd.append((t0, launch_at[corr]))
+            elif kind in CHAINS and all(n != "backward" for n, _ in stack):
+                fwd.append((t0, launch_at[corr], kind))
+    fwd.sort()
+    nodes = sorted((k.start_ns(), k.end_ns(), k.sequence_nr(), k.name())
+                   for k in host if k.scope() == 1 and k.sequence_nr() >= 0)
+    starts = ([f[0] for f in fwd], [n[0] for n in nodes])
 
     def innermost(spans, first, t):
-        """The span that holds t and started last, or None."""
         for span in reversed(spans[:bisect.bisect_right(first, t)]):
             if span[1] >= t:
                 return span
         return None
+
+    def node_of(t):
+        """The autograd node running at host time t, else the last one
+        that ended before it."""
+        before = nodes[:bisect.bisect_right(starts[1], t)]
+        for node in reversed(before):
+            if node[1] >= t:
+                return node
+        return max(before, key=lambda n: n[1], default=None)
     # An operation records the sequence number the next autograd node will
     # take; the one that makes the node records it last, so the latest
-    # forward operation of a number names the node's range.
-    seq_range = {}
+    # forward operation of a number names the node's chain.
+    seq_chain = {}
     for k in sorted(host, key=lambda k: k.start_ns()):
-        if k.sequence_nr() >= 0 and k.scope() != 1:
-            span = innermost(ranges, starts[0], k.start_ns())
-            if span is not None:
-                seq_range[k.sequence_nr()] = span[2]
-    out = []
-    for name, us, t in ops:
-        label = "rest"
-        if t is not None:
-            span = innermost(ranges, starts[0], t)
-            node = innermost(nodes, starts[1], t)
-            if node is not None and (span is None or node[0] > span[0]):
-                label = seq_range.get(node[2], "rest") + " (backward)"
-            elif span is not None:
-                label = span[2]
-        out.append((label, name, us))
+        t = k.start_ns()
+        if (k.sequence_nr() >= 0 and k.scope() != 1
+                and not any(a <= t <= b for a, b in bwd)):
+            span = innermost(fwd, starts[0], t)
+            seq_chain[k.sequence_nr()] = span[2] if span else None
+    ops, _ = PS.walk([(n, s, e) for n, s, e, _ in rows])
+    corr_of = {(n, s): c for n, s, _, c in rows}
+    agree = total = 0.0
+    apart = {}
+    for open_, name, s, e in ops:
+        if "backward" not in open_:
+            continue
+        t = launch_at.get(corr_of[(name, s)])
+        node = None if t is None else node_of(t)
+        by_seq = None if node is None else seq_chain.get(node[2], "unknown")
+        by_span = open_[-1] if open_[-1] in CHAINS else None
+        total += e - s
+        if by_seq == by_span:
+            agree += e - s
+        else:
+            key = (f"span {by_span}, sequence {by_seq}: {kernel_of(name)} "
+                   f"in {node[3] if node else 'no node'}"
+                   + ("" if t is not None else " (launch not seen)"))
+            apart[key] = apart.get(key, 0.0) + (e - s) / 1e3
+    return {"backward_device_ms": total / 1e3,
+            "agreement": agree / total if total else None,
+            "apart_ms": dict(sorted(apart.items(),
+                                    key=lambda kv: -kv[1])[:12])}
+
+
+def launchers(prof, patterns=("gemm", "Kernel2")):
+    """Device ms and calls of the kernels whose names hold one of
+    `patterns`, by the span each ran in and the torch operation that
+    launched it with its input shapes (the profile records shapes)."""
+    import torch
+    from port_bench import spans as PS
+    from port_bench.tracing import kernel_of
+    dev_t = torch.autograd.DeviceType.CUDA
+    ops, _ = PS.walk([(n, s, e) for n, s, e, _ in device_rows(prof)])
+    label = {(name, s): span_label(open_, name) for open_, name, s, e in ops}
+    frontend = {fe.id: fe for fe in prof.events()
+                if fe.device_type != dev_t}
+    out = {}
+    for k in prof.profiler.kineto_results.events():
+        if (k.device_type() != dev_t or k.is_user_annotation()
+                or not any(p in k.name() for p in patterns)):
+            continue
+        fe = frontend.get(k.linked_correlation_id())
+        op = "?" if fe is None else f"{fe.name} {fe.input_shapes}"
+        where = label.get((k.name(), k.start_ns() / 1e3), "?")
+        key = f"{kernel_of(k.name())[:40]} | {where} | {op}"
+        row = out.setdefault(key, {"ms": 0.0, "calls": 0})
+        row["ms"] += k.duration_ns() / 1e6
+        row["calls"] += 1
     return out
 
 
@@ -401,57 +430,53 @@ def table(labelled):
 
 def range_breakdown(args, step_kw, lr, weights, res, budget, ms, cap, silh,
                     device):
-    """The step's device time and operations by range, eager and replayed
+    """The step's device time and operations by span, eager and replayed
     (see the module docstring), printed and written to --ranges."""
-    import difflib
     import torch
     from torch.profiler import ProfilerActivity, profile
     import drt_tpu_torch.optimize.loop as loop
+    from drt_tpu_torch.intersect.api import get_intersect_fn
     dev = ms.vertices.device
     ray = [[i % args.views] for i in range(3)]
-    with step_ranges() as oracle:
-        init, step, _ = loop.make_train_step(oracle, weights, *res, budget,
-                                             **step_kw)
-        state = init(ms)
-        step(state, lr, ms, cap.views, 0, silh)          # warm-up
-        run = loop.GraphedTrainStep(step, init(ms), lr, ms, cap.views,
-                                    torch.tensor(ray, device=dev),
-                                    torch.tensor([silh] * 3, device=dev))
-        for _ in range(2):                  # the warm-up, the capture
-            run()
-        torch.cuda.synchronize()
-        profiles = {}
-        for kind in ("eager", "replay"):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                if kind == "eager":
-                    step(state, lr, ms, cap.views, 0, silh)
-                else:
-                    run()
-                torch.cuda.synchronize()
-            profiles[kind] = prof
-        run.close()
-    eager = label_ops(profiles["eager"])
-    replay = [(n, us) for n, us, _ in device_ops(profiles["replay"])]
-    matcher = difflib.SequenceMatcher(None, [n for _, n, _ in eager],
-                                      [n for n, _ in replay], autojunk=False)
-    labels = ["unmatched"] * len(replay)
-    for blk in matcher.get_matching_blocks():
-        for k in range(blk.size):
-            labels[blk.b + k] = eager[blk.a + k][0]
-    replayed = [(lab, n, us) for lab, (n, us) in zip(labels, replay)]
-    out = {"device": device, "script": "scripts/profile_torch_step.py",
-           "tree": args.label, "eager": table(eager),
-           "replay": table(replayed),
-           "eager_device_ops": len(eager), "replay_device_ops": len(replay),
-           "eager_device_busy_ms": sum(us for *_, us in eager) / 1e3,
-           "replay_device_busy_ms": sum(us for _, us in replay) / 1e3}
+    init, step, _ = loop.make_train_step(get_intersect_fn("auto"), weights,
+                                         *res, budget, **step_kw)
+    state = init(ms)
+    step(state, lr, ms, cap.views, 0, silh)              # warm-up
+    run = loop.GraphedTrainStep(step, init(ms), lr, ms, cap.views,
+                                torch.tensor(ray, device=dev),
+                                torch.tensor([silh] * 3, device=dev))
+    for _ in range(2):                      # the warm-up, the capture
+        run()
+    torch.cuda.synchronize()
+    profiles = {}
     for kind in ("eager", "replay"):
-        print(f"by range, {kind} step ({out[kind + '_device_ops']} device "
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=kind == "eager") as prof:
+            if kind == "eager":
+                step(state, lr, ms, cap.views, 0, silh)
+            else:
+                run()
+            torch.cuda.synchronize()
+        profiles[kind] = prof
+    run.close()
+    out = {"device": device, "script": "scripts/profile_torch_step.py",
+           "tree": args.label}
+    for kind, prof in profiles.items():
+        labelled = label_ops(prof)
+        out[kind] = table(labelled)
+        out[kind + "_device_ops"] = len(labelled)
+        out[kind + "_device_busy_ms"] = sum(us for *_, us in labelled) / 1e3
+    out["backward"] = backward_agreement(profiles["eager"])
+    out["launchers"] = launchers(profiles["eager"])
+    for kind in ("eager", "replay"):
+        print(f"by span, {kind} step ({out[kind + '_device_ops']} device "
               f"operations, {out[kind + '_device_busy_ms']:.3f} ms busy):")
         for name, row in out[kind].items():
             print(f"  {name:40s} {row['device_ms']:8.3f} ms "
                   f"{row['device_ops']:5d} ops")
+    print(f"backward: {out['backward']}")
+    for key, row in out["launchers"].items():
+        print(f"launcher: {key}: {row}")
     if args.ranges:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         from ab_torch_step import record
