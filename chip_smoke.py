@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-1. build   the six sources' kernels (closest hit; candidate prepass with
-           its sort; the packing stages; the row scatter-add of the step's
+1. build   the seven sources' kernels (closest hit; candidate prepass with
+           its sort; the packing stages; the one-origin query's ray order;
+           the row scatter-add of the step's
            vertex gathers, its cluster route's one kernel and its grid
            route's three; the Sobolev preconditioner's CG solve; a
            bounce's chain and the ray-loss tail, forward and backward) from
@@ -252,11 +253,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
            checkpointed chunk 6 and 3; the synthesis and `render` 2 bounce
            launches a view): phases 5, 6, 7, 9, 10, 11 and 13, the kernels
            line's launches by path.
+16. order  the one-origin route (the silhouette sampler's queries sorted
+           along the screen: csrc/order.cu, the order read by csrc/pack.cu
+           and written through by csrc/closest_hit.cu) on 8 silhouette
+           views of dog_mid20k, dog_mid45k and dog_mid90k at their budgets
+           (`silhouette_queries`: the ring of 72 around dog_mid90k at
+           1280x960): the order kernel against `ray_order_plain` on the
+           CPU, the packing, prepass and closest-hit kernels on the route's
+           inputs against their plain versions, bit for bit; the route's
+           hit and t against the parent's route (the rays as separate rows)
+           bit for bit, a tri_id differing only at one t, and each mesh's
+           first view against the brute oracle; then 3 replays of the
+           parity step (sgd + none) on dog_mid45k as one CUDA graph with the
+           route and with the parent's route: loss and state bit for bit,
+           and 8 one-origin queries a replay against 0.
 Then it prints the timings, a JSON line of phase 10's times, a JSON line of
-phase 11's, one of phase 12's, one of phase 13's, a JSON line with the
-kernels' numbers (with their times at each group on phase 12's bounce-2
-query), the card's name and power limit, and as its last line
-{"ok": true, "device": {...}}.
+phase 11's, one of phase 12's, one of phase 13's, one of phase 16's, a JSON
+line with the kernels' numbers (with their times at each group on phase
+12's bounce-2 query), the card's name and power limit, and as its last
+line {"ok": true, "device": {...}}.
 
 The scatter kernel also runs in phases 3, 6, 7, 9, 10 and 11 (every
 vertex gradient on the card); phase 9 prints its launches. The CG kernel
@@ -284,12 +299,13 @@ MESH_DIR = os.path.join(HERE, "reports", "tuning_meshes")
 FP32_PEAK = 67e12                 # H100 SXM FP32 non-tensor FLOP/s
 HBM_RATE = 3.35e12                # H100 SXM HBM3 bytes/s
 TIE_PER_1024 = 2
-# The entry functions of the six sources: closest_hit.cu, candidates.cu,
-# pack.cu, scatter.cu (its cluster route's one kernel; its grid route's
-# upfront, pass and reduce kernels), cg.cu (its global and shared routes'
-# kernels) and bounce.cu (a bounce's chain and the ray-loss tail, forward
-# and backward).
+# The entry functions of the seven sources: closest_hit.cu, candidates.cu,
+# pack.cu, order.cu, scatter.cu (its cluster route's one kernel; its grid
+# route's upfront, pass and reduce kernels), cg.cu (its global and shared
+# routes' kernels) and bounce.cu (a bounce's chain and the ray-loss tail,
+# forward and backward).
 BUILT_KERNELS = ("closest_hit_kernel", "candidates_kernel", "pack_kernel",
+                 "ray_order_kernel",
                  "scatter_cluster_kernel", "scatter_upfront_kernel",
                  "scatter_pass_kernel", "scatter_reduce_kernel", "cg_kernel",
                  "cg_shared_kernel", "bounce_fwd_kernel", "bounce_bwd_kernel",
@@ -2779,6 +2795,200 @@ def ray_tail_bound(args, backward=False):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+# The silhouette views the one-origin route's checks take: 8 of the ring of
+# 72 around dog_mid90k (the benchmark's rig), one every 9.
+ORDER_VIEWS = tuple(range(0, 72, 9))
+
+
+def silhouette_queries(meshes, res, views=ORDER_VIEWS):
+    """{name: (mesh state, budget, [(view, origins, dirs)])} for `meshes`
+    {name: mesh state}: each view's silhouette query as the sampler makes it
+    (the camera's origin expanded over the rays, so the oracle takes its
+    one-origin route), from the ring of 72 cameras around dog_mid90k at
+    `res`, at the step's budget for the mesh."""
+    import numpy as np
+    import torch
+    from drt_tpu_torch.data.synthetic import intrinsics, ring_cameras
+    from drt_tpu_torch.intersect.api import Hits
+    from drt_tpu_torch.mesh import load_ply
+    from drt_tpu_torch.optimize import default_silhouette_budget
+    from drt_tpu_torch.render.camera import CameraM
+    from drt_tpu_torch.render.silhouette import primary_visibility
+    ring = ring_cameras(load_ply(os.path.join(MESH_DIR, "dog_mid90k.ply"))[0],
+                        72)
+    K = intrinsics(*res)
+    out = {}
+    for name, ms in meshes.items():
+        dev = ms.vertices.device
+        budget = default_silhouette_budget(ms.num_edges)
+        queries = []
+        for view in views:
+            R = ring[view][0]
+            cam = CameraM(*(torch.as_tensor(a, dtype=torch.float32,
+                                            device=dev)
+                            for a in (R, K, np.linalg.inv(R),
+                                      np.linalg.inv(K))))
+            asked = []
+
+            def record(o, d, *_, coherent):
+                asked.append((o.detach(), d.detach()))
+                n = o.shape[0]
+                return Hits(torch.full((n,), float("inf"), device=dev),
+                            torch.full((n,), -1, dtype=torch.int32,
+                                       device=dev))
+            with torch.no_grad():
+                primary_visibility(ms, cam, cam.R_inv[:3, 3].contiguous(),
+                                   record, budget, *res)
+            queries.append((view, *asked[0]))
+        out[name] = (ms, budget, queries)
+    return out
+
+
+def parent_route_oracle():
+    """The "cuda" backend as the parent ran the silhouette queries: a
+    one-origin query's rays as separate rows (so no order), with the shift
+    of its one-origin tensor; every other query as it is."""
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    from drt_tpu_torch.intersect.api import get_intersect_fn, one_origin
+    base = get_intersect_fn("cuda")
+
+    def fn(origins, dirs, vertices, faces, face_valid=None, *, coherent):
+        if coherent or not one_origin(origins):
+            return base(origins, dirs, vertices, faces, face_valid,
+                        coherent=coherent)
+        o = origins.detach()
+        return CK.intersect_cuda(o.contiguous(), dirs.detach(),
+                                 vertices.detach(), faces, face_valid,
+                                 coherent=False, shift=o.float().mean(dim=0))
+    return fn
+
+
+def order_phase(res, hp, weights, budget, mesh45, cap, meshes):
+    """Phase 16: the one-origin route (csrc/order.cu, and the order read by
+    csrc/pack.cu and written through by csrc/closest_hit.cu) on the
+    silhouette queries of `meshes` {name: mesh state} at their budgets
+    (`silhouette_queries`): the order kernel against `ray_order_plain` on
+    the CPU, the packing, prepass and closest-hit kernels against their
+    plain versions on the route's inputs (bit for bit), the route's hits
+    against the parent's route (`hit` and t bit for bit, tri_id differing
+    only at one t) and, on each mesh's first view, against the brute
+    oracle; then a parity step (sgd + none) on dog_mid45k as one CUDA graph,
+    3 replays with the route against 3 with the parent's route: loss and
+    state bit for bit, and `one_origin_queries` 8 a replay against 0.
+    Returns the phase's numbers."""
+    import torch
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.intersect.brute import intersect_brute
+    from drt_tpu_torch.optimize import make_train_step
+    from drt_tpu_torch.optimize.loop import GraphedTrainStep
+    t_phase = time.time()
+    out = {"meshes": {}}
+    for name, (ms, bud, queries) in silhouette_queries(meshes, res).items():
+        geom = (ms.vertices, ms.faces, ms.face_valid)
+        row = {"budget": bud, "views": [], "tri_id_differ": 0,
+               "t_differ": 0}
+        for k, (view, o, d) in enumerate(queries):
+            label = f"order: {name} view {view}"
+            inp = CK.prepare_inputs(o, d, *geom, coherent=False)
+            N, Np = o.shape[0], inp.phi.shape[1]
+            want = CK.ray_order_plain(d.cpu(), Np)
+            if not torch.equal(inp.order.cpu(), want):
+                fail(f"{label}: the order kernel differs from "
+                     "ray_order_plain")
+            shift = o.float().mean(dim=0)
+            kw = dict(group=inp.group, ray_tile=CK.RAY_TILE_ONE_ORIGIN,
+                      order=inp.order)
+            got = CK.pack_cuda(*geom, shift, o, d, **kw)
+            plain = CK.pack_plain(*geom, shift, o, d, **kw)
+            bad = [f for f in CK.Packed._fields
+                   if not same_bits(getattr(got, f), getattr(plain, f))
+                   or (f in ("phi", "inv")
+                       and not same_bits(getattr(got, f), getattr(inp, f)))]
+            if bad:
+                fail(f"{label}: the packing kernel differs from pack_plain "
+                     f"or from the query's inputs in {bad}")
+            check_prepass(label, o, geom, inp, False, timed=False)
+            t_k, id_k = CK.closest_hit_cuda(inp)
+            t_p, id_p = CK.closest_hit_plain(inp)
+            if not (same_bits(t_k, t_p) and torch.equal(id_k, id_p)):
+                fail(f"{label}: the closest-hit kernel differs from its "
+                     "plain version through the order")
+            h = CK.intersect_cuda(o, d, *geom, coherent=False)
+            ref = CK.intersect_cuda(o.contiguous(), d, *geom, coherent=False,
+                                    shift=shift)
+            if not torch.equal(h.hit, ref.hit):
+                fail(f"{label}: the route's hit differs from the parent "
+                     "route's")
+            differ = h.tri_id != ref.tri_id
+            t_differ = int((h.t != ref.t).sum())
+            if t_differ or bool((differ & (h.t != ref.t)).any()):
+                fail(f"{label}: t differs from the parent route's on "
+                     f"{t_differ} rays")
+            if k == 0:
+                hb = intersect_brute(o, d, *geom, tri_chunk=max(
+                    512, geom[1].shape[0] // 512))
+                hit_id = torch.where(h.tri_id >= 0, h.tri_id, hb.tri_id)
+                compare_hits(f"{label} vs brute (all rays)", hb.t, hb.tri_id,
+                             h.t, h.tri_id,
+                             cond=t_conditioning(o, d, geom, hit_id))
+            cnt = (inp.count * inp.group).float()
+            row["tri_id_differ"] += int(differ.sum())
+            row["views"].append({
+                "view": view, "rays": N, "hits": int(h.hit.sum()),
+                "tri_id_differ": int(differ.sum()),
+                "longest": int(cnt.max()), "mean": float(cnt.mean())})
+            print(f"{label}: {N} rays, {int(h.hit.sum())} hits; order, "
+                  "packing, prepass and closest hit equal their plain "
+                  "versions; hit and t equal the parent route's bit for "
+                  f"bit, {int(differ.sum())} tri_ids differ at one t; "
+                  f"longest list {int(cnt.max())}, mean {float(cnt.mean()):.1f}"
+                  " chunk entries", flush=True)
+        out["meshes"][name] = row
+
+    # a parity step as one CUDA graph: the route against the parent's
+    lr = hp.start_lr
+    ray_gen = cap.ray_view_generator(seed=hp.seed + 61)
+    silh_gen = cap.silh_view_generator(seed=hp.seed + 1061)
+    ray = [[next(ray_gen)] for _ in range(3)]
+    silh = [[next(silh_gen) for _ in range(8)] for _ in range(3)]
+    dev = mesh45.vertices.device
+    runs = {}
+    for side, oracle in (("route", get_intersect_fn("cuda")),
+                         ("parent", parent_route_oracle())):
+        init, step, _ = make_train_step(oracle, weights, *res, budget,
+                                        momentum=hp.momentum,
+                                        grad_clamp=hp.grad_clamp)
+        run = GraphedTrainStep(step, init(mesh45), lr, mesh45, cap.views,
+                               torch.tensor(ray, device=dev),
+                               torch.tensor(silh, device=dev))
+        got = []
+        for _ in ray:
+            before = CK.counters.one_origin_queries
+            loss, _ = run()
+            torch.cuda.synchronize()
+            got.append((loss.clone(), {k: v.clone()
+                                       for k, v in run.state.items()},
+                        CK.counters.one_origin_queries - before))
+        run.close()
+        runs[side] = got
+    for it, ((la, sa, na), (lb, sb, nb)) in enumerate(zip(runs["route"],
+                                                          runs["parent"])):
+        diff = [k for k in sa if not same_bits(sa[k], sb[k])]
+        if diff or not same_bits(la, lb):
+            fail(f"order: graphed step {it}: the route differs from the "
+                 f"parent's route in {diff or ['loss']}")
+        if (na, nb) != (8, 0):
+            fail(f"order: graphed step {it}: {na} and {nb} one-origin "
+                 "queries (route, parent), reckoned 8 and 0")
+    out["graphed_steps_equal"] = 3
+    out["phase_s"] = time.time() - t_phase
+    print(f"order: 3 graphed parity steps on dog_mid45k equal the parent "
+          f"route's bit for bit (loss, params, m); 8 one-origin queries a "
+          f"replay; phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def chain_phase(res, hp, cap, meshes):
     """Phase 15: csrc/bounce.cu's four kernels against their plain versions
     on the main path's own inputs. For each mesh of `meshes` (name ->
@@ -3559,6 +3769,13 @@ def main():
     chain_out = chain_phase(RES, hp, cap, {"dog_mid45k": (v45, f45),
                                            "dog_mid90k": (v90, f90)})
 
+    # -- 16. the one-origin route -------------------------------------------
+    order_out = order_phase(RES, hp, weights, budget, ms45, cap, {
+        "dog_mid20k": build_mesh_state(*load_ply(os.path.join(
+            MESH_DIR, "dog_mid20k.ply")), device=dev),
+        "dog_mid45k": ms45,
+        "dog_mid90k": build_mesh_state(v90, f90, device=dev)})
+
     total = [sum(x) for x in zip(launches, lod_launches, cli_launches,
                                  par_launches, graph_launches)]
 
@@ -3675,6 +3892,7 @@ def main():
     print(json.dumps({"graph": graph_out}))
     print(json.dumps({"parallel": par_times}))
     print(json.dumps({"groups": group_times}))
+    print(json.dumps({"order": order_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
           else f"nvidia-smi failed: {smi.stderr.strip()}")

@@ -31,11 +31,14 @@
 // (`closest_hit_plain`) gates per ray too, so kernel and plain version agree
 // bit for bit.
 //
-// Design. Grid: one block per blockDim.x consecutive rays of a ray tile; a
+// Design. Grid: one block per block_rays consecutive rays of a ray tile; a
 // tile (the unit of the prepass's candidate lists) is one or more blocks.
 // Small blocks put more of them in flight: only the tiles near the mesh
-// have work, and theirs is a serial walk. The hits do not depend on the
-// tile or the block size, since every gate is the ray's own.
+// have work, and theirs is a serial walk. A warp owns ray_lanes rays, its
+// lanes [0, ray_lanes) (32 but on the one-origin route): fewer rays a warp
+// make its loop over the rays that enter a chunk shorter, and more warps
+// share a tile's work. The hits do not depend on the tile, the block or
+// the rays a warp, since every gate is the ray's own.
 //   * The block walks its tile's candidate list. For each listed chunk every
 //     thread slab-tests its own ray (lane = ray) one chunk ahead; one
 //     `__syncthreads_or` per listed chunk both votes on "does any ray enter
@@ -64,6 +67,10 @@
 //   * The candidate ids and boxes of the next 32..64 list entries are staged
 //     in shared memory by a few threads, so the per-chunk loop reads no
 //     global memory on its critical path.
+//   * Lane r's hit goes to t_out[r], or to t_out[order[r]] where the wrapper
+//     passes an order: a one-origin query's lanes hold its rays sorted
+//     along the screen (order.cu, pack.cu), and its hits go back to the
+//     caller's order on the way out.
 //
 // What bounds it: FP32 arithmetic on the CUDA cores (no tensor cores: TF32
 // would round the products to ~10 mantissa bits and classify small triangles
@@ -145,7 +152,9 @@ __global__ void __launch_bounds__(MAX_RAY_TILE, 2) closest_hit_kernel(
     const float* __restrict__ hi,      // [NC, 3]
     const int* __restrict__ cand,      // [T, NG] nearest-first group ids
     const int* __restrict__ count,     // [T] groups listed per tile
-    int np_, int ng, int ray_tile,     // ray_tile % blockDim.x == 0
+    const int* __restrict__ order,     // [Np] lane -> output slot, or null
+    int np_, int ng, int ray_tile,     // ray_tile % block_rays == 0
+    int ray_lanes,                     // rays a warp: block_rays / warps
     int group,                         // chunks a group; NC = NG * group
     float t_min,
     float* __restrict__ t_out,         // [Np], inf on miss
@@ -155,29 +164,38 @@ __global__ void __launch_bounds__(MAX_RAY_TILE, 2) closest_hit_kernel(
     __shared__ __align__(8) unsigned long long s_bar[2];
     __shared__ int s_chunk[LIST_SLOTS];
     __shared__ float s_box[LIST_SLOTS][6];
-    extern __shared__ float4 s_feat[];          // [blockDim.x][3]
+    extern __shared__ float4 s_feat[];          // [block_rays][3]
 
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const size_t r = (size_t)blockIdx.x * blockDim.x + tid;
-    const int tile = (int)(r / ray_tile);       // one for the whole block
+    const bool owns = lane < ray_lanes;         // the lane has a ray
+    const int slot = warp * ray_lanes + lane;   // its place in the block
+    const size_t base = (size_t)blockIdx.x * (blockDim.x >> 5) * ray_lanes;
+    const size_t r = base + (owns ? slot : 0);
+    const int tile = (int)(base / ray_tile);    // one for the whole block
     const size_t np = (size_t)np_;
+    const size_t out = order ? (size_t)order[r] : r;
 
     const int n_cand = count[tile] * group;     // chunk entries
     if (n_cand == 0) {                 // the whole block leaves together
-        t_out[r] = CUDART_INF_F;
-        id_out[r] = -1;
+        if (owns) {
+            t_out[out] = CUDART_INF_F;
+            id_out[out] = -1;
+        }
         return;
     }
     const int* tile_cand = cand + (size_t)tile * ng;
 
     const float o0 = phi[6 * np + r], o1 = phi[7 * np + r], o2 = phi[8 * np + r];
     const float i0 = inv[0 * np + r], i1 = inv[1 * np + r], i2 = inv[2 * np + r];
-    s_feat[tid * 3 + 0] = make_float4(phi[0 * np + r], phi[1 * np + r],
-                                      phi[2 * np + r], phi[3 * np + r]);
-    s_feat[tid * 3 + 1] = make_float4(phi[4 * np + r], phi[5 * np + r], o0, o1);
-    s_feat[tid * 3 + 2] = make_float4(o2, 0.f, 0.f, 0.f);
+    if (owns) {
+        s_feat[slot * 3 + 0] = make_float4(phi[0 * np + r], phi[1 * np + r],
+                                           phi[2 * np + r], phi[3 * np + r]);
+        s_feat[slot * 3 + 1] = make_float4(phi[4 * np + r], phi[5 * np + r],
+                                           o0, o1);
+        s_feat[slot * 3 + 2] = make_float4(o2, 0.f, 0.f, 0.f);
+    }
 
     // Stage list entries [first, first + n) into their slots (entry & 63).
     auto stage_list = [&](int first, int n) {
@@ -221,7 +239,7 @@ __global__ void __launch_bounds__(MAX_RAY_TILE, 2) closest_hit_kernel(
         t_entry = fmaxf(fmaxf(fminf(a1, a2), fminf(b1, b2)), fminf(c1, c2));
         const float t_exit = fminf(fminf(fmaxf(a1, a2), fmaxf(b1, b2)),
                                    fmaxf(c1, c2));
-        ok = (t_entry <= t_exit) && (t_exit > t_min);
+        ok = owns && (t_entry <= t_exit) && (t_exit > t_min);
     };
 
     bool ok_cur, ok_nxt = false;
@@ -276,7 +294,7 @@ __global__ void __launch_bounds__(MAX_RAY_TILE, 2) closest_hit_kernel(
                 while (todo) {
                     const int src = __ffs(todo) - 1;
                     todo &= todo - 1;
-                    const float4* f = &s_feat[(warp * 32 + src) * 3];
+                    const float4* f = &s_feat[(warp * ray_lanes + src) * 3];
                     const float4 f0 = f[0], f1 = f[1];
                     const float feat[10] = {f0.x, f0.y, f0.z, f0.w, f1.x,
                                             f1.y, f1.z, f1.w, f[2].x, 1.f};
@@ -333,8 +351,10 @@ __global__ void __launch_bounds__(MAX_RAY_TILE, 2) closest_hit_kernel(
         te_cur = te_nxt;
         copied_cur = copied_nxt;
     }
-    t_out[r] = best_t;
-    id_out[r] = best_id;
+    if (owns) {
+        t_out[out] = best_t;
+        id_out[out] = best_id;
+    }
 }
 
 extern "C" {
@@ -345,27 +365,31 @@ int closest_hit_max_ray_tile() { return MAX_RAY_TILE; }
 
 // The arguments of closest_hit_launch, for the wrapper's interface check.
 const char* closest_hit_signature() {
-    return "phi inv coef lo hi cand count n_tiles ray_tile block_rays "
-           "n_groups group t_min t_out id_out stream";
+    return "phi inv coef lo hi cand count order n_tiles ray_tile "
+           "block_rays ray_lanes n_groups group t_min t_out id_out stream";
 }
 
 // Launches on `stream` and returns cudaGetLastError(); does not synchronise.
-// cand [n_tiles, n_groups]; coef, lo, hi hold n_groups * group chunks.
+// cand [n_tiles, n_groups]; coef, lo, hi hold n_groups * group chunks;
+// order (or null) is a permutation of the n_tiles * ray_tile lanes. A
+// block takes block_rays rays, ray_lanes of them a warp.
 int closest_hit_launch(const float* phi, const float* inv, const float* coef,
                        const float* lo, const float* hi, const int* cand,
-                       const int* count, int n_tiles, int ray_tile,
-                       int block_rays, int n_groups, int group, float t_min,
-                       float* t_out, int* id_out, void* stream) {
-    if (block_rays <= 0 || block_rays > MAX_RAY_TILE || block_rays % 32
-            || ray_tile % block_rays || group < 1)
+                       const int* count, const int* order, int n_tiles,
+                       int ray_tile, int block_rays, int ray_lanes,
+                       int n_groups, int group, float t_min, float* t_out,
+                       int* id_out, void* stream) {
+    if (ray_lanes < 1 || ray_lanes > 32 || block_rays <= 0
+            || block_rays % ray_lanes || ray_tile % block_rays || group < 1
+            || block_rays / ray_lanes * 32 > MAX_RAY_TILE)
         return (int)cudaErrorInvalidValue;
     if (n_tiles > 0) {
         const int np = n_tiles * ray_tile;
         const size_t feat_bytes = (size_t)block_rays * 3 * sizeof(float4);
-        closest_hit_kernel<<<np / block_rays, block_rays, feat_bytes,
-                             (cudaStream_t)stream>>>(
-            phi, inv, coef, lo, hi, cand, count, np, n_groups, ray_tile,
-            group, t_min, t_out, id_out);
+        closest_hit_kernel<<<np / block_rays, block_rays / ray_lanes * 32,
+                             feat_bytes, (cudaStream_t)stream>>>(
+            phi, inv, coef, lo, hi, cand, count, order, np, n_groups,
+            ray_tile, ray_lanes, group, t_min, t_out, id_out);
     }
     return (int)cudaGetLastError();
 }

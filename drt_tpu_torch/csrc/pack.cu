@@ -28,6 +28,9 @@
 //                      any is, (+inf, -inf, 0) where none is;
 //   phi [9,Np], inv [3,Np]  a ray's d, o x d and o (o less the shift; a
 //                      padding lane has o = 0 and d = 1) and its guarded 1/d.
+// Lane i of phi and inv holds ray i, or ray order[i] where the wrapper
+// passes an order (order.cu: a one-origin query's rays sorted along the
+// screen); a one-origin query passes its one origin row with org_stride 0.
 //
 // Design. One grid: NG mesh blocks, one a group of chunks, then T ray blocks,
 // one a tile of ray_tile rays; PACK_BLOCK threads each.
@@ -38,8 +41,9 @@
 //   stores of a warp coalesce. Warp shuffles and one shared-memory step give
 //   the chunk's min and max, `__syncthreads_or` its validity, and threads
 //   0-2 (one an axis) keep the group's running min and max.
-// - Ray block: a thread a ray, reading o and d ([N,3] rows) and writing the
-//   12 floats of phi and inv in [row, ray] layout, coalesced.
+// - Ray block: a thread a lane, reading its ray's o and d ([N,3] rows,
+//   through the order where there is one) and writing the 12 floats of phi
+//   and inv in [row, lane] layout, coalesced.
 //
 // Rounding: every output equals the torch stages' on the card bit for bit
 // (chip_smoke.py compares all eight as int32 views on every query it
@@ -149,8 +153,10 @@ __global__ void __launch_bounds__(PACK_BLOCK) pack_kernel(
     const void* __restrict__ faces, int faces_i64,     // [F,3]
     const unsigned char* __restrict__ face_valid,      // [F], null: all
     int n_faces, const float* __restrict__ shift,      // [3]
-    const void* __restrict__ origins, int org_f64,     // [N,3]
+    const void* __restrict__ origins, int org_f64,     // [N,3], or [1,3]
+    int org_stride,                                    // 3, or 0: one row
     const void* __restrict__ dirs, int dir_f64,        // [N,3]
+    const int* __restrict__ order,                     // [>= N], null: i
     int n_rays, int n_groups, int group, int ray_tile, int np_,
     float* __restrict__ coef, float* __restrict__ lo, float* __restrict__ hi,
     float* __restrict__ box_lo, float* __restrict__ box_hi,
@@ -263,10 +269,12 @@ __global__ void __launch_bounds__(PACK_BLOCK) pack_kernel(
         const size_t i = tile * ray_tile + r;
         float o[3] = {0.f, 0.f, 0.f}, d[3] = {1.f, 1.f, 1.f};
         if (i < (size_t)n_rays) {
+            const size_t j = order ? (size_t)order[i] : i;
             #pragma unroll
             for (int a = 0; a < 3; ++a) {
-                o[a] = __fsub_rn(load(origins, 3 * i + a, org_f64), sh[a]);
-                d[a] = load(dirs, 3 * i + a, dir_f64);
+                o[a] = __fsub_rn(load(origins, org_stride * j + a, org_f64),
+                                 sh[a]);
+                d[a] = load(dirs, 3 * j + a, dir_f64);
             }
         }
         float w[3];
@@ -293,22 +301,26 @@ int pack_n_coef() { return N_COEF; }
 // The arguments of pack_launch, for the wrapper's interface check.
 const char* pack_signature() {
     return "vertices vert_f64 faces faces_i64 face_valid n_faces shift "
-           "origins org_f64 dirs dir_f64 n_rays n_groups group n_tiles "
-           "ray_tile coef lo hi box_lo box_hi box_valid phi inv stream";
+           "origins org_f64 org_stride dirs dir_f64 order n_rays n_groups "
+           "group n_tiles ray_tile coef lo hi box_lo box_hi box_valid phi "
+           "inv stream";
 }
 
 // Launches on `stream` and returns cudaGetLastError(); does not synchronise.
-// n_groups * group chunks must hold the faces, n_tiles * ray_tile the rays.
+// n_groups * group chunks must hold the faces, n_tiles * ray_tile the rays;
+// origins holds a row every org_stride (3, or 0 for one shared origin), and
+// order (or null) a ray index for each of the first n_rays lanes.
 int pack_launch(const void* vertices, int vert_f64, const void* faces,
                 int faces_i64, const unsigned char* face_valid, int n_faces,
                 const float* shift, const void* origins, int org_f64,
-                const void* dirs, int dir_f64, int n_rays, int n_groups,
+                int org_stride, const void* dirs, int dir_f64,
+                const int* order, int n_rays, int n_groups,
                 int group, int n_tiles, int ray_tile, float* coef, float* lo,
                 float* hi, float* box_lo, float* box_hi,
                 unsigned char* box_valid, float* phi, float* inv,
                 void* stream) {
     if (group < 1 || ray_tile < 1 || n_groups < 0 || n_tiles < 0
-            || n_faces < 0 || n_rays < 0
+            || n_faces < 0 || n_rays < 0 || (org_stride != 3 && org_stride)
             || (long long)n_groups * group * TRI_CHUNK < n_faces
             || (long long)n_tiles * ray_tile < n_rays
             || (long long)n_tiles * ray_tile > 0x7fffffffLL
@@ -318,7 +330,8 @@ int pack_launch(const void* vertices, int vert_f64, const void* faces,
     if (grid > 0)
         pack_kernel<<<grid, PACK_BLOCK, 0, (cudaStream_t)stream>>>(
             vertices, vert_f64, faces, faces_i64, face_valid, n_faces, shift,
-            origins, org_f64, dirs, dir_f64, n_rays, n_groups, group,
+            origins, org_f64, org_stride, dirs, dir_f64, order, n_rays,
+            n_groups, group,
             ray_tile, n_tiles * ray_tile, coef, lo, hi, box_lo, box_hi,
             box_valid, phi, inv);
     return (int)cudaGetLastError();

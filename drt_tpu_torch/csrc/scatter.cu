@@ -29,7 +29,8 @@
 //
 // Design: a stable LSD radix sort of the live rows by destination, 8 bits a
 // pass (2 passes up to 65,536 destinations), then a fold of each
-// destination's run in row order. Both routes rank the same way: a warp
+// destination's run in row order. Both routes rank the same way (the
+// pieces are in cluster_sort.cuh, which csrc/order.cu shares): a warp
 // owns a contiguous range of a pass's input, counts its digits into its own
 // 256 counters (`__match_any_sync`, the lowest lane of each digit adds), and
 // after the prefix is known walks its range again in order, 32 items a
@@ -87,27 +88,18 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no --use_fast_math).
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
+#include "cluster_sort.cuh"
 
 namespace cg = cooperative_groups;
 
-#define RADIX_BITS 8
-#define RADIX (1 << RADIX_BITS)
-#define NO_DIGIT RADIX              // a dead row's digit: neither counted
-#define MAX_PASSES 4                // nor placed
+// A dead row's digit is NO_DIGIT: neither counted nor placed.
+#define MAX_PASSES 4
 #define MAX_COLS 16
-#define FULL_MASK 0xffffffffu
 
 #define ROUTE_CLUSTER 0
 #define ROUTE_GRID 1
 
-// route A
-#define CLUSTER_BLOCK 1024
-#define CLUSTER_WARPS (CLUSTER_BLOCK / 32)
-#define CLUSTER_MAX 16
-#define CLUSTER_UNROLL 4            // rounds of 32 loaded before they rank
-#define CLUSTER_SMEM ((CLUSTER_WARPS + CLUSTER_MAX) * RADIX * (int)sizeof(int))
+// route A: the cluster of cluster_sort.cuh
 
 // route B
 #define GRID_BLOCK 512
@@ -148,8 +140,7 @@ __device__ long long scatter_trace[TRACE_SLOTS];
 #define TRACE_FOLD(w, i) do {} while (0)
 #endif
 
-static_assert(RADIX <= CLUSTER_BLOCK && RADIX <= GRID_BLOCK,
-              "the digit steps take a digit a thread");
+static_assert(RADIX <= GRID_BLOCK, "the digit steps take a digit a thread");
 
 // acc + x rounded on its own, as the CPU rounds it: the fold's chains.
 template <typename T> __device__ __forceinline__ T add_rn(T acc, T x);
@@ -199,47 +190,6 @@ __device__ __forceinline__ void store_relaxed(unsigned* p, unsigned v) {
                  :: "l"(p), "r"(v) : "memory");
 }
 
-// The split cluster barrier: a CTA may touch another's shared memory only
-// once that CTA has started, which the wait after an arrive at the
-// kernel's start guarantees.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
-
-// Exclusive scan of one int a thread over a block of WARPS warps; *total
-// gets the sum. Every thread of the block must call it.
-template <int WARPS>
-__device__ int block_exclusive_scan(int x, int* total) {
-    __shared__ int warp_sums[WARPS];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    int incl = x;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(FULL_MASK, incl, o);
-        if (lane >= o) incl += y;
-    }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-        int s = lane < WARPS ? warp_sums[lane] : 0;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-            const int y = __shfl_up_sync(FULL_MASK, s, o);
-            if (lane >= o) s += y;
-        }
-        if (lane < WARPS) warp_sums[lane] = s;
-    }
-    __syncthreads();
-    const int before = warp ? warp_sums[warp - 1] : 0;
-    *total = warp_sums[WARPS - 1];
-    __syncthreads();              // warp_sums is reused by the next call
-    return before + incl - x;
-}
-
 // Row e's key: its index if the index lies in [0, n_out) and an entry is
 // not +-0 (NaN is live), -1 otherwise; *bad is set on an index outside.
 // The index and the row are loaded side by side.
@@ -257,39 +207,6 @@ __device__ __forceinline__ int row_key(const T* __restrict__ rows,
         return -1;
     }
     return live ? (int)d : -1;
-}
-
-__device__ __forceinline__ int digit_of(int key, int shift) {
-    return key >= 0 ? (key >> shift) & (RADIX - 1) : NO_DIGIT;
-}
-
-// One round of a warp's count: each digit's lowest lane adds the number of
-// the round's lanes with that digit to the warp's counter. The whole warp
-// calls it.
-__device__ __forceinline__ void warp_count(int digit, int* wcnt) {
-    const unsigned peers = __match_any_sync(FULL_MASK, digit);
-    if (digit != NO_DIGIT && (threadIdx.x & 31) == __ffs(peers) - 1)
-        wcnt[digit] += __popc(peers);
-    __syncwarp();
-}
-
-// One round of a warp's placement: the item's slot (-1 for a dead one) is
-// the digit's base plus the warp's next slot of its digit (relative to it)
-// plus the number of lower lanes of the round with the same digit; the
-// digit's lowest lane then moves the warp's next slot past the round's
-// items. The whole warp calls it.
-__device__ __forceinline__ int warp_place(int digit, const int* base,
-                                          int* wnext) {
-    const int lane = threadIdx.x & 31;
-    const unsigned peers = __match_any_sync(FULL_MASK, digit);
-    const int pos = digit != NO_DIGIT
-        ? base[digit] + wnext[digit] + __popc(peers & ((1u << lane) - 1u))
-        : -1;
-    __syncwarp();
-    if (digit != NO_DIGIT && lane == __ffs(peers) - 1)
-        wnext[digit] += __popc(peers);
-    __syncwarp();
-    return pos;
 }
 
 template <typename T>
@@ -460,14 +377,6 @@ __device__ __forceinline__ void fold_share(const T* __restrict__ rows,
         const int a = min((warp - g * per) * len, n);
         fold_warp(rows, P, n, n_cols, c0, a, min(a + len, n), buf, out);
     }
-}
-
-// The k-th of `parts` contiguous shares of [a, b).
-__device__ __forceinline__ void share(int a, int b, int parts, int k,
-                                      int* lo, int* hi) {
-    const int len = (b - a + parts - 1) / parts;
-    *lo = min(a + k * len, b);
-    *hi = min(*lo + len, b);
 }
 
 // Passes of 8 bits that cover keys in [0, n_out), at least one (it drops
@@ -792,60 +701,14 @@ scatter_reduce_kernel(const T* __restrict__ rows, const int2* P,
 
 static int g_cluster_size = -1;
 
-// The launch of one cluster of k CTAs on stream s; attr holds its one
-// attribute.
-static cudaLaunchConfig_t cluster_config(int k, cudaLaunchAttribute* attr,
-                                         cudaStream_t s) {
-    cudaLaunchConfig_t cfg = {};
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = k;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = 1;
-    cfg.gridDim = dim3(k);
-    cfg.blockDim = dim3(CLUSTER_BLOCK);
-    cfg.dynamicSmemBytes = CLUSTER_SMEM;
-    cfg.stream = s;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cfg;
-}
-
-// The largest cluster of CLUSTER_BLOCK-thread CTAs, 16 down to 1, of which
-// the card can hold one at a time for both row types; 0 if none.
+// The largest cluster for both row types (computed at the first call).
 static int cluster_size() {
-    if (g_cluster_size >= 0) return g_cluster_size;
-    const void* fns[2] = {(const void*)scatter_cluster_kernel<float>,
-                          (const void*)scatter_cluster_kernel<double>};
-    for (const void* fn : fns) {
-        if (cudaFuncSetAttribute(
-                fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)
-            != cudaSuccess)
-            cudaGetLastError();           // then only portable sizes fit
-        if (cudaFuncSetAttribute(fn,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 CLUSTER_SMEM) != cudaSuccess) {
-            cudaGetLastError();
-            g_cluster_size = 0;
-            return 0;
-        }
+    if (g_cluster_size < 0) {
+        const void* fns[2] = {(const void*)scatter_cluster_kernel<float>,
+                              (const void*)scatter_cluster_kernel<double>};
+        g_cluster_size = largest_cluster(fns, 2);
     }
-    int found = 0;
-    for (int k = CLUSTER_MAX; k >= 1 && !found; k /= 2) {
-        cudaLaunchAttribute attr;
-        const cudaLaunchConfig_t cfg = cluster_config(k, &attr, 0);
-        bool fits = true;
-        for (const void* fn : fns) {
-            int n = 0;
-            if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess
-                || n < 1) {
-                cudaGetLastError();
-                fits = false;
-            }
-        }
-        if (fits) found = k;
-    }
-    g_cluster_size = found;
-    return found;
+    return g_cluster_size;
 }
 
 template <typename T>

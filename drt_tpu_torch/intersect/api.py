@@ -13,7 +13,11 @@ Backends:
 
 Every backend takes an explicit keyword `coherent=`: True for camera-pixel
 rays, False for post-refraction and silhouette rays. It picks the cuda
-backend's candidate prepass; brute and culled ignore it.
+backend's candidate prepass; brute and culled ignore it. An incoherent
+query whose rays all read one origin row (`one_origin`: the silhouette
+sampler's, which passes `cam_origin.expand(N, 3)`) takes the cuda
+backend's one-origin route, its rays sorted along the screen inside the
+oracle (intersect/cuda_kernel.py).
 
 Convention: Hits(t [N] f32, tri_id [N] i32), tri_id == -1 and t == inf on a
 miss.
@@ -57,6 +61,15 @@ def _resort_ab_table():
         return ()
 
 
+def one_origin(origins: torch.Tensor) -> bool:
+    """Whether every ray of an [N,3] origin tensor reads the same row in
+    memory (stride 0 along the rays, as `origin.expand(N, 3)` gives): a
+    property of the tensor, seen without reading the device. A query of
+    rays that share one point but arrive as separate rows is not one."""
+    return (origins.dim() == 2 and origins.shape[0] > 1
+            and origins.stride(0) == 0)
+
+
 def nearest_measured(rows, num_faces: int, default):
     """The value of the row of ((faces_padded, value), ...) nearest
     num_faces in log space; `default` where nothing was measured."""
@@ -88,7 +101,9 @@ def get_intersect_fn(backend: str = "auto", incoherent: str = "auto",
     "resort" Morton-sorts the rays so the cheap tile prepass applies, then
     scatters the hits back (intersect/resort.py); "auto" takes the measured
     winner for the mesh size from RESORT_TABLE, and "ray" where that table
-    has no row. Both routes give the same hits bit for bit."""
+    has no row. Both routes give the same hits bit for bit. A one-origin
+    query (`one_origin`) takes neither: its keys would be one origin, so
+    the cuda backend sorts it by direction instead."""
     if incoherent not in ("auto", "ray", "resort"):
         raise ValueError(f"unknown incoherent strategy: {incoherent}")
     if backend == "auto":
@@ -106,7 +121,7 @@ def get_intersect_fn(backend: str = "auto", incoherent: str = "auto",
                 coherent: bool) -> Hits:
         args = (origins.detach(), dirs.detach(), vertices.detach(), faces,
                 face_valid)
-        if backend == "cuda" and not coherent:
+        if backend == "cuda" and not coherent and not one_origin(origins):
             strat = incoherent
             if strat == "auto":
                 strat = _auto_incoherent(faces.shape[0])

@@ -35,6 +35,24 @@ Stages:
    between chunks at one t.
 No fallback anywhere: a CUDA tensor launches the kernel or raises.
 
+The one-origin route. An incoherent query whose rays all read one origin
+row (`api.one_origin`: the silhouette sampler's) arrives in the mesh order
+of its edges, so each ray tile's rays lie all over the silhouette and its
+candidate list, the union of the boxes they enter, covers most of the
+mesh. Such a query is sorted along the screen first: `ray_order` (one
+launch of csrc/order.cu; plain version `ray_order_plain`) gives the order
+of its rays by a Morton code of their directions, the packing stage reads
+the rays through it, the prepass and the closest hit run on the sorted
+lanes (`RAY_TILE_ONE_ORIGIN`, `GROUP_ONE_ORIGIN`), and the closest hit
+writes each hit back to its ray's place. Its closest-hit blocks give a warp
+RAY_LANES_ONE_ORIGIN rays, not 32: a silhouette query's rays graze the
+surface and enter dozens of boxes each, and a warp walks the rays that
+enter a chunk one after another, so fewer rays a warp cut the longest walk
+and put more warps on the card. The shift stays the unsorted query's.
+Every gate is the ray's own, so `hit` is the unsorted query's and t and
+tri_id differ only at ties between chunks, as with groups. Every other
+query keeps its route, launch for launch.
+
 `t_min` (default 0) is the JAX package's: a chunk counts only where a ray
 leaves its box beyond t_min, and a hit only where its t exceeds t_min.
 
@@ -59,7 +77,8 @@ from typing import NamedTuple
 import torch
 
 from drt_tpu_torch import kernels
-from drt_tpu_torch.intersect.api import Hits, nearest_measured
+from drt_tpu_torch.intersect.api import Hits, nearest_measured, one_origin
+from drt_tpu_torch.intersect.resort import _spread3
 from drt_tpu_torch.kernels import counters
 
 _UV_EPS = 1e-5
@@ -69,12 +88,21 @@ _UV_EPS = 1e-5
 RAY_TILE_COHERENT = 256
 RAY_TILE_INCOHERENT = 128
 BLOCK_RAYS = 64
+# The one-origin route's ray tile, candidate group, closest-hit block and
+# rays a warp, chosen on the card from the silhouette queries of
+# dog_mid{20k,45k,90k} at their budgets (`scripts/tune_torch_oracle.py
+# --what silhouette`, reports/torch_silhouette_order.json).
+RAY_TILE_ONE_ORIGIN = 128
+GROUP_ONE_ORIGIN = 1
+BLOCK_RAYS_ONE_ORIGIN = 8
+RAY_LANES_ONE_ORIGIN = 4
 MAX_RAY_TILE = 256     # fixed in csrc/*.cu (`__launch_bounds__`)
 TRI_CHUNK = 128        # fixed in csrc/closest_hit.cu
 # Boxes one launch of the prepass kernel takes (csrc/candidates.cu: a key a
 # box in shared memory); `group=None` groups larger meshes down to it.
 MAX_CHUNKS = 16384
 N_COEF = 19
+ORDER_AXIS_BITS = 5    # a key's bits an axis, fixed in csrc/order.cu
 # Elements of one [tiles, RT, NC] temporary of the plain prepass (and of the
 # four [tiles, RT, C] products of the plain closest hit): the plain versions
 # run over groups of tiles so a full view on a large mesh never
@@ -100,6 +128,7 @@ def _load():
                            ("candidates_max_ray_tile", MAX_RAY_TILE),
                            ("candidates_max_chunks", MAX_CHUNKS),
                            ("pack_tri_chunk", TRI_CHUNK),
+                           ("ray_order_axis_bits", ORDER_AXIS_BITS),
                            ("pack_n_coef", N_COEF)):
             if getattr(lib, name)() != want:
                 raise RuntimeError(f"csrc: {name}() is "
@@ -247,13 +276,17 @@ class Packed(NamedTuple):
 
 @torch.no_grad()
 def pack_plain(vertices, faces, face_valid, shift, origins, dirs, *,
-               group: int, ray_tile: int) -> Packed:
+               group: int, ray_tile: int, order=None) -> Packed:
     """Plain version of csrc/pack.cu: the torch stages `_coef_packed`,
     `_chunk_aabbs` and `_grouped_boxes` over the mesh shifted by `shift`
     [3] f32, and the shifted rays padded to whole tiles of `ray_tile` (o = 0,
     d = 1), their cross product and `_safe_inv`. Every zero of the chunk
     boxes is made +0 (the kernel writes +0; torch's amin and amax keep
-    whichever zero their order meets last). face_valid None: all valid."""
+    whichever zero their order meets last). face_valid None: all valid.
+    order ([>= N] int32, or None): lane i takes ray order[i]."""
+    if order is not None:
+        idx = order[:origins.shape[0]].long()
+        origins, dirs = origins[idx], dirs[idx]
     if face_valid is None:
         face_valid = torch.ones(faces.shape[0], dtype=torch.bool,
                                 device=faces.device)
@@ -269,7 +302,10 @@ def pack_plain(vertices, faces, face_valid, shift, origins, dirs, *,
     return Packed(_pad_axis0(coef, group), lo, hi, *boxes, phi, inv)
 
 
-def _check_pack_inputs(vertices, faces, face_valid, shift, origins, dirs):
+def _check_pack_inputs(vertices, faces, face_valid, shift, origins, dirs,
+                       order=None):
+    """Checks the packing kernel's inputs; origins may be one-origin (one
+    contiguous row read by every ray)."""
     dev = origins.device
     for name, x, want in (("vertices", vertices, (torch.float32,
                                                    torch.float64)),
@@ -278,12 +314,19 @@ def _check_pack_inputs(vertices, faces, face_valid, shift, origins, dirs):
                                                 torch.float64)),
                           ("dirs", dirs, (torch.float32, torch.float64))):
         rows = origins.shape[0] if name == "dirs" else x.shape[0]
+        if name == "origins" and one_origin(x):
+            x, rows = x[:1], 1
         _check(name, x, (rows, 3), x.dtype, dev)
         if x.dtype not in want:
             raise ValueError(f"{name}: expected one of {want}, got {x.dtype}")
     _check("shift", shift, (3,), torch.float32, dev)
     if face_valid is not None:
         _check("face_valid", face_valid, (faces.shape[0],), torch.bool, dev)
+    if order is not None:
+        _check("order", order, (order.shape[0],), torch.int32, dev)
+        if order.shape[0] < origins.shape[0]:
+            raise ValueError(f"order: {order.shape[0]} entries for "
+                             f"{origins.shape[0]} rays")
 
 
 def _pack_sizes(n_faces, n_rays, group, ray_tile):
@@ -297,12 +340,14 @@ def _pack_sizes(n_faces, n_rays, group, ray_tile):
 
 
 def pack_cuda(vertices, faces, face_valid, shift, origins, dirs, *,
-              group: int, ray_tile: int) -> Packed:
+              group: int, ray_tile: int, order=None) -> Packed:
     """Launch csrc/pack.cu on the current stream; inputs and result as in
     `pack_plain` (vertices, origins and dirs float32 or float64, faces
-    int64 or int32, all contiguous on one CUDA device). At group 1 the
+    int64 or int32, all contiguous on one CUDA device, but for one-origin
+    origins, whose one row the kernel reads for every ray). At group 1 the
     prepass's boxes are the chunk boxes themselves."""
-    _check_pack_inputs(vertices, faces, face_valid, shift, origins, dirs)
+    _check_pack_inputs(vertices, faces, face_valid, shift, origins, dirs,
+                       order)
     dev = origins.device
     if dev.type != "cuda":
         raise ValueError("pack_cuda needs CUDA tensors")
@@ -328,8 +373,11 @@ def pack_cuda(vertices, faces, face_valid, shift, origins, dirs, *,
             faces.data_ptr(), int(faces.dtype == torch.int64),
             None if face_valid is None else face_valid.data_ptr(), F,
             shift.data_ptr(), origins.data_ptr(),
-            int(origins.dtype == torch.float64), dirs.data_ptr(),
-            int(dirs.dtype == torch.float64), N, ng, group, T, ray_tile,
+            int(origins.dtype == torch.float64),
+            0 if one_origin(origins) else 3, dirs.data_ptr(),
+            int(dirs.dtype == torch.float64),
+            None if order is None else order.data_ptr(), N, ng, group, T,
+            ray_tile,
             coef.data_ptr(), lo.data_ptr(), hi.data_ptr(), box_lo.data_ptr(),
             box_hi.data_ptr(), box_valid.data_ptr(), phi.data_ptr(),
             inv.data_ptr(), stream)
@@ -339,17 +387,94 @@ def pack_cuda(vertices, faces, face_valid, shift, origins, dirs, *,
 
 
 def pack(vertices, faces, face_valid, shift, origins, dirs, *, group: int,
-         ray_tile: int) -> Packed:
+         ray_tile: int, order=None) -> Packed:
     """The packing kernel on CUDA tensors, its plain version on CPU
     tensors."""
     dev = origins.device.type
     if dev == "cuda":
         return pack_cuda(vertices, faces, face_valid, shift, origins, dirs,
-                         group=group, ray_tile=ray_tile)
+                         group=group, ray_tile=ray_tile, order=order)
     if dev == "cpu":
         return pack_plain(vertices, faces, face_valid, shift, origins, dirs,
-                          group=group, ray_tile=ray_tile)
+                          group=group, ray_tile=ray_tile, order=order)
     raise ValueError(f"pack: unsupported device {origins.device}")
+
+
+# --- the one-origin route's order of the rays ------------------------------
+
+@torch.no_grad()
+def ray_order_keys(dirs):
+    """[N] int32 keys of csrc/order.cu: the Morton code of each direction
+    quantised over the batch's own direction box, b = ORDER_AXIS_BITS bits
+    an axis. Per axis the box is the min and max over the rays (NaN
+    ignored), the scale the power of two 2^(b - e) for a span of frexp
+    exponent e (inf from 2^128 up, 0 for a span that is not finite), so
+    the cells form a power-of-two grid, and q = int(clamp((d - lo) *
+    scale, 0, 2^b - 1)), a NaN giving 0. Of rays that leave one point, the
+    directions are where they meet the screen: the keys order the screen
+    along a Morton curve."""
+    d = dirs.float()
+    inf = float("inf")
+    lo = torch.where(torch.isnan(d), inf, d).amin(dim=0)
+    hi = torch.where(torch.isnan(d), -inf, d).amax(dim=0)
+    span = hi - lo
+    k = (ORDER_AXIS_BITS - torch.frexp(span).exponent).clamp(max=128)
+    scale = torch.where(torch.isfinite(span),
+                        ((k + 127) << 23).to(torch.int32).view(torch.float32),
+                        0.0)
+    q = (d - lo) * scale
+    q = torch.where(torch.isnan(q), 0.0, q).clamp(
+        0.0, float(2 ** ORDER_AXIS_BITS - 1)).to(torch.int32)
+    return _spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1) | (
+        _spread3(q[:, 2]) << 2)
+
+
+@torch.no_grad()
+def ray_order_plain(dirs, n_pad: int):
+    """Plain version of csrc/order.cu: [n_pad] int32, the N rays' indices
+    in the stable order of `ray_order_keys`, then N .. n_pad - 1 (the lanes
+    that pad the rays to whole tiles keep their places)."""
+    order = torch.argsort(ray_order_keys(dirs), stable=True)
+    tail = torch.arange(dirs.shape[0], n_pad, device=dirs.device)
+    return torch.cat([order, tail]).to(torch.int32)
+
+
+def ray_order_cuda(dirs, n_pad: int):
+    """Launch csrc/order.cu on the current stream: one cluster launch; the
+    result as in `ray_order_plain`. dirs [N,3] float32 or float64,
+    contiguous on a CUDA device."""
+    dev = dirs.device
+    N = dirs.shape[0]
+    if dirs.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dirs: expected float32 or float64, got "
+                         f"{dirs.dtype}")
+    _check("dirs", dirs, (N, 3), dirs.dtype, dev)
+    if dev.type != "cuda":
+        raise ValueError("ray_order_cuda needs CUDA tensors")
+    if n_pad < N:
+        raise ValueError(f"{n_pad} lanes for {N} rays")
+    lib = _load()
+    with torch.cuda.device(dev):
+        order = torch.empty(n_pad, dtype=torch.int32, device=dev)
+        scratch = torch.empty(max(lib.ray_order_scratch_ints(N), 1),
+                              dtype=torch.int32, device=dev)
+        err = lib.ray_order_launch(
+            dirs.data_ptr(), int(dirs.dtype == torch.float64), N, n_pad,
+            order.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(lib, err, "ray_order")
+    return order
+
+
+def ray_order(dirs, n_pad: int):
+    """The order kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    dev = dirs.device.type
+    if dev == "cuda":
+        return ray_order_cuda(dirs, n_pad)
+    if dev == "cpu":
+        return ray_order_plain(dirs, n_pad)
+    raise ValueError(f"ray_order: unsupported device {dirs.device}")
 
 
 def _sorted_candidates(score):
@@ -545,6 +670,7 @@ class KernelInputs(NamedTuple):
     count: torch.Tensor   # [T] i32 groups listed
     group: int = 1        # chunks a listed group stands for
     t_min: float = 0.0
+    order: torch.Tensor | None = None  # [Np] i32: lane -> ray (one-origin)
 
 
 def chunk_lists(inp: KernelInputs):
@@ -572,35 +698,55 @@ def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
     unsorted query's, since a mean summed in another order differs in its
     last bits and t would follow.
 
+    An incoherent query of one origin (`api.one_origin`) takes the
+    one-origin route (the module's docstring): `ray_order` sorts its rays,
+    the packing stage reads its one origin row and its directions through
+    the order, and `order` in the result sends the hits back. Its shift is
+    the mean of the unsorted origins, as on the other routes; its ray tile
+    is RAY_TILE_ONE_ORIGIN and its group at least GROUP_ONE_ORIGIN.
+
     group: chunks a candidate group, the prepass's boxes. None takes the
     least power of two that brings the mesh to MAX_CHUNKS groups (1 below
     that), and for an incoherent query at least the group measured fastest
     for the nearest mesh size (GROUP_TABLE). The chunk axis is padded
     to a multiple of it with zero coefficients and the boxes of
     `_grouped_boxes`."""
-    F = faces.shape[0]
+    F, N = faces.shape[0], origins.shape[0]
+    routed = not coherent and one_origin(origins)
     if shift is None:
         shift = origins.float().mean(dim=0)
     if group is None:
         g = _auto_group(-(-F // TRI_CHUNK), MAX_CHUNKS)
-        if not coherent:
+        if routed:
+            g = max(g, GROUP_ONE_ORIGIN)
+        elif not coherent:
             # the group of the nearest measured mesh size; 1 unmeasured
             g = max(g, nearest_measured(_group_table(), F, 1))
     else:
         g = int(group)
     if g < 1:
         raise ValueError(f"group {group}: must be at least 1")
-    ray_tile = RAY_TILE_COHERENT if coherent else RAY_TILE_INCOHERENT
+    if coherent:
+        ray_tile = RAY_TILE_COHERENT
+    else:
+        ray_tile = RAY_TILE_ONE_ORIGIN if routed else RAY_TILE_INCOHERENT
     if face_valid is not None:
         face_valid = face_valid.contiguous()
+    dirs = dirs.contiguous()
+    order = None
+    if routed:
+        # one contiguous row that every ray reads, and the sorted lanes
+        origins = origins[:1].contiguous().expand(N, 3)
+        order = ray_order(dirs, -(-N // ray_tile) * ray_tile)
+    else:
+        origins = origins.contiguous()
     pk = pack(vertices.contiguous(), faces.contiguous(), face_valid, shift,
-              origins.contiguous(), dirs.contiguous(), group=g,
-              ray_tile=ray_tile)
+              origins, dirs, group=g, ray_tile=ray_tile, order=order)
     T = pk.phi.shape[1] // ray_tile
     cand, count = candidates(pk.phi[6:9], pk.inv, pk.box_lo, pk.box_hi,
                              pk.box_valid, T, tile=coherent, t_min=t_min)
     return KernelInputs(pk.phi, pk.inv, pk.coef, pk.lo, pk.hi, cand, count,
-                        g, float(t_min))
+                        g, float(t_min), order)
 
 
 # --- the closest-hit kernel and its plain version ---------------------------
@@ -620,6 +766,8 @@ def _check_inputs(inp: KernelInputs):
         "cand": ((T, NC // inp.group), torch.int32),
         "count": ((T,), torch.int32),
     }
+    if inp.order is not None:
+        expect["order"] = ((Np,), torch.int32)
     for name, (shape, dtype) in expect.items():
         _check(name, getattr(inp, name), shape, dtype, dev)
     return Np, NC, T, _check_tiling(Np, T)
@@ -627,10 +775,18 @@ def _check_inputs(inp: KernelInputs):
 
 def closest_hit_cuda(inp: KernelInputs):
     """Launch csrc/closest_hit.cu on the current stream. Returns
-    (t [Np] f32, tri_id [Np] i32)."""
+    (t [Np] f32, tri_id [Np] i32), lane i's hit at inp.order[i] where there
+    is an order. A block takes BLOCK_RAYS rays (at most the tile), 32 a
+    warp; on the one-origin route (an order) BLOCK_RAYS_ONE_ORIGIN,
+    RAY_LANES_ONE_ORIGIN a warp."""
     Np, NC, T, ray_tile = _check_inputs(inp)
     if inp.phi.device.type != "cuda":
         raise ValueError("closest_hit_cuda needs CUDA tensors")
+    if inp.order is None:
+        block, lanes = math.gcd(ray_tile, BLOCK_RAYS), 32
+    else:
+        block = math.gcd(ray_tile, BLOCK_RAYS_ONE_ORIGIN)
+        lanes = math.gcd(block, RAY_LANES_ONE_ORIGIN)
     lib = _load()
     with torch.cuda.device(inp.phi.device):
         t_out = torch.empty(Np, dtype=torch.float32, device=inp.phi.device)
@@ -639,8 +795,9 @@ def closest_hit_cuda(inp: KernelInputs):
         err = lib.closest_hit_launch(
             inp.phi.data_ptr(), inp.inv.data_ptr(), inp.coef.data_ptr(),
             inp.lo.data_ptr(), inp.hi.data_ptr(), inp.cand.data_ptr(),
-            inp.count.data_ptr(), T, ray_tile,
-            math.gcd(ray_tile, BLOCK_RAYS), NC // inp.group, inp.group,
+            inp.count.data_ptr(),
+            None if inp.order is None else inp.order.data_ptr(), T, ray_tile,
+            block, lanes, NC // inp.group, inp.group,
             inp.t_min, t_out.data_ptr(), id_out.data_ptr(), stream)
     kernels.check(lib, err, "closest_hit")
     counters.launches += 1
@@ -670,8 +827,9 @@ def closest_hit_plain(inp: KernelInputs):
     before the ray's running best), the same f32 Plücker products rounded
     in the same order, hit test (t*det beyond t_min*|det|, that product
     rounded on its own) and tie rule (lowest row on equal t within a
-    chunk, strict `<` across chunks). Runs on any device; the wrapper takes
-    it for CPU tensors."""
+    chunk, strict `<` across chunks), and lane i's hit written to
+    inp.order[i] where there is an order. Runs on any device; the wrapper
+    takes it for CPU tensors."""
     Np, NC, T, RT = _check_inputs(inp)
     C = TRI_CHUNK
     t_min = inp.t_min
@@ -714,7 +872,14 @@ def closest_hit_plain(inp: KernelInputs):
             better = enters & (cmin < bt)
             bi.copy_(torch.where(better, c[:, None].int() * C + amin, bi))
             bt.copy_(torch.where(better, cmin, bt))
-    return best_t.reshape(-1), best_id.reshape(-1)
+    if inp.order is None:
+        return best_t.reshape(-1), best_id.reshape(-1)
+    slot = inp.order.long()
+    t_out, id_out = torch.empty_like(best_t).reshape(-1), torch.empty_like(
+        best_id).reshape(-1)
+    t_out[slot] = best_t.reshape(-1)
+    id_out[slot] = best_id.reshape(-1)
+    return t_out, id_out
 
 
 def closest_hit(inp: KernelInputs):
@@ -731,12 +896,14 @@ def intersect_cuda(origins, dirs, vertices, faces, face_valid=None, *,
                    coherent: bool, shift=None, t_min: float = 0.0,
                    group: int | None = None) -> Hits:
     """Closest hit beyond t_min for each ray, on a mesh of any size
-    (`prepare_inputs` says how `group` is taken). Misses: t=inf,
-    tri_id=-1."""
+    (`prepare_inputs` says how `group` is taken, and which queries take the
+    one-origin route). Misses: t=inf, tri_id=-1."""
     counters.calls += 1
     N = origins.shape[0]
     inp = prepare_inputs(origins, dirs, vertices, faces, face_valid,
                          coherent=coherent, shift=shift, t_min=t_min,
                          group=group)
+    if inp.order is not None:
+        counters.one_origin_queries += 1
     t, ids = closest_hit(inp)
     return Hits(t[:N], ids[:N])

@@ -11,7 +11,8 @@ drift apart unnoticed.
 
 The wrappers:
 - intersect/cuda_kernel.py: csrc/pack.cu, csrc/candidates.cu and
-  csrc/closest_hit.cu, the three kernels of an oracle query;
+  csrc/closest_hit.cu, the three kernels of an oracle query, and
+  csrc/order.cu, which a one-origin query launches before them;
 - geometry/scatter.py: csrc/scatter.cu, the row scatter-add;
 - optimize/precondition.py: csrc/cg.cu, the Sobolev preconditioner's
   conjugate-gradient solve;
@@ -20,7 +21,8 @@ The wrappers:
 - spans.py: csrc/span.cu, the train step's device span markers.
 
 `counters` counts each kernel's launches; a wrapper adds one only where it
-launches its kernel (never on the plain version's path). A CUDA graph's
+launches its kernel (never on the plain version's path). Sources share
+code through csrc/*.cuh headers, which a rebuild watches as well. A CUDA graph's
 replay adds the launches its capture recorded (optimize/loop.py
 `GraphedTrainStep`). The span markers are counted nowhere.
 """
@@ -42,10 +44,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 class LaunchCounter:
-    """Counts oracle queries (`calls`) and the launches of the closest-hit
-    kernel (`launches`), of the candidate-prepass kernel
-    (`candidates_launches`) and of the packing kernel (`pack_launches`),
-    each one a query of either kind, and of the row scatter-add
+    """Counts oracle queries (`calls`, of which `one_origin_queries` took the
+    one-origin route, on either device; each launches csrc/order.cu once on
+    the card) and the launches of the closest-hit kernel (`launches`), of
+    the candidate-prepass kernel (`candidates_launches`) and of the packing
+    kernel (`pack_launches`), each one a query of either kind, and of the
+    row scatter-add
     (`scatter_launches`, one a `scatter_rows` call on CUDA tensors, of
     which `scatter_cluster_launches` took the cluster route and
     `scatter_grid_launches` the grid route), and of the conjugate-gradient
@@ -65,6 +69,7 @@ class LaunchCounter:
         self.launches = 0
         self.candidates_launches = 0
         self.pack_launches = 0
+        self.one_origin_queries = 0
         self.scatter_launches = 0
         self.scatter_cluster_launches = 0
         self.scatter_grid_launches = 0
@@ -115,8 +120,9 @@ def build(force: bool = False, defines: tuple = ()) -> str:
     sources = sorted(glob.glob(os.path.join(_SOURCE_DIR, "*.cu")))
     if not sources:
         raise RuntimeError(f"no kernel sources in {_SOURCE_DIR}")
+    headers = glob.glob(os.path.join(_SOURCE_DIR, "*.cuh"))
     if (not force and os.path.exists(out) and os.path.getmtime(out)
-            >= max(os.path.getmtime(s) for s in sources)):
+            >= max(os.path.getmtime(s) for s in sources + headers)):
         return out
     nvcc, tag = _nvcc(), f"{os.getpid()}{suffix}"
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
@@ -153,7 +159,7 @@ _VP, _CI, _CF, _CD, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 # The C interface of every source: name -> (argument types, result type).
 _ENTRIES = {
     # closest_hit.cu
-    "closest_hit_launch": ([_VP] * 7 + [_CI] * 5 + [_CF] + [_VP] * 3, _CI),
+    "closest_hit_launch": ([_VP] * 8 + [_CI] * 6 + [_CF] + [_VP] * 3, _CI),
     "closest_hit_tri_chunk": ([], _CI),
     "closest_hit_max_ray_tile": ([], _CI),
     # candidates.cu
@@ -162,10 +168,14 @@ _ENTRIES = {
     "candidates_max_chunks": ([], _CI),
     "candidates_block": ([], _CI),
     # pack.cu
-    "pack_launch": ([_VP, _CI, _VP, _CI, _VP, _CI, _VP, _VP, _CI, _VP]
-                    + [_CI] * 6 + [_VP] * 9, _CI),
+    "pack_launch": ([_VP, _CI, _VP, _CI, _VP, _CI, _VP, _VP, _CI, _CI, _VP,
+                     _CI, _VP] + [_CI] * 5 + [_VP] * 9, _CI),
     "pack_tri_chunk": ([], _CI),
     "pack_n_coef": ([], _CI),
+    # order.cu
+    "ray_order_launch": ([_VP, _CI, _CI, _CI] + [_VP] * 3, _CI),
+    "ray_order_scratch_ints": ([_LL], _LL),
+    "ray_order_axis_bits": ([], _CI),
     # scatter.cu
     "scatter_launch": ([_VP, _CI, _VP, _CI, _CI, _CI, _CI, _VP, _VP, _VP],
                        _CI),
@@ -205,15 +215,16 @@ _ENTRIES = {
 # The argument lists the wrappers pass, as each source's *_signature()
 # names them.
 _SIGNATURES = {
-    "closest_hit_signature": "phi inv coef lo hi cand count n_tiles ray_tile "
-                             "block_rays n_groups group t_min t_out id_out "
-                             "stream",
+    "closest_hit_signature": "phi inv coef lo hi cand count order n_tiles "
+                             "ray_tile block_rays ray_lanes n_groups group "
+                             "t_min t_out id_out stream",
     "candidates_signature": "org inv lo hi valid n_tiles ray_tile nc "
                             "tile_mode t_min cand count stream",
     "pack_signature": "vertices vert_f64 faces faces_i64 face_valid n_faces "
-                      "shift origins org_f64 dirs dir_f64 n_rays n_groups "
-                      "group n_tiles ray_tile coef lo hi box_lo box_hi "
-                      "box_valid phi inv stream",
+                      "shift origins org_f64 org_stride dirs dir_f64 order "
+                      "n_rays n_groups group n_tiles ray_tile coef lo hi "
+                      "box_lo box_hi box_valid phi inv stream",
+    "ray_order_signature": "dirs dir_f64 n_rays np order scratch stream",
     "scatter_signature": "rows rows_f64 idx n_rows n_cols n_out route out "
                          "scratch stream",
     "cg_signature": "b x0 f64 nbr valid vp c d lam tol2 maxiter x trips "

@@ -74,6 +74,8 @@ def _edge_sample_fwd_math(E_pos, K_inv, R_inv, cam_origin, intersect_fn,
     cam_p = torch.cat([f_point, ones], dim=1) @ K_inv.T
     world_p = (torch.cat([cam_p, ones], dim=1) @ R_inv.T)[:, :3]
     ray_dir = world_p - cam_origin[None, :]
+    # one origin row for every ray (stride 0): the cuda oracle sees that the
+    # rays share it and sorts them along the screen (its one-origin route)
     ray_org = cam_origin.expand(ray_dir.shape)
     hits = intersect_fn(ray_org, ray_dir, vertices, faces, face_valid,
                         coherent=False)

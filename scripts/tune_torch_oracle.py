@@ -4,7 +4,7 @@
     python3 scripts/tune_torch_oracle.py [--what tiles blocks gate prepass
                                           resort group pack scatter
                                           scatter-routes scatter-trace
-                                          defaults]
+                                          silhouette defaults]
 
 Six queries, the ones chip_smoke.py checks: the camera rays and the
 bounce-2 rays of one 1280x960 view of dog_mid90k, and the four queries of
@@ -92,6 +92,21 @@ scatter-trace  the cluster route built with -DSCATTER_TRACE=1 (a library
         of its own under build/): the SM cycles of each phase of one
         launch (CTA 0's clock64() stamps) on a silhouette-, a second-stage-
         and a normals-sized call, medians of 20 launches.
+silhouette  the one-origin route (the silhouette sampler's queries,
+        sorted along the screen by csrc/order.cu) on 8 silhouette views of
+        dog_mid{20k,45k,90k} at their budgets, against the parent's route
+        (the rays unsorted in rows, GROUP_TABLE's group, 32 rays a warp) in
+        the shapes of SILHOUETTE_SHAPES: ray tiles of 32, 64 and 128 and
+        groups of 1 and 4, rays a warp and warps a block, 8 key bits an
+        axis against 5, and the parent's lanes with the route's warps. For
+        each: the longest and mean candidate list, hit (bit for bit) and t
+        against the parent's route, a query's device operations and device
+        ms by kernel (torch.profiler), the query in turns (CUDA events),
+        and csrc/order.cu's time at each key width (a library built with
+        -DORDER_AXIS_BITS). The sorted shape with the least device time
+        over all queries gives the route's constants in
+        intersect/cuda_kernel.py. Writes reports/torch_silhouette_order.json
+        (or --silhouette-out PATH).
 defaults  with --parent DIR (an unpacked tree of another commit): the six
         queries and the incoherent ones of `group` through both trees'
         `intersect_cuda` at the defaults, hits equal bit for bit wherever
@@ -1174,6 +1189,256 @@ def scatter_trace(dev, card, reps=20):
     print(f"scatter-trace: {card}; SM clock now, max: {smi.stdout.strip()}")
 
 
+# The one-origin route's shapes measured: (ray tile, group, rays a warp,
+# warps a closest-hit block, sorted lanes, key bits an axis). Unsorted
+# lanes take an identity order: the parent's lanes and group with the
+# route's warps.
+SILHOUETTE_SHAPES = (
+    [(t, g, 4, 2, True, 5) for t in (32, 64, 128) for g in (1, 4)]
+    + [(128, 1, lanes, warps, True, 5) for lanes, warps in
+       ((8, 2), (32, 2), (4, 1))]
+    + [(128, 1, 4, 2, True, 8), (128, 4, 4, 2, False, 5)])
+ORDER_BITS = (5, 8)
+
+
+def kernel_profile(fn, reps=10, tries=3):
+    """(device operations a call, busy ms a call, {kernel: ms a call}) of
+    fn under torch.profiler, after one call outside it. A profile whose
+    operations are no whole number a call lost some; it is taken again,
+    up to `tries` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by = {}
+        n = 0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            n += 1
+            key = e.name.split("(")[0].split("<")[0].replace("void ", "")
+            by[key] = by.get(key, 0.0) + (e.time_range.end
+                                          - e.time_range.start) / 1e3 / reps
+        if n and n % reps == 0:
+            break
+    return n / reps, sum(by.values()), by
+
+
+def order_kernel_ms(queries, bits_set, reps=50):
+    """{bits: {name: ms}}: csrc/order.cu built with -DORDER_AXIS_BITS=bits
+    (a library of its own under build/) on each query's directions, by
+    CUDA events over `reps` launches."""
+    import ctypes
+    import torch
+    from drt_tpu_torch import kernels as KN
+    out = {}
+    for bits in bits_set:
+        lib = KN.bind(KN.build(defines=(f"ORDER_AXIS_BITS={bits}",)))
+        out[bits] = {}
+        for name, d in queries:
+            n = d.shape[0]
+            order = torch.empty(n, dtype=torch.int32, device=d.device)
+            scratch = torch.empty(4 * n, dtype=torch.int32, device=d.device)
+
+            def launch():
+                KN.check(lib, lib.ray_order_launch(
+                    d.data_ptr(), 0, n, n, order.data_ptr(),
+                    scratch.data_ptr(),
+                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)),
+                    "ray_order")
+            launch()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                launch()
+            end.record()
+            torch.cuda.synchronize()
+            out[bits][name] = start.elapsed_time(end) / reps
+    return out
+
+
+def _shape_name(shape):
+    t, g, lanes, warps, srt, bits = shape
+    return (f"{'sorted' if srt else 'unsorted'} t{t} g{g} l{lanes} w{warps} "
+            f"b{bits}")
+
+
+def silhouette_order(dev, card, out):
+    """The one-origin route on the silhouette queries of dog_mid{20k,45k,
+    90k} at their budgets (chip_smoke.silhouette_queries: 8 views of the
+    ring around dog_mid90k): for each query the parent's route ("before":
+    the rays as separate rows, the group of GROUP_TABLE, ray tile
+    RAY_TILE_INCOHERENT, 32 rays a warp) and the route in every launch
+    shape of SILHOUETTE_SHAPES ("after"): the longest and mean candidate
+    list in chunk entries (count * group), hits against the parent's
+    route (hit bit for bit, t and tri_id counted where they differ), a
+    query's device operations, busy ms and ms by kernel (torch.profiler),
+    and the whole query by CUDA events in turns. The winner is the sorted
+    shape with the least busy time over all the queries; the route's
+    constants are set to it by hand. Writes
+    reports/torch_silhouette_order.json (or --silhouette-out PATH)."""
+    import torch
+    import chip_smoke as S
+    from drt_tpu_torch.config import POINTGRAY_RES as RES
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    from drt_tpu_torch.mesh import build_mesh_state, load_ply
+
+    meshes = {m: build_mesh_state(*load_ply(os.path.join(
+        S.MESH_DIR, f"{m}.ply")), device=dev)
+        for m in ("dog_mid20k", "dog_mid45k", "dog_mid90k")}
+    data = S.silhouette_queries(meshes, RES)
+    knobs = ("RAY_TILE_ONE_ORIGIN", "GROUP_ONE_ORIGIN", "RAY_LANES_ONE_ORIGIN",
+             "BLOCK_RAYS_ONE_ORIGIN", "ORDER_AXIS_BITS")
+    shipped = {k: getattr(CK, k) for k in knobs}
+    real_order = CK.ray_order
+
+    cached = {}
+
+    def plain_order(d, n_pad):
+        # made once a query and width, outside the profiles (each profile
+        # calls its query once before it records)
+        key = (d.data_ptr(), n_pad, CK.ORDER_AXIS_BITS)
+        if key not in cached:
+            cached[key] = CK.ray_order_plain(d, n_pad)
+        return cached[key]
+
+    def use(shape):
+        t, g, lanes, warps, srt, bits = shape
+        CK.RAY_TILE_ONE_ORIGIN, CK.GROUP_ONE_ORIGIN = t, g
+        CK.RAY_LANES_ONE_ORIGIN, CK.BLOCK_RAYS_ONE_ORIGIN = lanes, lanes * warps
+        CK.ORDER_AXIS_BITS = bits
+        # another key width: the plain order on the card (the kernel's own
+        # time at that width is `order_kernel_ms`'s)
+        CK.ray_order = (real_order if bits == shipped["ORDER_AXIS_BITS"]
+                        else plain_order) if srt else (
+            lambda d, n_pad: torch.arange(n_pad, dtype=torch.int32,
+                                          device=d.device))
+    names = ["before"] + [_shape_name(v) for v in SILHOUETTE_SHAPES]
+    rows, total = [], {k: 0.0 for k in names}
+    per_mesh = {}
+    try:
+        for mesh, (ms, budget, queries) in data.items():
+            geom = (ms.vertices, ms.faces, ms.face_valid)
+            per_mesh[mesh] = {k: 0.0 for k in names}
+            for view, o, d in queries:
+                row = {"mesh": mesh, "view": view, "rays": int(o.shape[0]),
+                       "faces": ms.num_faces, "budget": budget}
+
+                def before():
+                    # the parent's query: the mean, the rows' copy, 3 kernels
+                    return CK.intersect_cuda(o.contiguous(), d, *geom,
+                                             coherent=False,
+                                             shift=o.float().mean(dim=0))
+
+                def after(shape):
+                    use(shape)
+                    return CK.intersect_cuda(o, d, *geom, coherent=False)
+                sides = {"before": before}
+                sides.update({_shape_name(v): (lambda v=v: after(v))
+                              for v in SILHOUETTE_SHAPES})
+                ref = before()
+                row["hits"] = int(ref.hit.sum())
+                for name, fn in sides.items():
+                    h = fn()
+                    if not torch.equal(h.hit, ref.hit):
+                        sys.exit(f"tune_torch_oracle: {mesh} view {view} "
+                                 f"{name}: hit differs from the parent's "
+                                 "route")
+                    if name == "before":
+                        inp = CK.prepare_inputs(o.contiguous(), d, *geom,
+                                                coherent=False)
+                    else:
+                        inp = CK.prepare_inputs(o, d, *geom, coherent=False)
+                    cnt = (inp.count * inp.group).float()
+                    ops, busy, by = kernel_profile(fn)
+                    row[name] = {
+                        "ray_tile": inp.phi.shape[1] // inp.count.shape[0],
+                        "group": inp.group, "longest": int(cnt.max()),
+                        "mean": float(cnt.mean()),
+                        "t_differ": int((h.t != ref.t).sum()),
+                        "tri_id_differ": int((h.tri_id != ref.tri_id).sum()),
+                        "device_ops": ops, "busy_ms": busy,
+                        "kernel_ms": by, "query_ms": []}
+                    total[name] += busy
+                    per_mesh[mesh][name] += busy
+                for name in names + names[::-1]:
+                    row[name]["query_ms"].append(S.cuda_ms(sides[name], 10))
+                b = row["before"]
+                print(f"{mesh} view {view}: {row['rays']} rays, "
+                      f"{row['hits']} hits. before (tile {b['ray_tile']}, "
+                      f"group {b['group']}): lists {b['longest']} / "
+                      f"{b['mean']:.1f}, {b['device_ops']:g} ops busy "
+                      f"{b['busy_ms']:.4f} ms {_kms(b['kernel_ms'])}",
+                      flush=True)
+                for name in names[1:]:
+                    a = row[name]
+                    print(f"    {name}: lists {a['longest']} / "
+                          f"{a['mean']:.1f}, {a['device_ops']:g} ops busy "
+                          f"{a['busy_ms']:.4f} ms {_kms(a['kernel_ms'])}; "
+                          f"t differs on {a['t_differ']}, tri_id on "
+                          f"{a['tri_id_differ']}; query "
+                          f"{_fmt(a['query_ms'])} ms (before "
+                          f"{_fmt(b['query_ms'])})", flush=True)
+                rows.append(row)
+    finally:
+        for k, v in shipped.items():
+            setattr(CK, k, v)
+        CK.ray_order = real_order
+    # the order kernel at each key width, added to the shapes whose order
+    # was made once outside their profiles
+    order_ms = order_kernel_ms(
+        [(f"{m} view {v}", d) for m, (_, _, qs) in data.items()
+         for v, _, d in qs], ORDER_BITS)
+    for v in SILHOUETTE_SHAPES:
+        name = _shape_name(v)
+        if v[4] and v[5] != shipped["ORDER_AXIS_BITS"]:
+            for row in rows:
+                r = row[name]
+                kernel = order_ms[v[5]][f"{row['mesh']} view {row['view']}"]
+                r["order_kernel_ms"] = kernel
+                r["busy_ms"] += kernel
+                total[name] += kernel
+                per_mesh[row["mesh"]][name] += kernel
+    print(f"silhouette: csrc/order.cu by key bits an axis, ms a query: "
+          + ", ".join(f"{b}: {min(x.values()):.4f}-{max(x.values()):.4f}"
+                      for b, x in order_ms.items()), flush=True)
+    best = min((v for v in SILHOUETTE_SHAPES if v[4]),
+               key=lambda v: total[_shape_name(v)])
+    verdict = {"busy_ms_all_queries": total, "busy_ms_by_mesh": per_mesh,
+               "order_kernel_ms": order_ms,
+               "winner": dict(zip(knobs, (best[0], best[1], best[2],
+                                          best[2] * best[3], best[5]))),
+               "winner_by_mesh": {m: min(names[1:], key=p.get)
+                                  for m, p in per_mesh.items()},
+               "shipped": shipped}
+    print(f"silhouette: busy ms over all {len(rows)} queries: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+              total.items(), key=lambda kv: kv[1]))
+          + f"; winner {verdict['winner']}; by mesh "
+          f"{verdict['winner_by_mesh']}; the source ships {shipped}",
+          flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as fh:
+        json.dump({"device": card, "script":
+                   "scripts/tune_torch_oracle.py --what silhouette",
+                   "rows": rows, "verdict": verdict}, fh, indent=1)
+        fh.write("\n")
+    print(f"wrote {out}")
+
+
+def _kms(by):
+    return "(" + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+        by.items(), key=lambda kv: -kv[1])) + ")"
+
+
 def _fmt(xs):
     return "/".join(f"{x:.4f}" for x in xs)
 
@@ -1183,7 +1448,7 @@ def main():
     ap.add_argument("--what", nargs="+", default=["tiles", "blocks", "gate"],
                     choices=["tiles", "blocks", "gate", "prepass", "resort",
                              "group", "pack", "scatter", "scatter-routes",
-                             "scatter-trace", "defaults"])
+                             "scatter-trace", "silhouette", "defaults"])
     ap.add_argument("--parent", default=None,
                     help="--what defaults: the unpacked tree to compare with")
     ap.add_argument("--prepass-out",
@@ -1206,6 +1471,10 @@ def main():
                     default=os.path.join(HERE, "reports",
                                          "torch_scatter_routes.json"),
                     help="where --what scatter-routes writes its times")
+    ap.add_argument("--silhouette-out",
+                    default=os.path.join(HERE, "reports",
+                                         "torch_silhouette_order.json"),
+                    help="where --what silhouette writes its table")
     ap.add_argument("--table", default=None,
                     help="where --what resort writes its table (default: "
                          "reports/torch_resort_ab.json)")
@@ -1231,8 +1500,12 @@ def main():
                        args.scatter_routes_out)
     if "scatter-trace" in args.what:
         scatter_trace(torch.device("cuda", 0), smi.stdout.strip())
+    if "silhouette" in args.what:
+        silhouette_order(torch.device("cuda", 0), smi.stdout.strip(),
+                         args.silhouette_out)
     if not set(args.what) - {"group", "resort", "pack", "scatter",
-                             "scatter-routes", "scatter-trace"}:
+                             "scatter-routes", "scatter-trace",
+                             "silhouette"}:
         return
     queries = recorded_queries(torch.device("cuda", 0))
     if "defaults" in args.what:

@@ -12,7 +12,12 @@ and the memory it gives back. Last, csrc/bounce.cu's four kernels (a
 bounce's chain and the ray-loss tail, forward and backward) against
 their plain versions bit for bit, float32 and float64, compat on and off,
 Huber 0 and 0.1, on an empty batch, one lane, a batch that is no
-multiple of the block, a full view's lanes and all lanes dead."""
+multiple of the block, a full view's lanes and all lanes dead. Then the
+oracle's one-origin route on the silhouette queries of the three dog
+meshes: csrc/order.cu against `ray_order_plain`, the kernels through the
+order against their plain versions, the route against the parent's route
+and the brute oracle, the closest hit at other rays a warp, and a graphed
+step against the parent's route, bit for bit."""
 
 import os
 
@@ -1487,3 +1492,218 @@ def test_bounce_and_tail_functions_on_the_card_take_the_kernels(dev):
     assert after["ray_tail_launches"] - before["ray_tail_launches"] == 2
     assert leaves[0].grad is None          # the exit origin is detached
     assert leaves[1].grad.abs().sum() > 0 and leaves[2].grad.abs().sum() > 0
+
+
+# --- the one-origin route (csrc/order.cu, the order in pack and closest hit)
+
+def _silhouette_queries(ms, dev, views=(0, 20, 45)):
+    """The silhouette queries of `views` of the ring of 72 cameras around
+    dog_mid90k at 1280x960 on mesh state `ms`, at the step's budget, as
+    the sampler makes them (its origin expanded over the rays)."""
+    from drt_tpu_torch.config import POINTGRAY_RES as RES
+    from drt_tpu_torch.data.synthetic import intrinsics, ring_cameras
+    from drt_tpu_torch.intersect.api import Hits
+    from drt_tpu_torch.optimize import default_silhouette_budget
+    from drt_tpu_torch.render.camera import CameraM
+    from drt_tpu_torch.render.silhouette import primary_visibility
+    ring = ring_cameras(load_ply(_tuning_mesh("dog_mid90k"))[0], 72)
+    out = []
+    for view in views:
+        R = ring[view][0]
+        cam = CameraM(*(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                        for a in (R, intrinsics(*RES), np.linalg.inv(R),
+                                  np.linalg.inv(intrinsics(*RES)))))
+
+        def record(o, d, *_, coherent):
+            out.append((o.detach(), d.detach()))
+            n = o.shape[0]
+            return Hits(torch.full((n,), float("inf"), device=dev),
+                        torch.full((n,), -1, dtype=torch.int32, device=dev))
+        with torch.no_grad():
+            primary_visibility(ms, cam, cam.R_inv[:3, 3].contiguous(), record,
+                               default_silhouette_budget(ms.num_edges), *RES)
+    return out
+
+
+def _tuning_mesh(name):
+    return os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "reports", "tuning_meshes",
+        f"{name}.ply")
+
+
+@pytest.fixture(scope="module")
+def silhouette_rays(dev):
+    out = {}
+    for name in ("dog_mid20k", "dog_mid45k", "dog_mid90k"):
+        ms = build_mesh_state(*load_ply(_tuning_mesh(name)), device=dev)
+        out[name] = (ms, _silhouette_queries(ms, dev))
+    return out
+
+
+def _unsorted(o, d, *geom, **kw):
+    """The query on the parent's route: its rays as separate rows, the
+    shift of the one-origin tensor."""
+    return CK.intersect_cuda(o.contiguous(), d, *geom, coherent=False,
+                             shift=o.float().mean(dim=0), **kw)
+
+
+@pytest.mark.parametrize("f64", [False, True])
+@pytest.mark.parametrize("mesh", ["dog_mid20k", "dog_mid45k", "dog_mid90k"])
+def test_order_kernel_matches_plain(dev, silhouette_rays, mesh, f64):
+    """csrc/order.cu against `ray_order_plain` on the CPU: the same order
+    of the three views' silhouette rays, float32 and float64 directions."""
+    _, queries = silhouette_rays[mesh]
+    for _, d in queries:
+        d = d.double() if f64 else d
+        n_pad = -(-d.shape[0] // 128) * 128 + 128
+        got = CK.ray_order_cuda(d, n_pad)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), CK.ray_order_plain(d.cpu(), n_pad))
+
+
+@pytest.mark.parametrize("case", ["two", "odd", "runs", "nan and inf",
+                                  "one direction", "large"])
+def test_order_kernel_edge_cases(dev, case):
+    """Few rays, counts that are no multiple of a warp or of the cluster's
+    shares, long runs of one key, NaN and infinite components, one
+    direction for all, and more rays than a cluster holds at once."""
+    rng = np.random.default_rng(4)
+    n = {"two": 2, "odd": 1031, "runs": 5000, "nan and inf": 3000,
+         "one direction": 700, "large": 300001}[case]
+    d = rng.normal(size=(n, 3)) + np.array([0.0, 0.0, 3.0])
+    if case == "runs":
+        d = d[rng.integers(0, 9, size=n)]
+    if case == "nan and inf":
+        d[rng.integers(0, n, size=40), rng.integers(0, 3, size=40)] = np.nan
+        d[rng.integers(0, n, size=5), 1] = np.inf
+    if case == "one direction":
+        d[:] = d[0]
+    d = torch.tensor(d, dtype=torch.float32)
+    got = CK.ray_order_cuda(d.to(dev), n + 77)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), CK.ray_order_plain(d, n + 77))
+
+
+@pytest.mark.parametrize("mesh", ["dog_mid20k", "dog_mid45k", "dog_mid90k"])
+def test_route_kernels_match_plain(dev, silhouette_rays, mesh):
+    """On the route's inputs: the packing kernel with the order against
+    `pack_plain` (int32 views), the prepass against its plain version, the
+    closest hit through the order against its plain version, bit for
+    bit; one order, pack, prepass and closest-hit launch a query."""
+    ms, queries = silhouette_rays[mesh]
+    geom = (ms.vertices, ms.faces, ms.face_valid)
+    for o, d in queries:
+        before = CK.counters.snapshot()
+        inp = CK.prepare_inputs(o, d, *geom, coherent=False)
+        after = CK.counters.snapshot()
+        assert inp.order is not None and inp.group >= CK.GROUP_ONE_ORIGIN
+        assert inp.phi.shape[1] // inp.count.shape[0] \
+            == CK.RAY_TILE_ONE_ORIGIN
+        assert (after["pack_launches"] - before["pack_launches"],
+                after["candidates_launches"]
+                - before["candidates_launches"]) == (1, 1)
+        kw = dict(group=inp.group, ray_tile=CK.RAY_TILE_ONE_ORIGIN,
+                  order=inp.order)
+        shift = o.float().mean(dim=0)
+        got = CK.pack_cuda(*geom, shift, o, d, **kw)
+        want = CK.pack_plain(*geom, shift, o, d, **kw)
+        _assert_packed_equal(got, want)
+        T = inp.count.shape[0]
+        cand, count = CK.candidates_plain(inp.phi[6:9], inp.inv, want.box_lo,
+                                          want.box_hi, want.box_valid, T,
+                                          tile=False)
+        assert torch.equal(count, inp.count)
+        assert torch.equal(cand, inp.cand)
+        t_k, id_k = CK.closest_hit_cuda(inp)
+        t_p, id_p = CK.closest_hit_plain(inp)
+        assert torch.equal(id_k, id_p)
+        assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("mesh", ["dog_mid20k", "dog_mid45k", "dog_mid90k"])
+def test_route_against_parent_route_and_brute(dev, silhouette_rays, mesh):
+    """The route's hit and t against the parent's route bit for bit (a
+    tri_id may differ only where both name a triangle at one t), its
+    tri_ids against the brute oracle on the first view within the tie
+    allowance, and the counter: 1 a routed query, 0 on the parent's."""
+    from drt_tpu_torch.intersect.brute import intersect_brute
+    ms, queries = silhouette_rays[mesh]
+    geom = (ms.vertices, ms.faces, ms.face_valid)
+    for k, (o, d) in enumerate(queries):
+        before = CK.counters.one_origin_queries
+        h = CK.intersect_cuda(o, d, *geom, coherent=False)
+        ref = _unsorted(o, d, *geom)
+        assert CK.counters.one_origin_queries == before + 1
+        assert int(ref.hit.sum()) > 1000
+        assert torch.equal(h.hit, ref.hit)
+        assert torch.equal(h.t, ref.t)
+        if k == 0:
+            hb = intersect_brute(o, d, *geom,
+                                 tri_chunk=max(512, ms.faces.shape[0] // 512))
+            n_hit = int((hb.hit | h.hit).sum())
+            assert int((hb.tri_id != h.tri_id).sum()) <= max(
+                1, 2 * n_hit // 1024)
+
+
+def test_graphed_step_route_equals_parent_route(dev, sphere_capture):
+    """Three replays of the sgd + none step as one CUDA graph with the
+    route and with the parent's route: loss and state bit for bit; the
+    route's replays add 8 one-origin queries each, the parent's none."""
+    from drt_tpu_torch.intersect import get_intersect_fn
+    from drt_tpu_torch.intersect.api import one_origin
+    from drt_tpu_torch.optimize import LossWeights, make_train_step
+    from drt_tpu_torch.optimize.loop import GraphedTrainStep
+    _, _, cap = sphere_capture
+    v0, f0 = make_icosphere(subdivisions=3, radius=47.0)
+    ms = build_mesh_state(v0, f0, device=dev)
+    w = LossWeights(ray_w=40.0, vh_w=2e-3, sm_w=0.08, ior=1.5)
+    base = get_intersect_fn("cuda")
+
+    def parent(o, d, v, f, fv=None, *, coherent):
+        if coherent or not one_origin(o):
+            return base(o, d, v, f, fv, coherent=coherent)
+        return _unsorted(o.detach(), d.detach(), v.detach(), f, fv)
+    ray = [[1], [3], [0]]
+    silh = [[0, 1, 2, 3, 0, 1, 2, 3], [3, 2, 1, 0, 1, 1, 2, 2],
+            [2, 0, 3, 1, 1, 0, 3, 2]]
+    runs = []
+    for oracle in (base, parent):
+        init, step, _ = make_train_step(oracle, w, 96, 128, 1024)
+        run = GraphedTrainStep(step, init(ms), 0.05, ms, cap.views,
+                               torch.tensor(ray, device=dev),
+                               torch.tensor(silh, device=dev))
+        got = []
+        for _ in ray:
+            before = CK.counters.one_origin_queries
+            loss, _ = run()
+            torch.cuda.synchronize()
+            got.append((loss.clone(), {k: v.clone()
+                                       for k, v in run.state.items()},
+                        CK.counters.one_origin_queries - before))
+        run.close()
+        runs.append(got)
+    for (la, sa, na), (lb, sb, nb) in zip(*runs):
+        assert (na, nb) == (8, 0)
+        assert torch.equal(la, lb)
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), k
+
+
+@pytest.mark.parametrize("lanes,block", [(8, 8), (8, 16), (16, 32),
+                                         (32, 64), (4, 32)])
+def test_closest_hit_rays_a_warp_match_plain(dev, silhouette_rays,
+                                             monkeypatch, lanes, block):
+    """The one-origin route's closest hit with `lanes` rays a warp and
+    `block` rays a block (BLOCK_RAYS_ONE_ORIGIN, RAY_LANES_ONE_ORIGIN)
+    against its plain version, bit for bit."""
+    monkeypatch.setattr(CK, "RAY_LANES_ONE_ORIGIN", lanes)
+    monkeypatch.setattr(CK, "BLOCK_RAYS_ONE_ORIGIN", block)
+    ms, queries = silhouette_rays["dog_mid45k"]
+    o, d = queries[1]
+    inp = CK.prepare_inputs(o, d, ms.vertices, ms.faces, ms.face_valid,
+                            coherent=False)
+    t_k, id_k = CK.closest_hit_cuda(inp)
+    t_p, id_p = CK.closest_hit_plain(inp)
+    assert int((id_k >= 0).sum()) > 1000
+    assert torch.equal(id_k, id_p)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
