@@ -12,8 +12,9 @@ step (`make_train_step`) and the CUDA graph `optimize` replays it in
 the seed through its first `check_steps` steps, keeping each step's loss,
 the optimizer's first-step state and the parameters after the last, and
 hands it to the window. After the window the program is freed and the
-plain reference (reference/) takes the same steps from the same inputs;
-`correct` compares the two.
+configuration's plain reference (reference/<configuration>.py, step.py
+where there is none) takes the same steps from the same inputs; `correct`
+compares the two.
 """
 
 from __future__ import annotations
@@ -30,13 +31,16 @@ import torch
 from port_bench import capture, tracing
 from port_bench import traffic as traffic_gen
 from port_bench.meshio import load_mesh
-from port_bench.reference import step as ref
 from port_bench.reference.mesh import ref_mesh
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
 FORBIDDEN = ("jax", "jaxlib", "flax", "drt_tpu")
 PARTS = ("ray", "vh", "sm")     # the loss's terms, before their weights
+REFERENCE = "step"             # the reference of a configuration with none
+# What a reference module provides (reference/step.py's docstring).
+INTERFACE = ("precision", "init_state", "step", "update", "first_grad",
+             "grad_from_momentum")
 
 
 def forbidden_modules() -> list:
@@ -69,16 +73,40 @@ def resolve(workload: str, root: str = ROOT):
     return cell, cfg, mix, limits, layer
 
 
+def load_file(path: str, name: str):
+    """The module of the Python file at path, entered in sys.modules as
+    `name` (a dataclass of the module looks itself up there)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def metric_reader(name: str, root: str = ROOT):
     """The `read(trace)` of port_bench/metrics/<name>.py."""
-    import importlib.util
     path = os.path.join(root, "port_bench", "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        "port_bench_metric_" + name.replace(".", "_").replace("-", "_"),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_file(path, "port_bench_metric_"
+                     + name.replace(".", "_").replace("-", "_")).read
+
+
+def reference_of(cfg: dict, root: str = ROOT):
+    """The plain reference of a configuration, loaded by path:
+    port_bench/reference/<its name>.py of the checkout at root where that
+    file exists, reference/step.py otherwise. It has to provide
+    INTERFACE."""
+    ref_dir = os.path.join(root, "port_bench", "reference")
+    stem = cfg["name"]
+    if not os.path.isfile(os.path.join(ref_dir, f"{stem}.py")):
+        stem = REFERENCE
+    mod = load_file(os.path.join(ref_dir, f"{stem}.py"),
+                    "port_bench_reference_"
+                    + stem.replace(".", "_").replace("-", "_"))
+    missing = [k for k in INTERFACE if not callable(getattr(mod, k, None))]
+    if missing:
+        raise ValueError(f"reference/{stem}.py lacks {missing}")
+    return mod
 
 
 class Program:
@@ -125,11 +153,13 @@ class Program:
         for k, v in self.fresh.items():
             self.run.state[k].copy_(v)
 
-    def first_steps(self, n: int, optimizer: str) -> dict:
+    def first_steps(self, n: int, optimizer: str, ref) -> dict:
         """Run the first n steps: each step's loss and its parts, the
         first gradient as the optimizer got it (from its state after one
-        step), the parameters' change after the n, and each step's
-        parameters and momentum, over the mesh's own vertices."""
+        step, by the reference module ref's `first_grad`), the parameters'
+        change after the n, each step's parameters and momentum, and the
+        pass's fresh parameters and momentum, over the mesh's own
+        vertices."""
         nv = self.mesh.num_vertices
         losses, parts, states = [], [], []
         for _ in range(n):
@@ -143,7 +173,9 @@ class Program:
         delta = (self.run.state["params"] - self.fresh["params"])[:nv]
         return {"losses": losses, "parts": parts, "states": states,
                 "g1": ref.first_grad(states[0]["m"], optimizer),
-                "delta": delta.clone()}
+                "delta": delta.clone(),
+                "fresh": {k: self.fresh[k][:nv].clone()
+                          for k in ("params", "m")}}
 
     def close(self):
         self.run.close()
@@ -166,11 +198,13 @@ FAULTS = ("half", "frozen")
 ROWS_QUANTILE = 0.9
 
 
-def reference_steps(cfg, views, mesh_np, ray_rows, silh_rows, device,
+def reference_steps(cfg, ref, views, mesh_np, ray_rows, silh_rows, device,
                     control=None, fault=None) -> dict:
-    """The reference's first len(ray_rows) steps, as `first_steps` reads
-    the program's. `control` (a key of CONTROLS) runs it one precision
-    lower; `fault` (one of FAULTS) plants that fault (reference.step)."""
+    """The first len(ray_rows) steps of the configuration's reference
+    module ref (`reference_of`), as `first_steps` reads the program's, the
+    change taken from its own `init_state`'s parameters. `control` (a key
+    of CONTROLS) runs it one precision lower; `fault` (one of FAULTS)
+    plants that fault (reference/step.py)."""
     kw = CONTROLS[control] if control else {}
     with ref.precision(kw.get("tf32", False)):
         mesh = ref_mesh(*mesh_np, device)
@@ -178,6 +212,7 @@ def reference_steps(cfg, views, mesh_np, ray_rows, silh_rows, device,
             raise ValueError(f"the reference runs {mesh.vertices.dtype}, "
                              f"the configuration states {cfg['dtype']}")
         state = ref.init_state(mesh)
+        fresh = {k: state[k].clone() for k in ("params", "m")}
         losses, parts, states = [], [], []
         for r, s in zip(ray_rows, silh_rows):
             state, loss, part = ref.step(state, cfg["lr"], mesh, views,
@@ -190,7 +225,7 @@ def reference_steps(cfg, views, mesh_np, ray_rows, silh_rows, device,
                            "v": float(state.get("v", 0.0))})
     return {"losses": losses, "parts": parts, "states": states,
             "g1": ref.first_grad(states[0]["m"], cfg["optimizer"]),
-            "delta": state["params"]}
+            "delta": state["params"] - fresh["params"], "fresh": fresh}
 
 
 def rows_gap(a, b, own_scale=False, q=ROWS_QUANTILE) -> float:
@@ -211,19 +246,19 @@ def rows_gap(a, b, own_scale=False, q=ROWS_QUANTILE) -> float:
     return float(torch.quantile((a - b).norm(dim=1), q) / mb)
 
 
-def rule_gap(states, cfg) -> float:
-    """The optimizer's stage followed from the run's own state: each
-    step's gradient is read back from its momentum before and after
-    (reference.step.grad_from_momentum), the reference's update is applied
-    to the state before the step, and the worst step's gap between the
-    parameters' change the run made and the one the update gives, over the
-    norm of the latter. It sees the learning rate, the bias correction,
-    the second moment and parameters left unwritten, which the gradient's
-    numbers do not; the gradients it starts from are the run's, which
-    the other numbers hold to the reference's."""
+def rule_gap(states, cfg, ref, fresh) -> float:
+    """The optimizer's stage followed from the run's own state, from its
+    fresh parameters and momentum (`fresh`): each step's gradient is read
+    back from its momentum before and after (the reference module ref's
+    `grad_from_momentum`), the reference's `update` is applied to the
+    state before the step, and the worst step's gap between the
+    parameters' change the run made and the one the update gives, over
+    the norm of the latter. It sees the learning rate, the bias
+    correction, the second moment and parameters left unwritten, which the
+    gradient's numbers do not; the gradients it starts from are the run's,
+    which the other numbers hold to the reference's."""
     opt = cfg["optimizer"]
-    prev = {k: torch.zeros_like(states[0]["params"]).double()
-            for k in ("params", "m")}
+    prev = {k: fresh[k].double() for k in ("params", "m")}
     prev.update(v=0.0, count=0)
     worst = 0.0
     for st in states:
@@ -238,7 +273,7 @@ def rule_gap(states, cfg) -> float:
     return worst
 
 
-def gaps(prog: dict, want: dict, cfg) -> dict:
+def gaps(prog: dict, want: dict, cfg, ref) -> dict:
     """The numbers compared (PERF.md says which decide `correct`, and
     why): the worst step's relative gap of the loss, of each of its parts
     and of the ray view's counted lanes (those that refract twice and
@@ -247,7 +282,7 @@ def gaps(prog: dict, want: dict, cfg) -> dict:
     against the reference's (one parameter leaf: the vertex
     displacement); their `rows_gap`s, and the change's median one at
     each side's own scale (`update_dir_gap`); and the run's
-    `rule_gap`."""
+    `rule_gap` (by the reference module ref)."""
     def rel(a, b):
         return abs(a - b) / abs(b) if b else abs(a - b)
 
@@ -264,7 +299,8 @@ def gaps(prog: dict, want: dict, cfg) -> dict:
                                         float(b.abs().median()))
         out[f"{name}_rows_gap"] = rows_gap(a, b)
     out["update_dir_gap"] = rows_gap(prog["delta"], want["delta"], True, 0.5)
-    out["update_rule_gap"] = rule_gap(prog["states"], cfg)
+    out["update_rule_gap"] = rule_gap(prog["states"], cfg, ref,
+                                      prog["fresh"])
     return out
 
 
@@ -334,6 +370,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     checks. `device` and `runner` let a test drive it without the card."""
     marks = {"entry": time.time()}
     cell, cfg, mix, limits, layer = resolve(workload, root)
+    ref = reference_of(cfg, root)
     device = torch.device(device or "cuda")
     rig = cfg["rig"]
     gt = load_mesh(root, cfg["ground_truth"])
@@ -353,7 +390,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     prog = Program(cfg, views, init, ray_rows, silh_rows, device, runner)
     _sync(device)
     marks["program"] = time.time()
-    first = prog.first_steps(n_check, cfg["optimizer"])
+    first = prog.first_steps(n_check, cfg["optimizer"], ref)
     # The set-up's garbage is collected here, not by a collection that
     # would fall inside the window.
     gc.collect()
@@ -400,9 +437,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     del prog
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    want = reference_steps(cfg, views, init, ray_rows[:n_check],
+    want = reference_steps(cfg, ref, views, init, ray_rows[:n_check],
                            silh_rows[:n_check], device)
-    found = gaps(first, want, cfg)
+    found = gaps(first, want, cfg, ref)
     log(f"gaps {json.dumps(found)}", file=sys.stderr)
     correct, checks = judge(found, limits)
     out["correct"] = correct and bad == 0

@@ -40,6 +40,7 @@ def readings(workload, seeds, control_seeds, fault_seeds, root=ROOT,
     from port_bench import traffic as traffic_gen
     from port_bench.meshio import load_mesh
     _cell, cfg, mix, _limits, _layer = bench.resolve(workload, root)
+    ref = bench.reference_of(cfg, root)
     device = torch.device(device or "cuda")
     gt = load_mesh(root, cfg["ground_truth"])
     init = load_mesh(root, cfg["init_mesh"])
@@ -53,32 +54,33 @@ def readings(workload, seeds, control_seeds, fault_seeds, root=ROOT,
         rays, silhs = traffic_gen.view_rows(mix, cfg["rig"]["num_views"],
                                             seed, n + 1)
         t0 = time.time()
-        want = bench.reference_steps(cfg, views, init, rays[:n], silhs[:n],
-                                     device)
+        want = bench.reference_steps(cfg, ref, views, init, rays[:n],
+                                     silhs[:n], device)
         row = {"reference_s": time.time() - t0, "loss": want["losses"]}
         if seed in seeds:
             prog = bench.Program(cfg, views, init, rays, silhs, device,
                                  runner)
-            got = prog.first_steps(n, cfg["optimizer"])
+            got = prog.first_steps(n, cfg["optimizer"], ref)
             if seed == seeds[0]:
                 out["flip_share"] = flip_share(prog.mesh, views, rays[0][0],
                                                init, device)
             prog.close()
             del prog
-            out["program"][seed] = {**bench.gaps(got, want, cfg), **row,
-                                    **variants(got, want)}
+            out["program"][seed] = {**bench.gaps(got, want, cfg, ref),
+                                    **row, **variants(got, want)}
             if seed in look:
-                out["look"][seed] = look_at(got, want, cfg)
+                out["look"][seed] = look_at(got, want, cfg, ref)
         for kind, chosen, runs in (("control", control_seeds,
                                     [{"control": k} for k in bench.CONTROLS]),
                                    ("fault", fault_seeds,
                                     [{"fault": k} for k in bench.FAULTS])):
             if seed in chosen:
                 for kw in runs:
-                    got = bench.reference_steps(cfg, views, init, rays[:n],
-                                                silhs[:n], device, **kw)
+                    got = bench.reference_steps(cfg, ref, views, init,
+                                                rays[:n], silhs[:n], device,
+                                                **kw)
                     out[kind][kw[kind]][seed] = {**bench.gaps(got, want,
-                                                              cfg),
+                                                              cfg, ref),
                                                  **variants(got, want)}
         log(json.dumps({"seed": seed, "program": out["program"].get(seed),
                         "look": out["look"].get(seed),
@@ -112,12 +114,11 @@ def variants(got, want) -> dict:
     return out
 
 
-def look_at(got, want, cfg) -> list:
+def look_at(got, want, cfg, ref) -> list:
     """Per step, for the program ("p") and the reference ("r"): uniform
     Adam's second moment v, the largest entry of the step's limited
-    gradient (read back from the momentum), its vertex, and that vertex's
-    gradient rows on both sides."""
-    from port_bench.reference import step as ref
+    gradient (read back from the momentum by the reference module ref),
+    its vertex, and that vertex's gradient rows on both sides."""
     steps, prev = [], {"p": None, "r": None}
     for k, (sp, sr) in enumerate(zip(got["states"], want["states"])):
         g = {}

@@ -15,6 +15,28 @@ Float32 throughout, with TF32 off (`precision`). The two controls run it
 one precision lower: with TF32 on, or with the ray path (each bounce's
 arithmetic, the exit rays and the ray loss's residuals) in bfloat16
 (`ray_dtype`).
+
+This module is the reference of every configuration that has none of its
+own. A configuration brings its own as port_bench/reference/<its name>.py
+(`bench.reference_of` loads it by path, the configuration's file is not
+touched); such a module may import the shared parts from this one,
+mesh.py and oracle.py, and provides, as this one does:
+
+- `precision(tf32)`: a context manager under which the steps run, with
+  TF32 on for the control that asks for it;
+- `init_state(mesh)`: the pass's fresh state of a `RefMesh`, a dict with
+  at least "params" and "m" ([V,3]); the parameters' change is measured
+  from its "params";
+- `step(state, lr, mesh, views, ray_view, silh_views, cfg, fault=None,
+  ray_dtype=None)`: one train step, (new state, loss, parts), parts
+  holding "ray", "vh", "sm" and "lanes"; `fault` is None, "half" or
+  "frozen", `ray_dtype` None or the control's bfloat16 (below);
+- `update(state, g, lr, cfg)`: the optimizer's update of the state by the
+  limited gradient g;
+- `first_grad(m1, optimizer)`: the first step's gradient from the
+  momentum after it;
+- `grad_from_momentum(m_new, m_old, optimizer, momentum)`: a step's
+  limited gradient from the momentum before and after it.
 """
 
 from __future__ import annotations

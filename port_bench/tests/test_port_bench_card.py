@@ -9,7 +9,7 @@ from faults import FAULTS
 from port_bench import bench, readings
 
 pytestmark = pytest.mark.cuda
-CELLS = ("parity-step-45k", "adv-step-90k")
+CELLS = ("parity-step-45k", "adv-step-90k", "parity-step-20k")
 
 
 @pytest.mark.parametrize("workload", CELLS)

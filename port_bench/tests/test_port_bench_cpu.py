@@ -1,8 +1,13 @@
 """The yardstick against the port on the CPU at icosphere size: the
 capture maker against `synthesize_capture`, the soft mask against
-`process_mask`, the plain reference against the port's step, and a whole
-run of a tiny cell, sound and with faults planted in the timed path."""
+`process_mask`, the plain reference against the port's step, a whole
+run of a tiny cell, sound and with faults planted in the timed path, and
+cells whose configurations bring references of their own beside
+step.py."""
 
+import json
+import os
+import shutil
 import subprocess
 import sys
 
@@ -95,7 +100,8 @@ def test_reference_step_is_the_port_step(cell, opt, pre, lr):
         optimizer=opt, precond=pre)
     state, loss, aux = step(init_state(mesh), lr, mesh, ViewBatch(*views),
                             rays[0], silhs[0])
-    want = bench.reference_steps(cfg, views, init, rays, silhs, "cpu")
+    want = bench.reference_steps(cfg, ref, views, init, rays, silhs,
+                                 "cpu")
     assert float(loss) == pytest.approx(want["losses"][0], rel=1e-5)
     for p in bench.PARTS:
         assert float(aux[p]) == pytest.approx(want["parts"][0][p], rel=1e-5)
@@ -133,6 +139,123 @@ def test_readings_give_each_kind(cell):
     assert 0.0 <= out["flip_share"] < 0.05
 
 
+# Dropped-in references: step.py's step, noting each call beside the
+# module; and step.py's with a pass that starts at SHIFT, as a
+# reparameterized pass starts away from zero.
+RECORDING = """from pathlib import Path
+
+from port_bench.reference import step as base
+from port_bench.reference.step import (first_grad, grad_from_momentum,
+                                       init_state, precision, update)
+
+
+def step(state, *a, **kw):
+    with open(Path(__file__).with_name("steps.txt"), "a") as fh:
+        fh.write("step\\n")
+    return base.step(state, *a, **kw)
+"""
+SHIFT = (0.25, -0.125, 0.5)
+SHIFTED = """import torch
+
+from port_bench.reference import step as base
+from port_bench.reference.step import (first_grad, grad_from_momentum,
+                                       precision, step, update)
+
+
+def init_state(mesh):
+    state = base.init_state(mesh)
+    return dict(state, params=state["params"] + torch.tensor(%r))
+""" % (SHIFT,)
+
+
+def drop_in(root, name, source):
+    """Into the checkout at root, new files and entries only: a
+    configuration '<name>-cfg' (the tiny one under another name), its
+    reference reference/<name>-cfg.py, the cell <name> of that
+    configuration with the tiny cell's limits. Returns the
+    configuration."""
+    pb = os.path.join(root, "port_bench")
+    with open(os.path.join(pb, "reference", f"{name}-cfg.py"), "w") as fh:
+        fh.write(source)
+    cfg = bench.read_json(os.path.join(pb, "configs", "tiny-cfg.json"))
+    cfg.update(name=f"{name}-cfg")
+    with open(os.path.join(pb, "configs", f"{name}-cfg.json"), "w") as fh:
+        json.dump(cfg, fh)
+    shutil.copy(os.path.join(pb, "limits", "tiny.json"),
+                os.path.join(pb, "limits", f"{name}.json"))
+    man = bench.read_json(os.path.join(root, "BENCHMARK.json"))
+    man["configs"].append(dict(man["configs"][0], name=cfg["name"],
+                               file=f"port_bench/configs/{name}-cfg.json"))
+    man["workloads"].append(dict(man["workloads"][0], name=name,
+                                 config=cfg["name"]))
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as fh:
+        json.dump(man, fh)
+    return cfg
+
+
+def test_a_dropped_in_reference_is_found_without_an_edit(cell):
+    root = cell[0]
+    drop_in(root, "tiny-recorded", RECORDING)
+    out = bench.run_cell("tiny-recorded", 2 ** 31 + 29, 0.2, False, 0.0,
+                         root, device="cpu", runner=tiny.EagerRunner)
+    assert out["correct"], out["checks"]
+    with open(os.path.join(root, "port_bench", "reference",
+                           "steps.txt")) as fh:
+        assert fh.read().split() == ["step"] * 3
+
+
+class ShiftedRunner(tiny.EagerRunner):
+    """The program's pass started at SHIFT on the mesh's own vertices."""
+
+    def __init__(self, step, state, lr, mesh, *a):
+        super().__init__(step, state, lr, mesh, *a)
+        self.state["params"][:mesh.num_vertices] += torch.tensor(SHIFT)
+
+
+def test_the_change_is_taken_from_the_fresh_parameters(cell):
+    """A pass whose fresh parameters are not zero, on both sides: the
+    change is the parameters after the steps less the fresh ones, and the
+    optimizer's walk starts from them (from zeros it reads 5.6)."""
+    root, _cfg, mix, _gt, init, views = cell
+    cfg = drop_in(root, "tiny-shifted", SHIFTED)
+    ref = bench.reference_of(cfg, root)
+    rays, silhs = traffic_gen.view_rows(mix, 4, 2 ** 31 + 7, 4)
+    prog = bench.Program(cfg, views, init, rays, silhs, "cpu", ShiftedRunner)
+    got = prog.first_steps(3, cfg["optimizer"], ref)
+    want = bench.reference_steps(cfg, ref, views, init, rays[:3],
+                                 silhs[:3], "cpu")
+    found = bench.gaps(got, want, cfg, ref)
+    assert found["update_rule_gap"] < 1e-6
+    assert found["update_gap"] < 1e-3 and found["loss_gap"] < 1e-3
+    for side in (got, want):
+        assert torch.equal(side["fresh"]["params"][0], torch.tensor(SHIFT))
+        assert torch.equal(side["delta"], side["states"][-1]["params"]
+                           - side["fresh"]["params"])
+    zero = {k: torch.zeros_like(v) for k, v in got["fresh"].items()}
+    assert bench.rule_gap(got["states"], cfg, ref, zero) >= 1.0
+
+
+def test_the_tiny_cells_gaps_are_as_before(cell):
+    """Where the pass starts at zero parameters, as in every cell of
+    reference/step.py, each number reads bit for bit what it read when
+    the change was the reference's parameters after the steps and the
+    optimizer's walk started from zeros."""
+    root, cfg, mix, _gt, init, views = cell
+    ref = bench.reference_of(cfg, root)
+    rays, silhs = traffic_gen.view_rows(mix, 4, 2 ** 31 + 13, 4)
+    prog = bench.Program(cfg, views, init, rays, silhs, "cpu",
+                         tiny.EagerRunner)
+    got = prog.first_steps(3, cfg["optimizer"], ref)
+    want = bench.reference_steps(cfg, ref, views, init, rays[:3],
+                                 silhs[:3], "cpu")
+    zero = {k: torch.zeros_like(v) for k, v in got["fresh"].items()}
+    before = bench.gaps(dict(got, fresh=zero),
+                        dict(want, delta=want["states"][-1]["params"]), cfg,
+                        ref)
+    assert bench.gaps(got, want, cfg, ref) == before
+    assert torch.equal(want["delta"], want["states"][-1]["params"])
+
+
 @pytest.mark.parametrize("opt", ["sgd", "uadam"])
 def test_rule_gap_sees_the_optimizer_and_not_the_gradient(opt):
     """update_rule_gap reads nought on a run whose updates follow the
@@ -155,11 +278,13 @@ def test_rule_gap_sees_the_optimizer_and_not_the_gradient(opt):
             out.append({"params": new["params"], "m": new["m"]})
             st = new
         return out
-    assert bench.rule_gap(run(), cfg) < 1e-5
-    assert bench.rule_gap(run(scale=1.1), cfg) == pytest.approx(0.1, 1e-3)
-    assert bench.rule_gap(run(sign=-1.0), cfg) == pytest.approx(2.0, 1e-3)
+    def gap(states):
+        return bench.rule_gap(states, cfg, ref, state)
+    assert gap(run()) < 1e-5
+    assert gap(run(scale=1.1)) == pytest.approx(0.1, 1e-3)
+    assert gap(run(sign=-1.0)) == pytest.approx(2.0, 1e-3)
     if opt == "uadam":
-        assert bench.rule_gap(run(count=1), cfg) > 0.1
+        assert gap(run(count=1)) > 0.1
 
 
 def test_rows_gap_sees_signs_rows_and_scale_but_not_a_few_vertices():

@@ -92,6 +92,65 @@ def test_every_cell_finds_its_files_by_name(man, kind):
                 assert callable(bench.metric_reader(name, ROOT))
 
 
+def test_every_configuration_brings_its_reference(man):
+    """Each configuration's reference module, reference/<its name>.py or
+    else reference/step.py, provides the interface (reference/step.py's
+    docstring); the first two take reference/step.py; loaded in a fresh
+    interpreter, none loads anything of the program or of JAX."""
+    ref_dir = os.path.join(ROOT, "port_bench", "reference")
+    files = []
+    for entry in man["configs"]:
+        path = os.path.join(ROOT, entry["file"])
+        cfg = bench.read_json(path)
+        own = os.path.join(ref_dir, f"{cfg['name']}.py")
+        want = own if os.path.isfile(own) else os.path.join(
+            ref_dir, f"{bench.REFERENCE}.py")
+        mod = bench.reference_of(cfg, ROOT)
+        assert os.path.samefile(mod.__file__, want)
+        assert all(callable(getattr(mod, k)) for k in bench.INTERFACE)
+        if entry["name"] in ("dog-pointgray-parity", "dog-pointgray-adv"):
+            assert os.path.basename(want) == "step.py"
+        files.append(path)
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "from port_bench import bench\n"
+            "for f in %r:\n"
+            "    bench.reference_of(bench.read_json(f), %r)\n"
+            "bad = sorted({m.split('.')[0] for m in sys.modules}\n"
+            "             & {'drt_tpu_torch', 'drt_tpu', 'jax', 'jaxlib'})\n"
+            "print(bad)" % (ROOT, files, ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_a_reference_short_of_the_interface_is_refused(tmp_path):
+    ref = tmp_path / "port_bench" / "reference"
+    ref.mkdir(parents=True)
+    (ref / "short.py").write_text(
+        "from port_bench.reference.step import precision, init_state  "
+        "# noqa: F401\n")
+    with pytest.raises(ValueError, match="lacks"):
+        bench.reference_of({"name": "short"}, str(tmp_path))
+
+
+def test_the_guard_sees_what_a_reference_loads(tmp_path):
+    ref = tmp_path / "port_bench" / "reference"
+    ref.mkdir(parents=True)
+    (ref / "loads-jaxlib.py").write_text(
+        "import sys\nimport types\n\n"
+        "sys.modules.setdefault('jaxlib', types.ModuleType('jaxlib'))\n"
+        "from port_bench.reference.step import *  # noqa: E402,F401,F403\n")
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "from port_bench import bench\n"
+            "bench.reference_of({'name': 'loads-jaxlib'}, %r)\n"
+            "print(bench.forbidden_modules())" % (ROOT, str(tmp_path)))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "['jaxlib']"
+
+
 def _trace(**kw):
     base = dict(device=[("void closest_hit_kernel<1>(int)", 0.0, 40.0),
                         ("Memset (Device)", 50.0, 60.0)],

@@ -59,14 +59,15 @@ def write_ply(path, v, f):
 
 
 def make_root(tmp, optimizer="sgd", precond="none", lr=0.05, limits=None):
-    """A checkout root holding the cell 'tiny' (configuration 'tiny-cfg',
-    mix 'replay-blocks') and its limits; returns its path."""
+    """A checkout root holding a copy of port_bench/ (its code, references,
+    mixes and readers; not its meshes or tests) with the cell 'tiny'
+    (configuration 'tiny-cfg', mix 'replay-blocks') and its limits, and a
+    BENCHMARK.json of that cell alone; returns its path."""
     root = os.path.join(tmp, "root")
     pb = os.path.join(root, "port_bench")
-    for d in ("configs", "limits", "data", "metrics"):
-        os.makedirs(os.path.join(pb, d), exist_ok=True)
-    shutil.copytree(os.path.join(BENCH, "traffic"),
-                    os.path.join(pb, "traffic"))
+    shutil.copytree(BENCH, pb, ignore=shutil.ignore_patterns(
+        ".cache", "__pycache__", "data", "tests"))
+    os.makedirs(os.path.join(pb, "data"))
     gt_sha = write_ply(os.path.join(pb, "data", "gt.ply"),
                        *icosphere(3, 10.0, (1.0, 0.8, 1.2)))
     init_sha = write_ply(os.path.join(pb, "data", "init.ply"),
