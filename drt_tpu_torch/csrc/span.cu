@@ -28,6 +28,7 @@ __global__ void span_silhouette_kernel() {}
 __global__ void span_smooth_kernel() {}
 __global__ void span_backward_kernel() {}
 __global__ void span_update_kernel() {}
+__global__ void span_solve_kernel() {}
 __global__ void span_end_kernel() {}
 
 namespace {
@@ -37,7 +38,8 @@ typedef void (*Marker)();
 const Marker MARKERS[] = {span_step_kernel, span_normals_kernel,
                           span_ray_kernel, span_silhouette_kernel,
                           span_smooth_kernel, span_backward_kernel,
-                          span_update_kernel, span_end_kernel};
+                          span_update_kernel, span_solve_kernel,
+                          span_end_kernel};
 const int N_MARKERS = sizeof(MARKERS) / sizeof(MARKERS[0]);
 
 }  // namespace
@@ -45,7 +47,7 @@ const int N_MARKERS = sizeof(MARKERS) / sizeof(MARKERS[0]);
 extern "C" const char* span_signature() { return "kind stream node"; }
 
 extern "C" const char* span_kinds_signature() {
-    return "step normals ray silhouette smooth backward update end";
+    return "step normals ray silhouette smooth backward update solve end";
 }
 
 // Launch marker `kind` on `stream`. `*node` is the graph node the launch

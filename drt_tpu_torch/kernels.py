@@ -55,7 +55,8 @@ class LaunchCounter:
     `scatter_grid_launches` the grid route), and of the conjugate-gradient
     solve (`cg_launches`, one a solve on CUDA tensors, of which
     `cg_shared_launches` took the shared route and `cg_global_launches` the
-    global route), and of csrc/bounce.cu: a bounce's chain
+    global route, and `cg_adjoint_launches` were the adjoint solves of
+    `sobolev_solve`'s backward), and of csrc/bounce.cu: a bounce's chain
     (`bounce_launches`, forward and backward, of which
     `bounce_backward_launches` backward) and the ray loss's tail
     (`ray_tail_launches`, of which `ray_tail_backward_launches`
@@ -76,6 +77,7 @@ class LaunchCounter:
         self.cg_launches = 0
         self.cg_shared_launches = 0
         self.cg_global_launches = 0
+        self.cg_adjoint_launches = 0
         self.bounce_launches = 0
         self.bounce_backward_launches = 0
         self.ray_tail_launches = 0
@@ -244,7 +246,7 @@ _SIGNATURES = {
     "span_signature": "kind stream node",
     # the markers' kinds, in the order of the `kind` argument (spans.py)
     "span_kinds_signature": "step normals ray silhouette smooth backward "
-                            "update end",
+                            "update solve end",
 }
 
 

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from drt_tpu_torch import kernels
+from drt_tpu_torch import kernels, spans
 from drt_tpu_torch.geometry.vec import tree_sum
 
 
@@ -349,19 +349,26 @@ def cg_cuda(b, neighbors, neighbor_valid, lam, tol: float = 1e-5,
 
 
 class _SobolevSolve(torch.autograd.Function):
-    """v = A^{-1} u by CG; d/du is the same solve of the cotangent."""
+    """v = A^{-1} u by CG; d/du is the same solve of the cotangent. Each
+    solve is a `solve` span (spans.py); the adjoint's launches count in
+    `kernels.counters.cg_adjoint_launches`."""
 
     @staticmethod
     def forward(ctx, u, neighbors, neighbor_valid, lam, maxiter, tol, x0):
         ctx.save_for_backward(neighbors, neighbor_valid)
         ctx.args = (lam, maxiter, tol, x0)
-        return _solve(u, neighbors, neighbor_valid, lam, maxiter, tol, x0)
+        with spans.span("solve", u):
+            return _solve(u, neighbors, neighbor_valid, lam, maxiter, tol,
+                          x0)
 
     @staticmethod
     def backward(ctx, g):
         neighbors, neighbor_valid = ctx.saved_tensors
-        return (_solve(g, neighbors, neighbor_valid, *ctx.args),
-                None, None, None, None, None, None)
+        with spans.span("solve", g):
+            x = _solve(g, neighbors, neighbor_valid, *ctx.args)
+        if g.device.type == "cuda":
+            kernels.counters.cg_adjoint_launches += 1
+        return x, None, None, None, None, None, None
 
 
 def _solve(u, neighbors, neighbor_valid, lam, maxiter, tol, x0=None):

@@ -17,7 +17,11 @@ range would be missing there). One step is one `step` span; inside it:
   own view of its input (`chain_input`), which fires once that chain's
   gradient is complete;
 - `update`: everything after the gradient (h1's evidence scaling and CG
-  solve, the clamp, the optimizer, `silh_max`).
+  solve, the clamp, the optimizer, `silh_max`);
+- `solve`: each CG solve of `optimize/precondition.sobolev_solve`, inside
+  whichever span launches it: the Sobolev parameterisation's solve of the
+  vertices inside `normals`, its adjoint solve of the gradient inside
+  `backward`, h1's solve inside `update`.
 
 A step of uadam + h1 takes the gradient twice and so opens the forward and
 backward spans once a pass.
@@ -43,7 +47,7 @@ from drt_tpu_torch import kernels
 
 # The span names, in the order of csrc/span.cu's kinds; "end" closes.
 NAMES = ("step", "normals", "ray", "silhouette", "smooth", "backward",
-         "update")
+         "update", "solve")
 _KIND = {name: i for i, name in enumerate(NAMES + ("end",))}
 
 # The graph nodes of the markers launched while a step is being captured

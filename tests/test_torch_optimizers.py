@@ -29,7 +29,7 @@ torch.set_num_threads(min(2, torch.get_num_threads()))
 
 STATE_KEYS = ("params", "m", "v", "v_per", "count", "init_v", "silh_max")
 PAIRS = [("adam", "none"), ("uadam", "none"), ("sgd", "sobolev"),
-         ("sgd", "h1"), ("uadam", "h1")]
+         ("uadam", "sobolev"), ("sgd", "h1"), ("uadam", "h1")]
 KW = dict(precond_lambda=9.0, cg_iters=64)
 
 
@@ -121,7 +121,8 @@ def test_clamp_rule_and_rejections(setup):  # noqa: F811
     for optimizer, precond, clamped in [("sgd", "none", True),
                                         ("adam", "none", False),
                                         ("adam", "h1", True),
-                                        ("sgd", "sobolev", False)]:
+                                        ("sgd", "sobolev", False),
+                                        ("uadam", "sobolev", False)]:
         init, step, _ = make_train_step(
             t_get_fn("auto"), big, *RES, 512, optimizer=optimizer,
             precond=precond, precond_lambda=0.01, cg_iters=8)

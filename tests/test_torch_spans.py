@@ -6,15 +6,17 @@ On the CPU, on a tiny mesh, with the span emitter patched to record
 properly nested spans in the step's order, each chain's backward segment
 inside `backward`; each custom autograd Function's backward runs inside
 its own chain's segment; with the profiler off nothing is emitted and
-the step's loss and parameters are the bits of a step with spans on. The
-readers of port_bench/spans.py on synthetic device traces, and
-`tracing.port_kernels` against the markers of csrc/span.cu.
+the step's loss and parameters are the bits of a step with spans on; each
+CG solve is a `solve` span inside its caller's. The readers of
+port_bench/spans.py and port_bench/solves.py on synthetic device traces,
+and `tracing.port_kernels` against the markers of csrc/span.cu.
 
 Marked `cuda` (skip without a card; on the card run this file with
 `--noconftest`, as tests/test_torch_cuda.py): after the capture the
 marker nodes are disabled, replays with markers on and off give the same
 bits, switching needs no new capture, and with markers on the profiler
-shows them in the step's order, eager and replayed. No JAX here."""
+shows them in the step's order, eager and replayed; the adjoint solves
+are counted. No JAX here."""
 
 import os
 import re
@@ -44,7 +46,7 @@ RES = (24, 32)
 WEIGHTS = LossWeights(ray_w=40.0, vh_w=2e-3, sm_w=0.08, ior=1.5)
 RAY = [1]
 SILH = [0, 1, 2, 3, 0, 1, 2, 3]
-CASES = [("sgd", "none"), ("uadam", "h1")]
+CASES = [("sgd", "none"), ("uadam", "h1"), ("uadam", "sobolev")]
 
 
 def _b(name):
@@ -59,8 +61,16 @@ def _fwd(*names):
     return [x for n in names for x in (_b(n), _e(n))]
 
 
+def _around(outer, *inner):
+    return [_b(outer)] + _fwd(*inner) + [_e(outer)]
+
+
 # The step's spans in order (spans.py): nothing reads the vertex normals'
-# value in the loss, so `normals` has no backward segment.
+# value in the loss, so `normals` has no backward segment. Each CG solve is
+# a `solve` span inside its caller's: h1's inside `update`; the Sobolev
+# parameterisation's solve of the vertices inside `normals`, and its
+# adjoint inside `backward`, after every chain's segment, since it takes
+# the vertices' whole gradient.
 ORDER = {
     ("sgd", "none"): (
         [_b("step")] + _fwd("normals", "ray", "silhouette", "smooth")
@@ -71,7 +81,12 @@ ORDER = {
         + _fwd("ray") + [_e("backward")]
         + _fwd("normals", "silhouette", "smooth") + [_b("backward")]
         + _fwd("smooth", "silhouette") + [_e("backward")]
-        + _fwd("update") + [_e("step")]),
+        + _around("update", "solve") + [_e("step")]),
+    ("uadam", "sobolev"): (
+        [_b("step")] + _around("normals", "solve")
+        + _fwd("ray", "silhouette", "smooth")
+        + [_b("backward")] + _fwd("smooth", "silhouette", "ray", "solve")
+        + [_e("backward")] + _fwd("update") + [_e("step")]),
 }
 
 
@@ -330,6 +345,52 @@ def test_readers_on_nested_spans():
     assert PS.span_ms(tr, ("step",)) == pytest.approx(31e-3 / 2)
 
 
+# A uadam + sobolev step's solves (port_bench/solves.py): the vertices'
+# solve inside `normals`, the adjoint inside `backward`; and h1's inside
+# `update`, which neither metric reads.
+SOLVES = _ops(
+    ("step", 0, 1),
+    ("normals", 1, 2),
+    ("solve", 2, 3),
+    ("void cg_shared_kernel<float, 12>(int)", 3, 10),     # 7
+    ("/", 10, 11),
+    ("elementwise_kernel", 11, 12),                         # normals: 1
+    ("/", 12, 13),
+    ("backward", 13, 14),
+    ("silhouette", 14, 15),
+    ("scatter_cluster_kernel", 15, 17),
+    ("/", 17, 18),
+    ("solve", 18, 19),
+    ("void cg_shared_kernel<float, 12>(int)", 19, 28),    # 9
+    ("Memset (Device)", 28, 29),                            # 1
+    ("/", 29, 30),
+    ("/", 30, 31),
+    ("update", 31, 32),
+    ("solve", 32, 33),
+    ("void cg_shared_kernel<float, 12>(int)", 33, 38),    # 5
+    ("/", 38, 39),
+    ("/", 39, 40),
+    ("/", 40, 41))
+
+
+def test_solve_readers_split_the_solves_by_their_caller():
+    tr = _trace(SOLVES, steps=2)
+    assert _reader("solve_forward_ms")(tr) == pytest.approx(7e-3 / 2)
+    assert _reader("solve_adjoint_ms")(tr) == pytest.approx((9 + 1) * 1e-3
+                                                            / 2)
+    assert _reader("update_ms")(tr) == pytest.approx(5e-3 / 2)
+    assert _reader("normals_smooth_ms")(tr) == pytest.approx(8e-3 / 2)
+
+
+def test_solve_readers_read_none_without_a_solve_marker():
+    """A program with spans but no `solve` span (before it was added)
+    gives no reading, not nought; nor does a trace without markers."""
+    for trace in (NESTED, _ops(("void cg_shared_kernel<float, 6>(int)",
+                                0, 40))):
+        for name in ("solve_forward_ms", "solve_adjoint_ms"):
+            assert _reader(name)(_trace(trace)) is None, name
+
+
 def test_walk_counts_markers_toward_nothing_and_drops_a_stray_end():
     ops, closed = PS.walk(_ops(("/", 0, 1), ("ray", 1, 2),
                                ("reduce_kernel", 3, 4), ("/", 4, 5),
@@ -421,6 +482,27 @@ def test_capture_disables_the_markers_and_a_profiled_replay_shows_them(
     assert _markers_until(run, want) == want
     assert run._graph is graph and run.setup["capture_s"] == capture_s
     run.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,adjoints", [(("uadam", "sobolev"), 1),
+                                           (("uadam", "h1"), 0)],
+                         ids=["uadam+sobolev", "uadam+h1"])
+def test_adjoint_solves_are_counted_a_step(card, case, adjoints):
+    """`cg_adjoint_launches` counts the adjoint solves of
+    `sobolev_solve`'s backward: one a step under sobolev (two solves in
+    all), none under h1 (its one solve takes no gradient), eager and
+    replayed."""
+    run = _graphed(card, case)
+    before = kernels.counters.snapshot()
+    for _ in range(5):                  # warm-up, capture, three replays
+        run()
+    torch.cuda.synchronize()
+    got = kernels.counters.snapshot()
+    run.close()
+    assert got["cg_adjoint_launches"] - before["cg_adjoint_launches"] \
+        == 5 * adjoints
+    assert got["cg_launches"] - before["cg_launches"] == 5 * (1 + adjoints)
 
 
 @pytest.mark.cuda
