@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-1. build   the seven sources' kernels (closest hit; candidate prepass with
+1. build   the eight sources' kernels (closest hit; candidate prepass with
            its sort; the packing stages; the one-origin query's ray order;
            the row scatter-add of the step's
            vertex gathers, its cluster route's one kernel and its grid
            route's three; the Sobolev preconditioner's CG solve; a
-           bounce's chain and the ray-loss tail, forward and backward) from
+           bounce's chain and the ray-loss tail, forward and backward; a
+           silhouette view's chain around its query and its backward) from
            drt_tpu_torch/csrc with nvcc, one compile per source in
            parallel; prints each entry function's registers, shared
            memory and spills and fails on a spill to local memory or a
@@ -257,16 +258,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
            along the screen: csrc/order.cu, the order read by csrc/pack.cu
            and written through by csrc/closest_hit.cu) on 8 silhouette
            views of dog_mid20k, dog_mid45k and dog_mid90k at their budgets
-           (`silhouette_queries`: the ring of 72 around dog_mid90k at
-           1280x960): the order kernel against `ray_order_plain` on the
-           CPU, the packing, prepass and closest-hit kernels on the route's
-           inputs against their plain versions, bit for bit; the route's
+           (`silhouette_queries`: the rays of csrc/silhouette.cu's pre
+           kernel, as the step queries them, from the ring of 72 around
+           dog_mid90k at 1280x960): the order kernel against
+           `ray_order_plain` on the CPU, the packing, prepass and
+           closest-hit kernels on the route's inputs against their plain
+           versions, bit for bit; the route's
            hit and t against the parent's route (the rays as separate rows)
            bit for bit, a tri_id differing only at one t, and each mesh's
            first view against the brute oracle; then 3 replays of the
            parity step (sgd + none) on dog_mid45k as one CUDA graph with the
            route and with the parent's route: loss and state bit for bit,
            and 8 one-origin queries a replay against 0.
+17. silh   csrc/silhouette.cu's three kernels (a silhouette view's chain
+           before its query, after it, and its backward) against their
+           plain versions run on the card, bit for bit (integer views), on
+           capture views 0, 3 and 6 of dog_mid20k, dog_mid45k and
+           dog_mid90k at their budgets, float32 and float64, read by
+           device view index, the mask read truncated and bilinear; then
+           each kernel's time (CUDA events with its wrapper, and its
+           profiled device time), its bound (`silhouette_bound`, bytes)
+           and its plain version's time on view 0 of dog_mid45k and
+           dog_mid90k, float32. The launches of the three are counted on
+           every earlier path with the bounce chain's (`note_chain`: 8 of
+           each a step, 4 on each rank of the 2-rank sharded step, none in
+           `render`), the kernels line's launches by path.
 Then it prints the timings, a JSON line of phase 10's times, a JSON line of
 phase 11's, one of phase 12's, one of phase 13's, one of phase 16's, a JSON
 line with the kernels' numbers (with their times at each group on phase
@@ -299,17 +315,20 @@ MESH_DIR = os.path.join(HERE, "reports", "tuning_meshes")
 FP32_PEAK = 67e12                 # H100 SXM FP32 non-tensor FLOP/s
 HBM_RATE = 3.35e12                # H100 SXM HBM3 bytes/s
 TIE_PER_1024 = 2
-# The entry functions of the seven sources: closest_hit.cu, candidates.cu,
+# The entry functions of the eight sources: closest_hit.cu, candidates.cu,
 # pack.cu, order.cu, scatter.cu (its cluster route's one kernel; its grid
 # route's upfront, pass and reduce kernels), cg.cu (its global and shared
-# routes' kernels) and bounce.cu (a bounce's chain and the ray-loss tail,
-# forward and backward).
+# routes' kernels), bounce.cu (a bounce's chain and the ray-loss tail,
+# forward and backward) and silhouette.cu (a silhouette view's chain
+# before and after its query, and its backward).
 BUILT_KERNELS = ("closest_hit_kernel", "candidates_kernel", "pack_kernel",
                  "ray_order_kernel",
                  "scatter_cluster_kernel", "scatter_upfront_kernel",
                  "scatter_pass_kernel", "scatter_reduce_kernel", "cg_kernel",
                  "cg_shared_kernel", "bounce_fwd_kernel", "bounce_bwd_kernel",
-                 "ray_tail_fwd_kernel", "ray_tail_bwd_kernel")
+                 "ray_tail_fwd_kernel", "ray_tail_bwd_kernel",
+                 "silhouette_pre_kernel", "silhouette_post_kernel",
+                 "silhouette_bwd_kernel")
 # CG solves a step by preconditioner: h1 solves its gradient, sobolev its
 # vertices in the forward and the cotangent in the backward.
 CG_PER_STEP = {"none": 0, "h1": 1, "sobolev": 2}
@@ -323,29 +342,36 @@ def counts():
     return (c.launches, c.candidates_launches, c.pack_launches)
 
 
-# csrc/bounce.cu's launches a step of the ray loss: a bounce's chain
-# forward and backward for each of the 2 bounces, the tail forward and
-# backward; a checkpointed chunk reruns its forward in the backward.
-CHAIN_PER_STEP = (4, 2)
-# The main path's bounce and tail launches, by path (`note_chain`).
+# csrc/bounce.cu's and csrc/silhouette.cu's launches a step: a bounce's
+# chain forward and backward for each of the 2 bounces, the ray loss's tail
+# forward and backward (a checkpointed chunk reruns its forward in the
+# backward); the silhouette chain's pre, post and backward kernels, once
+# each for each of the 8 silhouette views.
+CHAIN_PER_STEP = (4, 2, 8, 8, 8)
+CHAIN_NAMES = ("bounce chain", "ray-loss tail", "silhouette pre",
+               "silhouette post", "silhouette backward")
+# The main path's launches of those, by path (`note_chain`).
 CHAIN_LAUNCHES = {}
 
 
 def chain_counts():
-    """csrc/bounce.cu's launch counters: (bounce chain, ray-loss tail),
-    forward and backward."""
+    """csrc/bounce.cu's and csrc/silhouette.cu's launch counters, in the
+    order of CHAIN_NAMES."""
     from drt_tpu_torch.intersect import cuda_kernel as CK
     c = CK.counters
-    return (c.bounce_launches, c.ray_tail_launches)
+    return (c.bounce_launches, c.ray_tail_launches,
+            c.silhouette_pre_launches, c.silhouette_post_launches,
+            c.silhouette_backward_launches)
 
 
 def note_chain(path, got, want):
     """Add `got` (chain_counts()) to the main path's launches on `path`;
     fail where it differs from `want`."""
     if tuple(got) != tuple(want):
-        fail(f"{path}: csrc/bounce.cu launches (bounce chain, ray-loss "
-             f"tail) {tuple(got)}, reckoned {want}")
-    prev = CHAIN_LAUNCHES.get(path, (0, 0))
+        fail(f"{path}: csrc/bounce.cu and csrc/silhouette.cu launches "
+             f"({', '.join(CHAIN_NAMES)}) {tuple(got)}, reckoned "
+             f"{tuple(want)}")
+    prev = CHAIN_LAUNCHES.get(path, (0,) * len(CHAIN_NAMES))
     CHAIN_LAUNCHES[path] = tuple(a + b for a, b in zip(prev, got))
 
 
@@ -1392,8 +1418,9 @@ def run_steps(name, step, state, lr, mesh, cap, seed, n, expect,
     """n steps through `step`; the launch counts of each against `expect`
     (closest-hit, prepass, packing) and, where given, its CG launches
     against `cg_expect`, every one on route `cg_route` (the counts of each
-    step appended to the list `cg_seen` as `cg_counts()`); its bounce and
-    tail launches against chain[1], noted on path chain[0]. Returns
+    step appended to the list `cg_seen` as `cg_counts()`); its bounce,
+    tail and silhouette launches against chain[1], noted on path chain[0].
+    Returns
     (state, losses, ms of the last step)."""
     import torch
     from drt_tpu_torch.intersect import cuda_kernel as CK
@@ -1418,7 +1445,9 @@ def run_steps(name, step, state, lr, mesh, cap, seed, n, expect,
               f"grad {float(aux['max_grad']):.3g}, launches {got[0]} "
               f"closest-hit, {got[1]} prepass, {got[2]} packing, {cg_got} "
               f"CG ({cg_shared} shared route, {cg_global} global route), "
-              f"{chain_got[0]} bounce chain, {chain_got[1]} ray-loss tail")
+              f"{chain_got[0]} bounce chain, {chain_got[1]} ray-loss tail, "
+              f"{chain_got[2]} silhouette pre, {chain_got[3]} post, "
+              f"{chain_got[4]} backward")
         note_chain(chain[0], chain_got, chain[1])
         if got != tuple(expect):
             fail(f"{name} step {it}: launches {got}, expected {expect}")
@@ -1579,8 +1608,9 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
             launches = counts()                  # main path ends here
             # the synthesis renders each view (2 bounces, no loss)
             note_chain("cli", chain_counts(),
-                       (views * 2 + passes * iters * CHAIN_PER_STEP[0],
-                        passes * iters * CHAIN_PER_STEP[1]))
+                       (views * 2 + passes * iters * CHAIN_PER_STEP[0],)
+                       + tuple(passes * iters * k
+                               for k in CHAIN_PER_STEP[1:]))
             cap = synth[0][1]
             tm["cache_write_s"] = saves[0][0]
             tm["synthesis_s"] = synth[0][0] - saves[0][0]
@@ -1669,7 +1699,7 @@ def cli_phase(dev, RES, gt_mesh, views=8, carve_res=160, render_res=512,
             torch.cuda.synchronize()
             tm["render_s"] = time.time() - t0
             r_launch = counts()
-            note_chain("cli", chain_counts(), (2, 0))
+            note_chain("cli", chain_counts(), (2, 0, 0, 0, 0))
             pngs = sorted(os.listdir("renders"))
             if pngs != ["dog_recons_exitdir.png", "dog_recons_mask.png",
                         "dog_recons_valid.png"] or r_launch != (4, 4, 4):
@@ -2107,7 +2137,9 @@ def parallel_ranks_phase(res, hp, weights, budget, mesh, cap, shift):
             if tuple(g[name]["launches"]) != (3 + 4,) * 3:
                 fail(f"parallel: rank {r} launched {g[name]['launches']}, "
                      "expected 7 of each kernel")
-            note_chain("parallel", g[name]["chain"], CHAIN_PER_STEP)
+            # each rank takes 4 of the 8 silhouette views
+            note_chain("parallel", g[name]["chain"], CHAIN_PER_STEP[:2]
+                       + tuple(k // 2 for k in CHAIN_PER_STEP[2:]))
         # the ranks' ray queries in ray order; silhouette view k is rank
         # k % 2's query 3 + k // 2
         flips = {k: int((torch.cat([a["ids"][q], b["ids"][q]])
@@ -2802,10 +2834,10 @@ ORDER_VIEWS = tuple(range(0, 72, 9))
 
 def silhouette_queries(meshes, res, views=ORDER_VIEWS):
     """{name: (mesh state, budget, [(view, origins, dirs)])} for `meshes`
-    {name: mesh state}: each view's silhouette query as the sampler makes it
-    (the camera's origin expanded over the rays, so the oracle takes its
-    one-origin route), from the ring of 72 cameras around dog_mid90k at
-    `res`, at the step's budget for the mesh."""
+    {name: mesh state}: each view's silhouette query as the step makes it
+    (csrc/silhouette.cu's pre kernel's rays, its origin expanded over them,
+    so the oracle takes its one-origin route), from the ring of 72 cameras
+    around dog_mid90k at `res`, at the step's budget for the mesh."""
     import numpy as np
     import torch
     from drt_tpu_torch.data.synthetic import intrinsics, ring_cameras
@@ -2813,7 +2845,8 @@ def silhouette_queries(meshes, res, views=ORDER_VIEWS):
     from drt_tpu_torch.mesh import load_ply
     from drt_tpu_torch.optimize import default_silhouette_budget
     from drt_tpu_torch.render.camera import CameraM
-    from drt_tpu_torch.render.silhouette import primary_visibility
+    from drt_tpu_torch.render.silhouette_kernels import (one_camera,
+                                                         silhouette_view_loss)
     ring = ring_cameras(load_ply(os.path.join(MESH_DIR, "dog_mid90k.ply"))[0],
                         72)
     K = intrinsics(*res)
@@ -2837,8 +2870,10 @@ def silhouette_queries(meshes, res, views=ORDER_VIEWS):
                             torch.full((n,), -1, dtype=torch.int32,
                                        device=dev))
             with torch.no_grad():
-                primary_visibility(ms, cam, cam.R_inv[:3, 3].contiguous(),
-                                   record, budget, *res)
+                silhouette_view_loss(
+                    ms, one_camera(cam, cam.R_inv[:3, 3].contiguous(),
+                                   torch.zeros(res, device=dev)),
+                    record, budget, *res)
             queries.append((view, *asked[0]))
         out[name] = (ms, budget, queries)
     return out
@@ -3224,6 +3259,210 @@ def chain_entries(chain):
     return entries
 
 
+# Bytes of float32 rows that csrc/silhouette.cu moves to or from HBM, each
+# once: the pre kernel reads a vertex row once (the vertex array stays in
+# L2 for the faces' and the slots' gathers), a face row's 3 int64
+# indices, an edge row's valid byte and a valid edge's 2 int64 face ids,
+# and a slot's edge's 2 int64 endpoints; it writes a slot's edge id, 2 vertex ids, 2 projected rows,
+# midpoint, normal and 2 rays (its edge id read back comes from L2). A slot
+# of the post kernel: 2 int32 face ids, the midpoint, the mask read as a
+# 32-byte sector (or two for bilinear), the coefficient. A row of the
+# backward: half a normal and a coefficient, the projected row, the
+# gradient row.
+SIL_VERTEX_BYTES = 12
+SIL_FACE_BYTES = 24
+SIL_EDGE_BYTES = 1
+SIL_VALID_EDGE_BYTES = 16
+SIL_PRE_SLOT_BYTES = 16 + 8 + 16 + 24 + 8 + 8 + 24
+SIL_POST_SLOT_BYTES = 8 + 8 + 32 + 4
+SIL_BWD_ROW_BYTES = 4 + 2 + 12 + 12
+
+
+def silhouette_bound(name, mesh, budget, bilinear=False):
+    """csrc/silhouette.cu's kernel `name` at HBM rate on mesh state `mesh`:
+    (ms, "bytes")."""
+    if name == "pre":
+        nbytes = (mesh.num_vertices * SIL_VERTEX_BYTES
+                  + mesh.faces.shape[0] * SIL_FACE_BYTES
+                  + mesh.edges.shape[0] * SIL_EDGE_BYTES
+                  + mesh.num_edges * SIL_VALID_EDGE_BYTES
+                  + budget * SIL_PRE_SLOT_BYTES)
+    elif name == "post":
+        nbytes = budget * (SIL_POST_SLOT_BYTES + (32 if bilinear else 0))
+    else:
+        nbytes = 2 * budget * SIL_BWD_ROW_BYTES
+    return nbytes / HBM_RATE * 1e3, "bytes"
+
+
+def silhouette_phase(res, cap, meshes, views=(0, 3, 6)):
+    """Phase 17: csrc/silhouette.cu's three kernels against their plain
+    versions (run on the card) on the step's own inputs: for each mesh of
+    `meshes` (name -> (vertices, faces)), float32 and float64, capture
+    views `views` read by device index at the step's budget: the pre
+    kernel's eight outputs, the post kernel's loss and coefficients (mask
+    read truncated and bilinear) on the step oracle's hits, and the
+    backward's rows, bit for bit (integer views). Then on dog_mid45k and
+    dog_mid90k float32, view 0: each kernel's time by CUDA events (with its
+    wrapper) and its profiled device time, the plain versions' times and
+    the bounds (`silhouette_bound`). Returns the phase's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.mesh import build_mesh_state
+    from drt_tpu_torch.optimize import default_silhouette_budget
+    from drt_tpu_torch.render import silhouette_kernels as SK
+    t_phase = time.time()
+    dev = cap.views.origin.device
+    fn = get_intersect_fn("auto")
+    out = {"checked": [], "timed": {}}
+
+    def hold(what, got, want):
+        for k, (a, b) in enumerate(zip(got, want)):
+            if not same_bits(a, b):
+                n_diff = (int((int_view(a) != int_view(b)).sum())
+                          if a.is_floating_point() else int((a != b).sum()))
+                fail(f"silhouette: {what}: output {k} differs from the "
+                     f"plain version on {n_diff} of {a.numel()} elements "
+                     f"(max |diff| {max_abs_diff(a, b):.3g})")
+        out["checked"].append(what)
+
+    for label, (v, f) in meshes.items():
+        for dtype in (torch.float32, torch.float64):
+            ms = build_mesh_state(v, f, dtype=dtype, device=dev)
+            budget = default_silhouette_budget(ms.num_edges)
+            vb = type(cap.views)(*(None if a is None else
+                                   a.to(dtype) if a.is_floating_point()
+                                   else a for a in cap.views))
+            counts = []
+            for view in views:
+                cam = SK.view_camera(vb, torch.tensor([view], device=dev))
+                args = (ms.vertices, ms.faces, ms.edge_faces, ms.edge_valid,
+                        ms.edges, cam, budget)
+                what = f"{label} {str(dtype)[6:]} view {view}"
+                pre = SK.silhouette_pre_cuda(*args)
+                hold(f"{what} pre", pre, SK.silhouette_pre_plain(*args))
+                hits = fn(pre.origin.expand(pre.ray_dir.shape), pre.ray_dir,
+                          ms.vertices, ms.faces, ms.face_valid,
+                          coherent=False)
+                g = torch.rand((), device=dev, dtype=dtype)
+                for bilinear in (False, True):
+                    post = (hits.tri_id, pre.sample, pre.count, cam, *res,
+                            bilinear)
+                    loss, coef = SK.silhouette_post_cuda(*post)
+                    hold(f"{what} post (bilinear {bilinear})", (loss, coef),
+                         SK.silhouette_post_plain(*post))
+                    bwd = (pre.normal, coef, pre.pix, cam, g)
+                    hold(f"{what} backward (bilinear {bilinear})",
+                         (SK.silhouette_backward_cuda(*bwd),),
+                         (SK.silhouette_backward_plain(*bwd),))
+                    if (dtype, bilinear, view) == (torch.float32, False,
+                                                   views[0]) \
+                            and label in ("dog_mid45k", "dog_mid90k"):
+                        out["timed"][label] = (args, post, bwd, ms, budget)
+                counts.append(int(pre.count))
+            print(f"silhouette: {label} {str(dtype)[6:]} (budget {budget}, "
+                  f"silhouette edges {counts}): pre, post and backward bit "
+                  "for bit with the plain versions")
+            del ms
+    torch.cuda.synchronize()
+    dev_t = torch.autograd.DeviceType.CUDA
+    for label, (args, post, bwd, ms, budget) in out["timed"].items():
+        calls = {"pre": lambda: SK.silhouette_pre_cuda(*args),
+                 "post": lambda: SK.silhouette_post_cuda(*post),
+                 "backward": lambda: SK.silhouette_backward_cuda(*bwd)}
+        plain = {"pre": lambda: SK.silhouette_pre_plain(*args),
+                 "post": lambda: SK.silhouette_post_plain(*post),
+                 "backward": lambda: SK.silhouette_backward_plain(*bwd)}
+        row = {"ms": {k: cuda_ms(c, 20) for k, c in calls.items()},
+               "plain_ms": {k: cuda_ms(c, 5) for k, c in plain.items()},
+               "bound_ms": {k: silhouette_bound(k, ms, budget)[0]
+                            for k in calls},
+               "vertices": ms.num_vertices, "faces": ms.faces.shape[0],
+               "edges": ms.edges.shape[0], "budget": budget,
+               "kernel_ms": {}}
+        for k, c in calls.items():
+            kernel = {"backward": "silhouette_bwd_kernel"}.get(
+                k, f"silhouette_{k}_kernel")
+            c()
+            torch.cuda.synchronize()
+            attempt, reps = 0, 5
+            while True:
+                attempt += 1
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(SENTINELS):
+                        torch.cuda._sleep(1000)
+                    torch.cuda.synchronize()
+                    for _ in range(reps):
+                        c()
+                    torch.cuda.synchronize()
+                found = [(e.time_range.end - e.time_range.start) / 1e3
+                         for e in prof.events()
+                         if e.device_type == dev_t and kernel in e.name]
+                if len(found) == reps or not profile_again(
+                        attempt, f"the profile of {k} holds {len(found)} "
+                        f"of {reps} {kernel}"):
+                    break
+            if len(found) != reps:
+                fail(f"silhouette: the profile of {k} holds no {reps} "
+                     f"{kernel}")
+            row["kernel_ms"][kernel] = statistics.median(found)
+        out["timed"][label] = row
+        for k in calls:
+            kernel = {"backward": "silhouette_bwd_kernel"}.get(
+                k, f"silhouette_{k}_kernel")
+            print(f"silhouette: {k} ({label} view {views[0]}, float32, "
+                  f"budget {budget}): {row['ms'][k]:.4f} ms (CUDA events, "
+                  f"with its wrapper), device {row['kernel_ms'][kernel]:.4f}"
+                  f" ms, bound {row['bound_ms'][k]:.4f} ms (bytes), plain "
+                  f"version {row['plain_ms'][k]:.3f} ms")
+    out["phase_s"] = time.time() - t_phase
+    print(f"silhouette: {len(out['checked'])} checks bit for bit, phase "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
+def silhouette_entries(sil):
+    """The kernels line's entries of csrc/silhouette.cu: launches by path
+    from the main path's runs (CHAIN_LAUNCHES), times from phase 17."""
+    entries = []
+    for i, (k, kernel, replaces) in enumerate((
+            ("pre", "silhouette_pre_kernel",
+             "drt_tpu/render/silhouette.py:29"),
+            ("post", "silhouette_post_kernel",
+             "drt_tpu/optimize/losses.py:109"),
+            ("backward", "silhouette_bwd_kernel",
+             "drt_tpu/render/silhouette.py:130")), start=2):
+        entries.append({
+            "name": f"silhouette_{k}",
+            "route": "cuda",
+            "source": "drt_tpu_torch/csrc/silhouette.cu",
+            "replaces": replaces,
+            "kernels": [kernel],
+            "launches": sum(c[i] for c in CHAIN_LAUNCHES.values()),
+            "launches_by_path": {p: c[i] for p, c in CHAIN_LAUNCHES.items()},
+            "launches_per_step": CHAIN_PER_STEP[i],
+            "shape": {label: f"view 0 at 1280x960, float32, "
+                             f"{r['vertices']} vertices, {r['faces']} "
+                             f"faces, {r['edges']} edges, budget "
+                             f"{r['budget']}"
+                      for label, r in sil["timed"].items()},
+            "ms": {label: r["ms"][k] for label, r in sil["timed"].items()},
+            "ms_from": "CUDA events around the launch, with its wrapper",
+            "kernel_ms": {label: r["kernel_ms"][kernel]
+                          for label, r in sil["timed"].items()},
+            "plain_ms": {label: r["plain_ms"][k]
+                         for label, r in sil["timed"].items()},
+            "bound_ms": {label: r["bound_ms"][k]
+                         for label, r in sil["timed"].items()},
+            "bound_by": "bytes",
+            "library_ms": None,
+            "library": "none: no PyTorch call computes it",
+            "checked": len(sil["checked"]),
+        })
+    return entries
+
+
 def main():
     # cuBLAS's fixed workspace, which torch.use_deterministic_algorithms
     # (phase 11a) asks for; it is read when cuBLAS starts
@@ -3537,7 +3776,8 @@ def main():
             st, ls, ms = run_steps(
                 label, step_c, init_c(ms45), hp.start_lr, ms45, cap,
                 hp.seed, 1, expect, chain=("chunked", (
-                    (6 * n_chunks, 3 * n_chunks) if rc else CHAIN_PER_STEP)))
+                    (6 * n_chunks, 3 * n_chunks) + CHAIN_PER_STEP[2:]
+                    if rc else CHAIN_PER_STEP)))
         k = n_chunks if rc else 1
         ids = [torch.cat([rec.hits[3 * i + q].tri_id for i in range(k)])
                [:n_rays] for q in range(3)]
@@ -3776,6 +4016,11 @@ def main():
         "dog_mid45k": ms45,
         "dog_mid90k": build_mesh_state(v90, f90, device=dev)})
 
+    # -- 17. the silhouette views' chain ------------------------------------
+    sil_out = silhouette_phase(RES, cap, {
+        "dog_mid20k": load_ply(os.path.join(MESH_DIR, "dog_mid20k.ply")),
+        "dog_mid45k": (v45, f45), "dog_mid90k": (v90, f90)})
+
     total = [sum(x) for x in zip(launches, lod_launches, cli_launches,
                                  par_launches, graph_launches)]
 
@@ -3885,6 +4130,7 @@ def main():
     kernels[-1]["launches_graph"] = graph_scatters
     kernels.extend(cg_entries(cg_out, cg_steps, graph_cg))
     kernels.extend(chain_entries(chain_out))
+    kernels.extend(silhouette_entries(sil_out))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

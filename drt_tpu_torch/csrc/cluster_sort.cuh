@@ -118,10 +118,11 @@ __device__ __forceinline__ void share(int a, int b, int parts, int k,
     *hi = min(*lo + len, b);
 }
 
-// The launch of one cluster of k CTAs of CLUSTER_BLOCK threads and
-// CLUSTER_SMEM dynamic shared bytes on stream s; attr holds its one
-// attribute.
-static cudaLaunchConfig_t cluster_config(int k, cudaLaunchAttribute* attr,
+// The launch of one cluster of k CTAs of `block` threads and `smem`
+// dynamic shared bytes on stream s (CLUSTER_BLOCK and CLUSTER_SMEM for a
+// kernel built on these pieces); attr holds its one attribute.
+static cudaLaunchConfig_t cluster_config(int k, int block, int smem,
+                                         cudaLaunchAttribute* attr,
                                          cudaStream_t s) {
     cudaLaunchConfig_t cfg = {};
     attr->id = cudaLaunchAttributeClusterDimension;
@@ -129,17 +130,19 @@ static cudaLaunchConfig_t cluster_config(int k, cudaLaunchAttribute* attr,
     attr->val.clusterDim.y = 1;
     attr->val.clusterDim.z = 1;
     cfg.gridDim = dim3(k);
-    cfg.blockDim = dim3(CLUSTER_BLOCK);
-    cfg.dynamicSmemBytes = CLUSTER_SMEM;
+    cfg.blockDim = dim3(block);
+    cfg.dynamicSmemBytes = smem;
     cfg.stream = s;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     return cfg;
 }
 
-// The largest cluster of such CTAs, CLUSTER_MAX down to 1, of which the
-// card can hold one at a time for every kernel of fns; 0 if none.
-static int largest_cluster(const void* const* fns, int n_fns) {
+// The largest cluster, CLUSTER_MAX down to 1, of which the card can hold
+// one at a time for every kernel fns[i], at blocks[i] threads and smems[i]
+// dynamic shared bytes a CTA; 0 if none.
+static int largest_cluster(const void* const* fns, const int* blocks,
+                           const int* smems, int n_fns) {
     for (int i = 0; i < n_fns; ++i) {
         if (cudaFuncSetAttribute(
                 fns[i], cudaFuncAttributeNonPortableClusterSizeAllowed, 1)
@@ -147,16 +150,17 @@ static int largest_cluster(const void* const* fns, int n_fns) {
             cudaGetLastError();           // then only portable sizes fit
         if (cudaFuncSetAttribute(fns[i],
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 CLUSTER_SMEM) != cudaSuccess) {
+                                 smems[i]) != cudaSuccess) {
             cudaGetLastError();
             return 0;
         }
     }
     for (int k = CLUSTER_MAX; k >= 1; k /= 2) {
-        cudaLaunchAttribute attr;
-        const cudaLaunchConfig_t cfg = cluster_config(k, &attr, 0);
         bool fits = true;
         for (int i = 0; i < n_fns; ++i) {
+            cudaLaunchAttribute attr;
+            const cudaLaunchConfig_t cfg = cluster_config(k, blocks[i],
+                                                          smems[i], &attr, 0);
             int n = 0;
             if (cudaOccupancyMaxActiveClusters(&n, fns[i], &cfg)
                     != cudaSuccess || n < 1) {

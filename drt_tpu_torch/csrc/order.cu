@@ -288,7 +288,8 @@ static int g_cluster_size = -1;
 static int cluster_size() {
     if (g_cluster_size < 0) {
         const void* fn = (const void*)ray_order_kernel;
-        g_cluster_size = largest_cluster(&fn, 1);
+        const int block = CLUSTER_BLOCK, smem = CLUSTER_SMEM;
+        g_cluster_size = largest_cluster(&fn, &block, &smem, 1);
     }
     return g_cluster_size;
 }
@@ -318,8 +319,8 @@ int ray_order_launch(const void* dirs, int dir_f64, int n_rays, int np_,
     const int k = cluster_size();
     if (k < 1) return (int)cudaErrorNotSupported;
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(k, &attr,
-                                                  (cudaStream_t)stream);
+    const cudaLaunchConfig_t cfg = cluster_config(
+        k, CLUSTER_BLOCK, CLUSTER_SMEM, &attr, (cudaStream_t)stream);
     const cudaError_t err = cudaLaunchKernelEx(
         &cfg, ray_order_kernel, dirs, dir_f64, n_rays, np_, order, scratch);
     return (int)(err != cudaSuccess ? err : cudaGetLastError());

@@ -706,7 +706,9 @@ static int cluster_size() {
     if (g_cluster_size < 0) {
         const void* fns[2] = {(const void*)scatter_cluster_kernel<float>,
                               (const void*)scatter_cluster_kernel<double>};
-        g_cluster_size = largest_cluster(fns, 2);
+        const int blocks[2] = {CLUSTER_BLOCK, CLUSTER_BLOCK};
+        const int smems[2] = {CLUSTER_SMEM, CLUSTER_SMEM};
+        g_cluster_size = largest_cluster(fns, blocks, smems, 2);
     }
     return g_cluster_size;
 }
@@ -719,7 +721,8 @@ static cudaError_t launch_cluster(const T* rows, const long long* idx,
     const int k = cluster_size();
     if (k < 1) return cudaErrorNotSupported;
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(k, &attr, s);
+    const cudaLaunchConfig_t cfg = cluster_config(k, CLUSTER_BLOCK,
+                                                  CLUSTER_SMEM, &attr, s);
     return cudaLaunchKernelEx(&cfg, scatter_cluster_kernel<T>, rows, idx,
                               n_rows, n_cols, n_out, passes, out, scratch);
 }

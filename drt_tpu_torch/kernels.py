@@ -18,6 +18,8 @@ The wrappers:
   conjugate-gradient solve;
 - render/bounce.py: csrc/bounce.cu, a bounce's per-lane chain after its
   oracle query and the ray loss's per-lane tail, forward and backward;
+- render/silhouette_kernels.py: csrc/silhouette.cu, a silhouette view's
+  chain before and after its oracle query and its backward;
 - spans.py: csrc/span.cu, the train step's device span markers.
 
 `counters` counts each kernel's launches; a wrapper adds one only where it
@@ -60,7 +62,10 @@ class LaunchCounter:
     (`bounce_launches`, forward and backward, of which
     `bounce_backward_launches` backward) and the ray loss's tail
     (`ray_tail_launches`, of which `ray_tail_backward_launches`
-    backward)."""
+    backward), and of csrc/silhouette.cu: a silhouette view's chain before
+    its oracle query (`silhouette_pre_launches`), after it
+    (`silhouette_post_launches`) and its backward
+    (`silhouette_backward_launches`), one each a view."""
 
     def __init__(self):
         self.reset()
@@ -82,6 +87,9 @@ class LaunchCounter:
         self.bounce_backward_launches = 0
         self.ray_tail_launches = 0
         self.ray_tail_backward_launches = 0
+        self.silhouette_pre_launches = 0
+        self.silhouette_post_launches = 0
+        self.silhouette_backward_launches = 0
 
     def snapshot(self) -> dict:
         """Every count, by name."""
@@ -207,6 +215,20 @@ _ENTRIES = {
     "bounce_block": ([], _CI),
     "ray_tail_block": ([], _CI),
     "ray_tail_blocks": ([], _CI),
+    # silhouette.cu
+    "silhouette_pre_launch": ([_VP, _CI, _VP, _CI, _VP, _VP, _VP, _CI]
+                              + [_VP] * 5 + [_LL, _VP, _CI] + [_VP] * 9,
+                              _CI),
+    "silhouette_post_launch": ([_VP, _VP, _VP, _VP, _CI, _LL, _LL, _VP]
+                               + [_CI] * 4 + [_VP] * 3, _CI),
+    "silhouette_backward_launch": ([_VP] * 5 + [_CI, _VP, _VP, _CI, _VP,
+                                                 _VP], _CI),
+    "silhouette_block": ([], _CI),
+    "silhouette_sum_blocks": ([], _CI),
+    "silhouette_bwd_block": ([], _CI),
+    "silhouette_cluster_size": ([], _CI),
+    "silhouette_pre_smem": ([_LL, _LL, _CI], _LL),
+    "silhouette_pre_smem_cap": ([], _LL),
     # span.cu
     "span_mark_launch": ([_CI, _VP, ctypes.POINTER(_VP)], _CI),
     "span_nodes_set_enabled": ([_VP, ctypes.POINTER(_VP), _CI, _CI], _CI),
@@ -243,6 +265,16 @@ _SIGNATURES = {
                           "loss partials counter stream",
     "ray_tail_backward_signature": "org dir sp lane_valid active exit_hit n "
                                    "f64 huber g d_dir stream",
+    "silhouette_pre_signature": "verts f64 faces n_faces edge_faces "
+                                "edge_valid edges n_edges R K R_inv K_inv "
+                                "org org_stride view budget edge_idx count "
+                                "org_out ray_dir sample normal pix vidx "
+                                "stream",
+    "silhouette_post_signature": "tri_id sample count mask f64 mask_stride "
+                                 "mask_row view resy resx bilinear budget "
+                                 "loss coef stream",
+    "silhouette_backward_signature": "normal coef pix R K f64 view g budget "
+                                     "dV stream",
     "span_signature": "kind stream node",
     # the markers' kinds, in the order of the `kind` argument (spans.py)
     "span_kinds_signature": "step normals ray silhouette smooth backward "

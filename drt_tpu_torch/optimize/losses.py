@@ -24,7 +24,9 @@ from drt_tpu_torch.geometry.scatter import scatter_rows
 from drt_tpu_torch.geometry.vec import clip
 from drt_tpu_torch.render.bounce import ray_tail
 from drt_tpu_torch.render.chunked import auto_ray_chunk, chunked_sum
-from drt_tpu_torch.render.silhouette import primary_visibility
+from drt_tpu_torch.render.silhouette_kernels import (silhouette_view_loss,
+                                                    tuple_camera,
+                                                    view_camera)
 from drt_tpu_torch.render.trace import trace_exit
 
 
@@ -87,32 +89,17 @@ def silhouette_loss(mesh, view, intersect_fn: Callable, budget: int,
 
     bilinear_mask=False reproduces the reference's integer truncation of the
     sample point (DiffRender.py:245); True samples the soft mask bilinearly,
-    removing the +-half-pixel bias (helpful at low capture resolutions)."""
-    _sp, _valid, mask_img, origin, _rd, cam = view
-    samples = primary_visibility(mesh, cam, origin[0], intersect_fn,
-                                 budget, resy, resx)
-    if bilinear_mask:
-        fx = samples.pixel_f[:, 0]
-        fy = samples.pixel_f[:, 1]
-        x0 = torch.floor(fx).long().clamp(0, resx - 2)
-        y0 = torch.floor(fy).long().clamp(0, resy - 2)
-        wx = clip(fx - x0, 0.0, 1.0)
-        wy = clip(fy - y0, 0.0, 1.0)
-        m00 = mask_img[y0, x0]
-        m01 = mask_img[y0, x0 + 1]
-        m10 = mask_img[y0 + 1, x0]
-        m11 = mask_img[y0 + 1, x0 + 1]
-        picked = ((1 - wy) * ((1 - wx) * m00 + wx * m01)
-                  + wy * ((1 - wx) * m10 + wx * m11))
-    else:
-        picked = mask_img[samples.pixel[:, 1].long(),
-                          samples.pixel[:, 0].long()]
-    # |residual| with subgradient 0 at exactly-zero residual: samples on
-    # the mask's 0.5 transition band must contribute no gradient.
-    diff = picked - samples.output
-    per_edge = torch.sign(diff).detach() * diff
-    return (torch.where(samples.valid, per_edge,
-                        torch.zeros_like(per_edge)).sum(), samples.count)
+    removing the +-half-pixel bias (helpful at low capture resolutions).
+    The residual's sign is detached, so its subgradient is 0 at an exactly
+    zero residual: samples on the mask's 0.5 transition band contribute no
+    gradient.
+
+    The chain is render/silhouette_kernels.py: three CUDA kernels around
+    the oracle query on the card (csrc/silhouette.cu), their plain
+    versions on the CPU; `primary_visibility` states the samples in torch
+    operations."""
+    return silhouette_view_loss(mesh, tuple_camera(view), intersect_fn,
+                                budget, resy, resx, bilinear_mask)
 
 
 def smooth_loss(mesh):
@@ -171,8 +158,9 @@ def total_loss(mesh, views, ray_view_idx, silh_view_idx: Sequence[int],
     if weights.vh_w:
         with spans.span("silhouette", at):
             chain = mesh.chain("silhouette")
-            vhs, counts = zip(*(silhouette_loss(
-                chain, views.take(i, rays=False), intersect_fn,
+            # each view's camera and mask read in place, at its index
+            vhs, counts = zip(*(silhouette_view_loss(
+                chain, view_camera(views, i), intersect_fn,
                 silhouette_budget, resy, resx,
                 bilinear_mask=weights.bilinear_mask)
                 for i in _view_indices(silh_view_idx)))

@@ -7,6 +7,11 @@ carried with a validity mask. The sampler is a `torch.autograd.Function`:
 its backward turns the per-edge occupancy residual into 2D endpoint
 gradients dE = -N * f * g (DiffRender.py:236-242, 263-267); the ray casts
 inside it are a non-differentiable oracle query.
+
+The loss (`optimize.losses.silhouette_loss`) and the train step run the same
+chain as three CUDA kernels around the query (render/silhouette_kernels.py,
+csrc/silhouette.cu); `primary_visibility` states the samples in torch
+operations, for the tests that hold them to the JAX package's.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ range would be missing there). One step is one `step` span; inside it:
 
 - forward, `normals` (the parameters-to-vertices map and
   `MeshState.with_vertices`), `ray` (each ray view's take and `ray_loss`),
-  `silhouette` (the silhouette views' takes and `silhouette_loss`),
+  `silhouette` (the silhouette views' chains and queries),
   `smooth` (`smooth_loss`);
 - `backward` around `torch.autograd.grad`, and inside it each chain's
   backward segment under the chain's name: opened by a pre-hook on the

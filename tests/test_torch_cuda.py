@@ -7,8 +7,9 @@ bit for bit; the prepass kernel must give the lists and counts of
 `_candidates` (ray mode) and `_candidates_tile` (tile mode) exactly; the
 packing kernel every output of `pack_plain` bit for bit (int32 views).
 At the end, the train step as one CUDA graph (`GraphedTrainStep`) against
-the eager step bit for bit, its launch counts, its deferred bounds check
-and the memory it gives back. Last, csrc/bounce.cu's four kernels (a
+the eager step bit for bit, its launch counts (8 of each of
+csrc/silhouette.cu's kernels a replay), its deferred bounds check and the
+memory it gives back. Last, csrc/bounce.cu's four kernels (a
 bounce's chain and the ray-loss tail, forward and backward) against
 their plain versions bit for bit, float32 and float64, compat on and off,
 Huber 0 and 0.1, on an empty batch, one lane, a batch that is no
@@ -17,7 +18,12 @@ oracle's one-origin route on the silhouette queries of the three dog
 meshes: csrc/order.cu against `ray_order_plain`, the kernels through the
 order against their plain versions, the route against the parent's route
 and the brute oracle, the closest hit at other rays a warp, and a graphed
-step against the parent's route, bit for bit."""
+step against the parent's route, bit for bit. Then csrc/silhouette.cu's
+three kernels (a silhouette view's chain before and after its query and
+its backward) against their plain versions bit for bit on three views of
+dog_mid20k, 45k and 90k at the step's budget and below the edge count,
+float32 and float64, the mask read truncated and bilinear; a view with no
+silhouette edge; and silhouette_loss on the card launching them."""
 
 import os
 
@@ -921,6 +927,10 @@ def test_graphed_steps_equal_eager_steps(dev, sphere_capture, case):
             per_step = launched
             if not chunked:
                 assert launched["launches"] == 11
+            # csrc/silhouette.cu: one of each kernel a silhouette view
+            for k in ("silhouette_pre_launches", "silhouette_post_launches",
+                      "silhouette_backward_launches"):
+                assert launched[k] == 8, (k, launched[k])
         else:
             assert launched == per_step, it
         assert float(loss) == loss_e, it
@@ -1499,13 +1509,15 @@ def test_bounce_and_tail_functions_on_the_card_take_the_kernels(dev):
 def _silhouette_queries(ms, dev, views=(0, 20, 45)):
     """The silhouette queries of `views` of the ring of 72 cameras around
     dog_mid90k at 1280x960 on mesh state `ms`, at the step's budget, as
-    the sampler makes them (its origin expanded over the rays)."""
+    the step makes them (csrc/silhouette.cu's pre kernel's rays, its origin
+    expanded over them)."""
     from drt_tpu_torch.config import POINTGRAY_RES as RES
     from drt_tpu_torch.data.synthetic import intrinsics, ring_cameras
     from drt_tpu_torch.intersect.api import Hits
     from drt_tpu_torch.optimize import default_silhouette_budget
     from drt_tpu_torch.render.camera import CameraM
-    from drt_tpu_torch.render.silhouette import primary_visibility
+    from drt_tpu_torch.render.silhouette_kernels import (one_camera,
+                                                         silhouette_view_loss)
     ring = ring_cameras(load_ply(_tuning_mesh("dog_mid90k"))[0], 72)
     out = []
     for view in views:
@@ -1520,8 +1532,10 @@ def _silhouette_queries(ms, dev, views=(0, 20, 45)):
             return Hits(torch.full((n,), float("inf"), device=dev),
                         torch.full((n,), -1, dtype=torch.int32, device=dev))
         with torch.no_grad():
-            primary_visibility(ms, cam, cam.R_inv[:3, 3].contiguous(), record,
-                               default_silhouette_budget(ms.num_edges), *RES)
+            silhouette_view_loss(
+                ms, one_camera(cam, cam.R_inv[:3, 3].contiguous(),
+                               torch.zeros(RES, device=dev)),
+                record, default_silhouette_budget(ms.num_edges), *RES)
     return out
 
 
@@ -1707,3 +1721,208 @@ def test_closest_hit_rays_a_warp_match_plain(dev, silhouette_rays,
     assert int((id_k >= 0).sum()) > 1000
     assert torch.equal(id_k, id_p)
     assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+
+
+# --- csrc/silhouette.cu: a silhouette view's chain around its query -------
+
+def _bits(t):
+    """A tensor's bits (so that -0 is not +0), on the CPU."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t
+
+
+def _same(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert torch.equal(_bits(a), _bits(b))
+
+
+def _silhouette_views(dev, ring_mesh, dtype, views=(0, 27, 54)):
+    """A ViewBatch of the ring views `views` of 72 around ring_mesh at
+    1280x960 holding what a silhouette view reads: cameras, per-ray origins
+    (their first row each camera's) and soft masks of quantised levels."""
+    from drt_tpu_torch.config import POINTGRAY_RES as RES
+    from drt_tpu_torch.data.synthetic import intrinsics, ring_cameras
+    from drt_tpu_torch.data.views import ViewBatch
+    ring = ring_cameras(load_ply(_tuning_mesh(ring_mesh))[0], 72)
+    Rs = np.stack([ring[v][0] for v in views])
+    K = np.stack([intrinsics(*RES)] * len(views))
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    origin = t(np.linalg.inv(Rs)[:, :3, 3])[:, None].expand(
+        len(views), 5, 3).contiguous()
+    return ViewBatch(
+        screen_pixel=None, valid=None,
+        mask=t(rng.choice([0.0, 0.25, 0.5, 0.75, 1.0],
+                          (len(views), *RES))),
+        origin=origin, ray_dir=None, R=t(Rs), K=t(K),
+        R_inv=t(np.linalg.inv(Rs)), K_inv=t(np.linalg.inv(K)))
+
+
+@pytest.fixture(scope="module")
+def silhouette_meshes(dev):
+    out = {}
+    for name in ("dog_mid20k", "dog_mid45k", "dog_mid90k"):
+        v, f = load_ply(_tuning_mesh(name))
+        out[name] = {dt: build_mesh_state(v, f, dtype=dt, device=dev)
+                     for dt in (torch.float32, torch.float64)}
+    return out
+
+
+@pytest.mark.parametrize("f64", [False, True])
+@pytest.mark.parametrize("budget", ["step", 256])
+@pytest.mark.parametrize("mesh", ["dog_mid20k", "dog_mid45k", "dog_mid90k"])
+def test_silhouette_kernels_match_plain(dev, silhouette_meshes, mesh,
+                                        budget, f64):
+    """csrc/silhouette.cu's three kernels against their plain versions run
+    on the card, bit for bit, on three ring views of each dog mesh read by
+    device index, at the step's budget (above the silhouette's edge
+    count: edge 0 fills the rest) and at 256 (below it); the post kernel
+    with the mask read truncated and bilinear; one launch of each."""
+    from drt_tpu_torch.config import POINTGRAY_RES as RES
+    from drt_tpu_torch.intersect import get_intersect_fn
+    from drt_tpu_torch.optimize import default_silhouette_budget
+    from drt_tpu_torch.render import silhouette_kernels as SK
+    dtype = torch.float64 if f64 else torch.float32
+    ms = silhouette_meshes[mesh][dtype]
+    views = _silhouette_views(dev, "dog_mid90k", dtype)
+    if budget == "step":
+        budget = default_silhouette_budget(ms.num_edges)
+    fn = get_intersect_fn("auto")
+    g = torch.tensor(0.37, dtype=dtype, device=dev)
+    for i in range(views.R.shape[0]):
+        cam = SK.view_camera(views, torch.tensor([i], device=dev))
+        args = (ms.vertices, ms.faces, ms.edge_faces, ms.edge_valid,
+                ms.edges, cam, budget)
+        before = CK.counters.snapshot()
+        got = SK.silhouette_pre_cuda(*args)
+        want = SK.silhouette_pre_plain(*args)
+        for a, b in zip(got, want):
+            _same(a, b)
+        count = int(got.count)
+        assert count > 300 and (count < budget) == (budget > 256)
+        hits = fn(got.origin.expand(got.ray_dir.shape), got.ray_dir,
+                  ms.vertices, ms.faces, ms.face_valid, coherent=False)
+        assert int(hits.hit.sum()) > 100
+        for bilinear in (False, True):
+            lk, ck = SK.silhouette_post_cuda(hits.tri_id, got.sample,
+                                             got.count, cam, *RES, bilinear)
+            lp, cp = SK.silhouette_post_plain(hits.tri_id, got.sample,
+                                              got.count, cam, *RES,
+                                              bilinear)
+            _same(lk, lp)
+            _same(ck, cp)
+            assert float(lk) > 0 and int((ck != 0).sum()) > 20
+            dk = SK.silhouette_backward_cuda(got.normal, ck, got.pix, cam,
+                                             g)
+            dp = SK.silhouette_backward_plain(got.normal, ck, got.pix, cam,
+                                              g)
+            _same(dk, dp)
+        torch.cuda.synchronize()
+        after = CK.counters.snapshot()
+        assert [after[k] - before[k] for k in (
+            "silhouette_pre_launches", "silhouette_post_launches",
+            "silhouette_backward_launches")] == [1, 2, 2]
+
+
+def test_silhouette_kernels_view_without_edges_and_by_int(dev):
+    """From inside an icosphere no edge is a silhouette edge: count 0, every
+    slot edge 0, loss 0, gradient 0; and a view taken by int (no device
+    index) as the plain version takes it, bit for bit."""
+    from drt_tpu_torch.data.synthetic import intrinsics, look_at_extrinsic
+    from drt_tpu_torch.data.views import ViewBatch
+    from drt_tpu_torch.intersect import get_intersect_fn
+    from drt_tpu_torch.render import silhouette_kernels as SK
+    v, f = make_icosphere(subdivisions=4, radius=50.0)
+    ms = build_mesh_state(v, f, device=dev)
+    R = look_at_extrinsic(np.zeros(3), np.array([1.0, 0.2, 0.1]))
+    K = intrinsics(96, 128)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=dev)[None]
+    views = ViewBatch(None, None, torch.full((1, 96, 128), 0.75, device=dev),
+                      t(np.zeros((1, 3))), None, t(R), t(K),
+                      t(np.linalg.inv(R)), t(np.linalg.inv(K)))
+    cam = SK.view_camera(views, 0)
+    args = (ms.vertices, ms.faces, ms.edge_faces, ms.edge_valid, ms.edges,
+            cam, 512)
+    got = SK.silhouette_pre_cuda(*args)
+    for a, b in zip(got, SK.silhouette_pre_plain(*args)):
+        _same(a, b)
+    assert int(got.count) == 0 and not bool(got.edge_idx.any())
+    hits = get_intersect_fn("auto")(got.origin.expand(got.ray_dir.shape),
+                                    got.ray_dir, ms.vertices, ms.faces,
+                                    ms.face_valid, coherent=False)
+    loss, coef = SK.silhouette_post_cuda(hits.tri_id, got.sample, got.count,
+                                         cam, 96, 128)
+    assert float(loss) == 0.0 and not bool(coef.any())
+    dV = SK.silhouette_backward_cuda(got.normal, coef, got.pix, cam,
+                                     torch.tensor(1.0, device=dev))
+    assert not bool(dV.any())
+
+
+def test_silhouette_loss_on_the_card_takes_the_kernels(dev, sphere_capture,
+                                                       monkeypatch):
+    """silhouette_loss on CUDA tensors launches the three kernels (one
+    each, the backward's once) and none of the torch chain's
+    (`primary_visibility` is not called); its loss and gradient equal the
+    plain versions' on the CPU to float32 rounding of the query's
+    hits."""
+    import dataclasses
+
+    import drt_tpu_torch.render.silhouette as SIL
+    from drt_tpu_torch.intersect import get_intersect_fn
+    from drt_tpu_torch.optimize.losses import silhouette_loss
+    _, _, cap = sphere_capture
+    v0, f0 = make_icosphere(subdivisions=3, radius=47.0)
+    monkeypatch.setattr(SIL, "primary_visibility", None)  # must not run
+    out = {}
+    for where in ("cuda", "cpu"):
+        ms = build_mesh_state(v0, f0, device=dev if where == "cuda"
+                              else "cpu")
+        views = cap.views if where == "cuda" else type(cap.views)(
+            *(None if a is None else a.cpu() for a in cap.views))
+        x = ms.vertices.clone().requires_grad_(True)
+        before = CK.counters.snapshot()
+        loss, count = silhouette_loss(
+            dataclasses.replace(ms, vertices=x), views.take(1, rays=False),
+            get_intersect_fn("auto"), 1024, 96, 128)
+        (g,) = torch.autograd.grad(loss, x)
+        after = CK.counters.snapshot()
+        out[where] = (float(loss.detach()), int(count), g.cpu(),
+                      [after[k] - before[k] for k in (
+                          "silhouette_pre_launches",
+                          "silhouette_post_launches",
+                          "silhouette_backward_launches")])
+    assert out["cuda"][3] == [1, 1, 1] and out["cpu"][3] == [0, 0, 0]
+    assert out["cuda"][1] == out["cpu"][1] > 0
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    gc, gp = out["cuda"][2], out["cpu"][2]
+    assert float((gc - gp).abs().max()) <= 1e-4 * float(gp.abs().max())
+
+
+@pytest.mark.parametrize("bilinear", [False, True])
+def test_silhouette_post_reads_a_mask_larger_than_the_view(
+        dev, silhouette_meshes, bilinear):
+    """A mask with more rows and columns than the loss's resy and resx (a
+    step built for a smaller view reads the capture's masks in place, as
+    the parent's indexing did): the post kernel reads it at its own row
+    stride, bit for bit with the plain version."""
+    from drt_tpu_torch.intersect import get_intersect_fn
+    from drt_tpu_torch.render import silhouette_kernels as SK
+    ms = silhouette_meshes["dog_mid45k"][torch.float32]
+    views = _silhouette_views(dev, "dog_mid90k", torch.float32)
+    cam = SK.view_camera(views, torch.tensor([1], device=dev))
+    pre = SK.silhouette_pre_cuda(ms.vertices, ms.faces, ms.edge_faces,
+                                 ms.edge_valid, ms.edges, cam, 4096)
+    hits = get_intersect_fn("auto")(pre.origin.expand(pre.ray_dir.shape),
+                                    pre.ray_dir, ms.vertices, ms.faces,
+                                    ms.face_valid, coherent=False)
+    args = (hits.tri_id, pre.sample, pre.count, cam, 700, 900, bilinear)
+    got = SK.silhouette_post_cuda(*args)
+    want = SK.silhouette_post_plain(*args)
+    for a, b in zip(got, want):
+        _same(a, b)
+    assert float(got[0]) > 0

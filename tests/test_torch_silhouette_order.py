@@ -37,7 +37,8 @@ from drt_tpu_torch.optimize import (LossWeights, default_silhouette_budget,
                                     make_train_step)
 from drt_tpu_torch.optimize.losses import ray_loss, silhouette_loss
 from drt_tpu_torch.render.camera import CameraM
-from drt_tpu_torch.render.silhouette import primary_visibility
+from drt_tpu_torch.render.silhouette_kernels import (one_camera,
+                                                     silhouette_view_loss)
 from tests.meshes import make_icosphere
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
@@ -55,9 +56,10 @@ def _mesh(name):
 
 
 def _silhouette_query(v, ms, view, res=POINTGRAY_RES):
-    """(origins, dirs) of one silhouette view's query as the sampler makes
-    it (its origin expanded over the rays), from the port's ring camera of
-    72 views around `v`, at the step's budget for the mesh."""
+    """(origins, dirs) of one silhouette view's query as the step makes it
+    (the pre kernel's plain version's rays, its origin expanded over them),
+    from the port's ring camera of 72 views around `v`, at the step's
+    budget for the mesh."""
     R, _, _ = ring_cameras(v, 72)[view]
     K = intrinsics(*res)
     f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
@@ -71,8 +73,10 @@ def _silhouette_query(v, ms, view, res=POINTGRAY_RES):
         n = o.shape[0]
         return Hits(torch.full((n,), float("inf")),
                     torch.full((n,), -1, dtype=torch.int32))
-    primary_visibility(ms, cam, cam.R_inv[:3, 3], record,
-                       default_silhouette_budget(ms.num_edges), *res)
+    silhouette_view_loss(ms, one_camera(cam, cam.R_inv[:3, 3],
+                                        torch.zeros(res)),
+                         record, default_silhouette_budget(ms.num_edges),
+                         *res)
     return asked[0]
 
 

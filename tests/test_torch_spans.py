@@ -31,7 +31,7 @@ from drt_tpu_torch.intersect import get_intersect_fn
 from drt_tpu_torch.mesh import build_mesh_state
 from drt_tpu_torch.optimize import LossWeights, make_train_step
 from drt_tpu_torch.render import bounce as BO
-from drt_tpu_torch.render import silhouette as SIL
+from drt_tpu_torch.render import silhouette_kernels as SK
 from drt_tpu_torch.render import trace as TR
 # pytest puts tests/ on sys.path; `tests.meshes` could resolve to another
 # installed package named `tests` on a GPU machine.
@@ -159,7 +159,7 @@ def test_spans_off_emit_nothing_and_change_no_bits(tiny, record, case):
 
 # Each custom autograd Function of the step and the chain its backward
 # belongs to (None: the chain that called it, whichever it is).
-FUNCTIONS = [(SIL._EdgeSampler, "silhouette"), (TR._GatherTri9, "ray"),
+FUNCTIONS = [(SK._SilhouetteView, "silhouette"), (TR._GatherTri9, "ray"),
              (BO._BounceChain, "ray"), (BO._RayLossTail, "ray"),
              (SC._GatherRows, None)]
 
