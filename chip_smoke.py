@@ -3481,7 +3481,6 @@ def main():
         from drt_tpu_torch.intersect import cuda_kernel as CK
         from drt_tpu_torch.intersect.api import get_intersect_fn
         from drt_tpu_torch.mesh import build_mesh_state, load_ply
-        from drt_tpu_torch.intersect.api import _auto_incoherent
         from drt_tpu_torch.optimize import (LossWeights,
                                             default_silhouette_budget,
                                             make_train_step, optimize)
@@ -3502,7 +3501,7 @@ def main():
     # -- 1. build -----------------------------------------------------------
     t0 = time.time()
     KN.build(force=True)
-    CK._load()
+    KN.library("pack")
     print(f"build: {time.time() - t0:.2f} s (nvcc {' '.join(KN.NVCC_FLAGS)})")
     entry, n_entries = "?", 0
     for line in KN.build_log.splitlines():
@@ -3528,7 +3527,7 @@ def main():
           f"{SC.CLUSTER_MAX_ROWS} rows into {SC.CLUSTER_MAX_OUT} output "
           "elements, the grid route the rest")
     try:
-        cg_lib = PC._lib()
+        cg_lib = KN.library("cg")
     except RuntimeError as e:
         fail(f"cg: {e}")
     print(f"cg: one cluster of {PC.CG_CTAS} CTAs of {PC.CG_BLOCK} threads a "
@@ -3909,11 +3908,10 @@ def main():
             ms_ck = build_mesh_state(*load_ply(os.path.join(ck_dir, name)),
                                      device=dev)      # raises if not closed
             faces_by_pass.append(ms_ck.num_faces)
-            route = _auto_incoherent(ms_ck.faces.shape[0])
             p = info["passes"][i]
             print(f"lod: pass {i}: {ms_ck.num_faces} faces (padded "
                   f"{ms_ck.faces.shape[0]}, {ms_ck.faces.shape[0] // C} "
-                  f"chunks, incoherent route {route}), silhouette budget "
+                  f"chunks), silhouette budget "
                   f"{p['budget']}, remesh {p['remesh_s']:.2f} s, "
                   f"{hp_lod.iters} steps {p['steps_s']:.2f} s, graph: "
                   f"warm-up {p['graph']['warmup_s']:.3f} s, capture "

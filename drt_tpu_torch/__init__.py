@@ -2,10 +2,16 @@
 
 Same layout and function names as `drt_tpu`, so each module's counterpart
 is found by path. Plain tensor code is PyTorch autograd; the hand-written
-kernels in `csrc/`, built, bound and counted by `kernels.py`, are the
-oracle's three (`intersect/cuda_kernel.py`: `csrc/pack.cu`,
-`csrc/candidates.cu`, `csrc/closest_hit.cu`) and the row scatter-add of
-the train step (`geometry/scatter.py`: `csrc/scatter.cu`).
+kernels in `csrc/` are built, bound, launched and counted by `kernels.py`
+and wrapped, each beside its plain version, by six modules:
+`intersect/cuda_kernel.py` (the oracle's `csrc/pack.cu`,
+`csrc/candidates.cu` and `csrc/closest_hit.cu`, and `csrc/order.cu`, the
+one-origin route's ray order), `geometry/scatter.py` (`csrc/scatter.cu`,
+the row scatter-add), `optimize/precondition.py` (`csrc/cg.cu`, the
+Sobolev CG solve), `render/bounce.py` (`csrc/bounce.cu`, a bounce's chain
+and the ray loss's tail), `render/silhouette_kernels.py`
+(`csrc/silhouette.cu`, a silhouette view's chain) and `spans.py`
+(`csrc/span.cu`, the train step's device span markers).
 Entry points that create tensors (`build_mesh_state`,
 `stack_views`, `synthesize_capture`, `load_h5_capture`, `carve_occupancy`,
 `optimize`, and the command line's `--device`) default to `"cuda"`; the
@@ -29,7 +35,9 @@ Layer map:
     remesh/     host-side isotropic remeshing (numpy + the C++ core in
                 native/) and Hausdorff evaluation
     utils/      metrics logger, profiler helper, image output (`images`)
-    kernels     nvcc build, ctypes binding and launch counters of csrc/*.cu
+    kernels     nvcc build, ctypes binding, the launch layer (one typed row
+                a launch, `launch`, `expect`, `on_device`) and launch
+                counters of csrc/*.cu
 """
 
 import torch

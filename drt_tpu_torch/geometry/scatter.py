@@ -34,7 +34,6 @@ import torch
 
 from drt_tpu_torch import kernels
 
-_ROW_DTYPES = (torch.float32, torch.float64)
 _INT32_MAX = 2 ** 31 - 1
 
 ROUTES = ("cluster", "grid")          # csrc/scatter.cu's route 0 and 1
@@ -90,15 +89,19 @@ def scatter_route(n_rows: int, n_cols: int, n_out: int) -> str:
     return "grid"
 
 
+@kernels.checks("scatter")
+def _check_lib(lib):
+    """A card that schedules the cluster route's cluster."""
+    if lib.scatter_cluster_size() < 1:
+        raise RuntimeError("scatter: the card schedules no cluster of the "
+                           "cluster route's CTAs")
+
+
 def cluster_size() -> int:
     """The CTAs of the cluster route's one cluster on this card (16 where
     the card schedules it, from cudaOccupancyMaxActiveClusters at the
     first call); raises if the card schedules none."""
-    n = kernels.load().scatter_cluster_size()
-    if n < 1:
-        raise RuntimeError("scatter: the card schedules no cluster of the "
-                           "cluster route's CTAs")
-    return n
+    return kernels.library("scatter").scatter_cluster_size()
 
 
 def scatter_rows_plain(rows, idx, num: int):
@@ -109,18 +112,8 @@ def scatter_rows_plain(rows, idx, num: int):
 
 
 def _check(rows, idx, num: int):
-    dev = rows.device
-    if rows.dim() != 2 or rows.dtype not in _ROW_DTYPES:
-        raise ValueError(f"rows: expected [R,C] float32 or float64, got "
-                         f"{tuple(rows.shape)} {rows.dtype}")
-    if (idx.dim() != 1 or idx.dtype != torch.int64
-            or idx.shape[0] != rows.shape[0]):
-        raise ValueError(f"idx: expected [{rows.shape[0]}] int64, got "
-                         f"{tuple(idx.shape)} {idx.dtype}")
-    if idx.device != dev:
-        raise ValueError(f"idx is on {idx.device}, rows on {dev}")
-    if not (rows.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("rows and idx must be contiguous")
+    kernels.expect("rows", rows, (None, None), kernels.FLOATS, rows.device)
+    kernels.expect("idx", idx, (rows.shape[0],), torch.int64, rows.device)
     if not 0 <= num <= _INT32_MAX or rows.shape[0] > _INT32_MAX // 2:
         raise ValueError(f"{rows.shape[0]} rows into {num}: beyond the "
                          "kernel's int32 sizes")
@@ -136,9 +129,8 @@ def scatter_rows_cuda(rows, idx, num: int, route: str | None = None):
     `deferred_bounds_check` the flag is ORed into the scope's word on the
     device and nothing waits."""
     _check(rows, idx, num)
-    if rows.device.type != "cuda":
-        raise ValueError("scatter_rows_cuda needs CUDA tensors")
-    lib = kernels.load()
+    kernels.need_cuda("scatter_rows_cuda", rows)
+    lib = kernels.library("scatter")
     n_rows, n_cols = rows.shape
     if not 1 <= n_cols <= lib.scatter_max_cols():
         raise ValueError(f"{n_cols} columns: the kernel takes 1 to "
@@ -148,23 +140,14 @@ def scatter_rows_cuda(rows, idx, num: int, route: str | None = None):
     if route not in ROUTES:
         raise ValueError(f"route {route!r}: expected one of {ROUTES}")
     code = ROUTES.index(route)
-    with torch.cuda.device(rows.device):
-        if route == "cluster":
-            cluster_size()
-        out = torch.empty((num, n_cols), dtype=rows.dtype, device=rows.device)
-        scratch = torch.empty(lib.scatter_scratch_ints(n_rows, num, code),
-                              dtype=torch.int32, device=rows.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.scatter_launch(
-            rows.data_ptr(), int(rows.dtype == torch.float64),
-            idx.data_ptr(), n_rows, n_cols, num, code, out.data_ptr(),
-            scratch.data_ptr(), stream)
-    kernels.check(lib, err, f"scatter ({route} route)")
-    kernels.counters.scatter_launches += 1
-    if route == "cluster":
-        kernels.counters.scatter_cluster_launches += 1
-    else:
-        kernels.counters.scatter_grid_launches += 1
+    out = torch.empty((num, n_cols), dtype=rows.dtype, device=rows.device)
+    scratch = torch.empty(lib.scatter_scratch_ints(n_rows, num, code),
+                          dtype=torch.int32, device=rows.device)
+    kernels.launch(
+        "scatter", rows, ("scatter_launches", f"scatter_{route}_launches"),
+        what=f"scatter ({route} route)", rows=rows,
+        rows_f64=rows.dtype == torch.float64, idx=idx, n_rows=n_rows,
+        n_cols=n_cols, n_out=num, route=code, out=out, scratch=scratch)
     word = _deferred_word
     if word is None:
         raise_if_out_of_bounds(scratch[-1].item(), num)
@@ -177,16 +160,12 @@ def scatter_rows_cuda(rows, idx, num: int, route: str | None = None):
 
 
 def _scatter(rows, idx, num: int):
-    dev = rows.device.type
     if idx.dtype == torch.int32:            # int32 face arrays: as indexing
         idx = idx.long()
     rows, idx = rows.contiguous(), idx.contiguous()
-    if dev == "cuda":
-        return scatter_rows_cuda(rows, idx, num)
-    if dev == "cpu":
-        _check(rows, idx, num)
-        return scatter_rows_plain(rows, idx, num)
-    raise ValueError(f"scatter_rows: unsupported device {rows.device}")
+    fn = kernels.on_device(rows, scatter_rows_cuda, scatter_rows_plain)
+    _check(rows, idx, num)
+    return fn(rows, idx, num)
 
 
 class _ScatterRows(torch.autograd.Function):

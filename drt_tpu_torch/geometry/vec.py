@@ -95,6 +95,29 @@ def dot3(a: torch.Tensor, b: torch.Tensor, keepdims: bool = False):
     return out[..., None] if keepdims else out
 
 
+# Component arithmetic of the kernels' plain versions: a 3-vector as a tuple
+# of its components, each product and sum a torch operation rounded on its
+# own, in the order the csrc/*.cu kernels compute them.
+
+def comp_dot(a, b):
+    return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
+
+
+def comp_cross(a, b):
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def comp_sub(a, b):
+    return tuple(x - y for x, y in zip(a, b))
+
+
+def components(x: torch.Tensor) -> tuple:
+    """The columns of x [..., 3] as a tuple of three tensors."""
+    return tuple(x.unbind(-1))
+
+
 def safe_normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Normalize along the last axis; zero vectors map to zero, not NaN."""
     n2 = torch.sum(v * v, dim=-1, keepdim=True)

@@ -25,19 +25,9 @@ miss.
 
 from __future__ import annotations
 
-import functools
-import json
-import math
-import os
 from typing import Callable, NamedTuple
 
 import torch
-
-# The measured A/B of the two incoherent routes of the cuda backend, written
-# from the card by `scripts/tune_torch_oracle.py --what resort`.
-RESORT_TABLE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "reports", "torch_resort_ab.json")
 
 
 class Hits(NamedTuple):
@@ -49,18 +39,6 @@ class Hits(NamedTuple):
         return self.tri_id >= 0
 
 
-@functools.lru_cache(maxsize=1)
-def _resort_ab_table():
-    """((faces_padded, winner), ...) from RESORT_TABLE, or () if absent."""
-    try:
-        with open(RESORT_TABLE) as fh:
-            rows = json.load(fh)["rows"]
-        return tuple((int(r["faces_padded"]), str(r["winner"]))
-                     for r in rows)
-    except (OSError, ValueError, KeyError, TypeError):
-        return ()
-
-
 def one_origin(origins: torch.Tensor) -> bool:
     """Whether every ray of an [N,3] origin tensor reads the same row in
     memory (stride 0 along the rays, as `origin.expand(N, 3)` gives): a
@@ -68,22 +46,6 @@ def one_origin(origins: torch.Tensor) -> bool:
     rays that share one point but arrive as separate rows is not one."""
     return (origins.dim() == 2 and origins.shape[0] > 1
             and origins.stride(0) == 0)
-
-
-def nearest_measured(rows, num_faces: int, default):
-    """The value of the row of ((faces_padded, value), ...) nearest
-    num_faces in log space; `default` where nothing was measured."""
-    if not rows:
-        return default
-    _, value = min(rows, key=lambda kv:
-                   abs(math.log(kv[0] / max(num_faces, 1))))
-    return value
-
-
-def _auto_incoherent(num_faces: int) -> str:
-    """The nearest measured mesh size's winner; "ray" (the exact per-ray
-    prepass) where nothing was measured."""
-    return nearest_measured(_resort_ab_table(), num_faces, "ray")
 
 
 def get_intersect_fn(backend: str = "auto", incoherent: str = "auto",
@@ -99,11 +61,15 @@ def get_intersect_fn(backend: str = "auto", incoherent: str = "auto",
     incoherent: how the cuda backend answers coherent=False queries.
     "ray" is the exact per-ray candidate prepass (csrc/candidates.cu);
     "resort" Morton-sorts the rays so the cheap tile prepass applies, then
-    scatters the hits back (intersect/resort.py); "auto" takes the measured
-    winner for the mesh size from RESORT_TABLE, and "ray" where that table
-    has no row. Both routes give the same hits bit for bit. A one-origin
-    query (`one_origin`) takes neither: its keys would be one origin, so
-    the cuda backend sorts it by direction instead."""
+    scatters the hits back (intersect/resort.py); "auto" is "ray", which
+    was the faster on every mesh measured (an H100 80GB HBM3 at 700 W,
+    `scripts/tune_torch_oracle.py --what resort`,
+    reports/torch_resort_ab.json, 2026-10-17: both incoherent queries of a
+    step took 3.03, 3.71 and 3.98 ms by "ray" against 4.85, 4.87 and 4.85
+    by "resort" on dog_mid20k, 45k and 90k). Both routes give the same
+    hits bit for bit. A one-origin query (`one_origin`) takes neither: its
+    keys would be one origin, so the cuda backend sorts it by direction
+    instead."""
     if incoherent not in ("auto", "ray", "resort"):
         raise ValueError(f"unknown incoherent strategy: {incoherent}")
     if backend == "auto":
@@ -121,17 +87,13 @@ def get_intersect_fn(backend: str = "auto", incoherent: str = "auto",
                 coherent: bool) -> Hits:
         args = (origins.detach(), dirs.detach(), vertices.detach(), faces,
                 face_valid)
-        if backend == "cuda" and not coherent and not one_origin(origins):
-            strat = incoherent
-            if strat == "auto":
-                strat = _auto_incoherent(faces.shape[0])
-            if strat == "resort":
-                from drt_tpu_torch.intersect.resort import resorted_intersect
-                # the unsorted query's shift, so t is the per-ray route's
-                # to the bit
-                return resorted_intersect(
-                    fn, *args, coherent=True,
-                    shift=args[0].float().mean(dim=0), **kw)
+        if (backend == "cuda" and not coherent and incoherent == "resort"
+                and not one_origin(origins)):
+            from drt_tpu_torch.intersect.resort import resorted_intersect
+            # the unsorted query's shift, so t is the per-ray route's to the
+            # bit
+            return resorted_intersect(fn, *args, coherent=True,
+                                      shift=args[0].float().mean(dim=0), **kw)
         return fn(*args, coherent=coherent, **kw)
 
     return wrapped

@@ -19,7 +19,7 @@ Stages:
    which the prepass lists; and the ray features: shifted and padded
    origins, directions, o x d and the guarded inverse directions. A mesh
    above MAX_CHUNKS chunks is always grouped; below it incoherent queries
-   take the group measured fastest on the card (GROUP_TABLE);
+   take GROUP_INCOHERENT, the group measured fastest on the card;
 3. `candidates`, the candidate prepass, per tile of rays
    (`RAY_TILE_COHERENT` or `RAY_TILE_INCOHERENT`): a nearest-first list of
    the boxes some ray of the tile may enter, and its length. One launch of
@@ -62,22 +62,19 @@ test enters the chunk's box before its running best t. The JAX package's
 overlaps; the port departs from it here (csrc/closest_hit.cu says why),
 kernel and plain version alike, and both are held to the brute oracle.
 
-The kernels are built, bound and counted by drt_tpu_torch/kernels.py (nvcc
-at first use, one library for every csrc/*.cu, bound through ctypes).
+The kernels are built, bound, launched and counted by
+drt_tpu_torch/kernels.py.
 """
 
 from __future__ import annotations
 
-import functools
-import json
 import math
-import os
 from typing import NamedTuple
 
 import torch
 
 from drt_tpu_torch import kernels
-from drt_tpu_torch.intersect.api import Hits, nearest_measured, one_origin
+from drt_tpu_torch.intersect.api import Hits, one_origin
 from drt_tpu_torch.intersect.resort import _spread3
 from drt_tpu_torch.kernels import counters
 
@@ -109,33 +106,30 @@ ORDER_AXIS_BITS = 5    # a key's bits an axis, fixed in csrc/order.cu
 # materializes all at once.
 _GROUP_ELEMS = 2 ** 25
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# The measured A/B of candidate groups on incoherent queries, written from
-# the card by `scripts/tune_torch_oracle.py --what group`.
-GROUP_TABLE = os.path.join(os.path.dirname(_PKG_DIR), "reports",
-                           "torch_group_ab.json")
-_checked_lib = None
+# `group=None`'s least group for an incoherent query that is not one-origin.
+# Measured on an H100 80GB HBM3 at 700 W (`scripts/tune_torch_oracle.py
+# --what group`, reports/torch_group_ab.json, 2026-10-17): a step's
+# incoherent queries' prepass and closest hit took 3.98-3.99 ms at group 4
+# against 4.22-4.30 at group 1 on dog_mid45k, and 5.26-5.31 against
+# 6.33-6.34 on dog_mid90k; group 16 was faster than 1 and slower than 4.
+# Those queries included the silhouette views', which have since taken the
+# one-origin route: a new measurement would time bounce 2 and the exit.
+GROUP_INCOHERENT = 4
 
 
-def _load():
-    """The kernels' library (drt_tpu_torch/kernels.py), its constants
-    checked against this module's once per library."""
-    global _checked_lib
-    lib = kernels.load()
-    if lib is not _checked_lib:
-        for name, want in (("closest_hit_tri_chunk", TRI_CHUNK),
-                           ("closest_hit_max_ray_tile", MAX_RAY_TILE),
-                           ("candidates_max_ray_tile", MAX_RAY_TILE),
-                           ("candidates_max_chunks", MAX_CHUNKS),
-                           ("pack_tri_chunk", TRI_CHUNK),
-                           ("ray_order_axis_bits", ORDER_AXIS_BITS),
-                           ("pack_n_coef", N_COEF)):
-            if getattr(lib, name)() != want:
-                raise RuntimeError(f"csrc: {name}() is "
-                                   f"{getattr(lib, name)()}, cuda_kernel.py "
-                                   f"expects {want}")
-        _checked_lib = lib
-    return lib
+@kernels.checks("pack", "ray_order", "candidates", "closest_hit")
+def _check_lib(lib):
+    """The library's constants against this module's."""
+    for name, want in (("closest_hit_tri_chunk", TRI_CHUNK),
+                       ("closest_hit_max_ray_tile", MAX_RAY_TILE),
+                       ("candidates_max_ray_tile", MAX_RAY_TILE),
+                       ("candidates_max_chunks", MAX_CHUNKS),
+                       ("pack_tri_chunk", TRI_CHUNK),
+                       ("ray_order_axis_bits", ORDER_AXIS_BITS),
+                       ("pack_n_coef", N_COEF)):
+        if getattr(lib, name)() != want:
+            raise RuntimeError(f"csrc: {name}() is {getattr(lib, name)()}, "
+                               f"cuda_kernel.py expects {want}")
 
 
 # --- stages feeding the kernel ---------------------------------------------
@@ -218,18 +212,6 @@ def _auto_group(nc: int, limit: int = MAX_CHUNKS) -> int:
     return g
 
 
-@functools.lru_cache(maxsize=1)
-def _group_table():
-    """((faces_padded, group), ...) from GROUP_TABLE, or () if absent."""
-    try:
-        with open(GROUP_TABLE) as fh:
-            verdict = json.load(fh)["verdict"]
-        return tuple((int(v["faces_padded"]), int(v["group"]))
-                     for v in verdict.values())
-    except (OSError, ValueError, KeyError, TypeError):
-        return ()
-
-
 def _grouped_boxes(lo, hi, chunk_valid, group):
     """The chunk boxes for `group`: (lo, hi) [NCg,3] that the closest-hit
     kernel reads, NCg = NC rounded up to a multiple of group, and (lo, hi,
@@ -307,26 +289,18 @@ def _check_pack_inputs(vertices, faces, face_valid, shift, origins, dirs,
     """Checks the packing kernel's inputs; origins may be one-origin (one
     contiguous row read by every ray)."""
     dev = origins.device
-    for name, x, want in (("vertices", vertices, (torch.float32,
-                                                   torch.float64)),
-                          ("faces", faces, (torch.int64, torch.int32)),
-                          ("origins", origins, (torch.float32,
-                                                torch.float64)),
-                          ("dirs", dirs, (torch.float32, torch.float64))):
-        rows = origins.shape[0] if name == "dirs" else x.shape[0]
-        if name == "origins" and one_origin(x):
-            x, rows = x[:1], 1
-        _check(name, x, (rows, 3), x.dtype, dev)
-        if x.dtype not in want:
-            raise ValueError(f"{name}: expected one of {want}, got {x.dtype}")
-    _check("shift", shift, (3,), torch.float32, dev)
-    if face_valid is not None:
-        _check("face_valid", face_valid, (faces.shape[0],), torch.bool, dev)
-    if order is not None:
-        _check("order", order, (order.shape[0],), torch.int32, dev)
-        if order.shape[0] < origins.shape[0]:
-            raise ValueError(f"order: {order.shape[0]} entries for "
-                             f"{origins.shape[0]} rays")
+    kernels.expect("vertices", vertices, (None, 3), kernels.FLOATS, dev)
+    kernels.expect("faces", faces, (None, 3), (torch.int64, torch.int32), dev)
+    rows = origins[:1] if one_origin(origins) else origins
+    kernels.expect("origins", rows, (None, 3), kernels.FLOATS, dev)
+    kernels.expect("dirs", dirs, (origins.shape[0], 3), kernels.FLOATS, dev)
+    kernels.expect("shift", shift, (3,), torch.float32, dev)
+    kernels.expect("face_valid", face_valid, (faces.shape[0],), torch.bool,
+                   dev)
+    kernels.expect("order", order, (None,), torch.int32, dev)
+    if order is not None and order.shape[0] < origins.shape[0]:
+        raise ValueError(f"order: {order.shape[0]} entries for "
+                         f"{origins.shape[0]} rays")
 
 
 def _pack_sizes(n_faces, n_rays, group, ray_tile):
@@ -348,41 +322,29 @@ def pack_cuda(vertices, faces, face_valid, shift, origins, dirs, *,
     prepass's boxes are the chunk boxes themselves."""
     _check_pack_inputs(vertices, faces, face_valid, shift, origins, dirs,
                        order)
+    kernels.need_cuda("pack_cuda", origins)
     dev = origins.device
-    if dev.type != "cuda":
-        raise ValueError("pack_cuda needs CUDA tensors")
     F, N = faces.shape[0], origins.shape[0]
     ncg, ng, T = _pack_sizes(F, N, group, ray_tile)
     Np = T * ray_tile
-    lib = _load()
-    with torch.cuda.device(dev):
-        coef = torch.empty(ncg, N_COEF, TRI_CHUNK, device=dev)
-        lo = torch.empty(ncg, 3, device=dev)
-        hi = torch.empty(ncg, 3, device=dev)
-        if group == 1:
-            box_lo, box_hi = lo, hi
-        else:
-            box_lo = torch.empty(ng, 3, device=dev)
-            box_hi = torch.empty(ng, 3, device=dev)
-        box_valid = torch.empty(ng, dtype=torch.bool, device=dev)
-        phi = torch.empty(9, Np, device=dev)
-        inv = torch.empty(3, Np, device=dev)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pack_launch(
-            vertices.data_ptr(), int(vertices.dtype == torch.float64),
-            faces.data_ptr(), int(faces.dtype == torch.int64),
-            None if face_valid is None else face_valid.data_ptr(), F,
-            shift.data_ptr(), origins.data_ptr(),
-            int(origins.dtype == torch.float64),
-            0 if one_origin(origins) else 3, dirs.data_ptr(),
-            int(dirs.dtype == torch.float64),
-            None if order is None else order.data_ptr(), N, ng, group, T,
-            ray_tile,
-            coef.data_ptr(), lo.data_ptr(), hi.data_ptr(), box_lo.data_ptr(),
-            box_hi.data_ptr(), box_valid.data_ptr(), phi.data_ptr(),
-            inv.data_ptr(), stream)
-    kernels.check(lib, err, "pack")
-    counters.pack_launches += 1
+    coef = torch.empty(ncg, N_COEF, TRI_CHUNK, device=dev)
+    lo, hi = torch.empty(ncg, 3, device=dev), torch.empty(ncg, 3, device=dev)
+    box_lo, box_hi = (lo, hi) if group == 1 else (
+        torch.empty(ng, 3, device=dev), torch.empty(ng, 3, device=dev))
+    box_valid = torch.empty(ng, dtype=torch.bool, device=dev)
+    phi = torch.empty(9, Np, device=dev)
+    inv = torch.empty(3, Np, device=dev)
+    f64 = torch.float64
+    kernels.launch(
+        "pack", origins, ("pack_launches",), vertices=vertices,
+        vert_f64=vertices.dtype == f64, faces=faces,
+        faces_i64=faces.dtype == torch.int64, face_valid=face_valid,
+        n_faces=F, shift=shift, origins=origins,
+        org_f64=origins.dtype == f64,
+        org_stride=0 if one_origin(origins) else 3, dirs=dirs,
+        dir_f64=dirs.dtype == f64, order=order, n_rays=N, n_groups=ng,
+        group=group, n_tiles=T, ray_tile=ray_tile, coef=coef, lo=lo, hi=hi,
+        box_lo=box_lo, box_hi=box_hi, box_valid=box_valid, phi=phi, inv=inv)
     return Packed(coef, lo, hi, box_lo, box_hi, box_valid, phi, inv)
 
 
@@ -390,14 +352,9 @@ def pack(vertices, faces, face_valid, shift, origins, dirs, *, group: int,
          ray_tile: int, order=None) -> Packed:
     """The packing kernel on CUDA tensors, its plain version on CPU
     tensors."""
-    dev = origins.device.type
-    if dev == "cuda":
-        return pack_cuda(vertices, faces, face_valid, shift, origins, dirs,
-                         group=group, ray_tile=ray_tile, order=order)
-    if dev == "cpu":
-        return pack_plain(vertices, faces, face_valid, shift, origins, dirs,
-                          group=group, ray_tile=ray_tile, order=order)
-    raise ValueError(f"pack: unsupported device {origins.device}")
+    return kernels.on_device(origins, pack_cuda, pack_plain)(
+        vertices, faces, face_valid, shift, origins, dirs, group=group,
+        ray_tile=ray_tile, order=order)
 
 
 # --- the one-origin route's order of the rays ------------------------------
@@ -443,38 +400,26 @@ def ray_order_cuda(dirs, n_pad: int):
     """Launch csrc/order.cu on the current stream: one cluster launch; the
     result as in `ray_order_plain`. dirs [N,3] float32 or float64,
     contiguous on a CUDA device."""
-    dev = dirs.device
     N = dirs.shape[0]
-    if dirs.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"dirs: expected float32 or float64, got "
-                         f"{dirs.dtype}")
-    _check("dirs", dirs, (N, 3), dirs.dtype, dev)
-    if dev.type != "cuda":
-        raise ValueError("ray_order_cuda needs CUDA tensors")
+    kernels.expect("dirs", dirs, (N, 3), kernels.FLOATS, dirs.device)
+    kernels.need_cuda("ray_order_cuda", dirs)
     if n_pad < N:
         raise ValueError(f"{n_pad} lanes for {N} rays")
-    lib = _load()
-    with torch.cuda.device(dev):
-        order = torch.empty(n_pad, dtype=torch.int32, device=dev)
-        scratch = torch.empty(max(lib.ray_order_scratch_ints(N), 1),
-                              dtype=torch.int32, device=dev)
-        err = lib.ray_order_launch(
-            dirs.data_ptr(), int(dirs.dtype == torch.float64), N, n_pad,
-            order.data_ptr(), scratch.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    kernels.check(lib, err, "ray_order")
+    lib = kernels.library("ray_order")
+    order = torch.empty(n_pad, dtype=torch.int32, device=dirs.device)
+    scratch = torch.empty(max(lib.ray_order_scratch_ints(N), 1),
+                          dtype=torch.int32, device=dirs.device)
+    kernels.launch("ray_order", dirs, what="ray_order", dirs=dirs,
+                   dir_f64=dirs.dtype == torch.float64, n_rays=N, np=n_pad,
+                   order=order, scratch=scratch)
     return order
 
 
 def ray_order(dirs, n_pad: int):
     """The order kernel on CUDA tensors, its plain version on CPU
     tensors."""
-    dev = dirs.device.type
-    if dev == "cuda":
-        return ray_order_cuda(dirs, n_pad)
-    if dev == "cpu":
-        return ray_order_plain(dirs, n_pad)
-    raise ValueError(f"ray_order: unsupported device {dirs.device}")
+    return kernels.on_device(dirs, ray_order_cuda, ray_order_plain)(dirs,
+                                                                    n_pad)
 
 
 def _sorted_candidates(score):
@@ -524,16 +469,6 @@ def _candidates_tile(ot, dt, lo_c, hi_c, chunk_valid, t_min=0.0):
         _tile_scores(ot, _safe_inv(dt), lo_c, hi_c, chunk_valid, t_min))
 
 
-def _check(name, x, shape, dtype, dev):
-    if x.device != dev:
-        raise ValueError(f"{name} is on {x.device}, expected {dev}")
-    if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
-        raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_tiling(Np, T):
     if T <= 0 or Np % T:
         raise ValueError(f"{Np} rays do not split into {T} tiles")
@@ -554,7 +489,7 @@ def _check_prepass_inputs(org, inv, lo, hi, chunk_valid, n_tiles):
             ("lo", lo, (NC, 3), torch.float32),
             ("hi", hi, (NC, 3), torch.float32),
             ("chunk_valid", chunk_valid, (NC,), torch.bool)):
-        _check(name, x, shape, dtype, dev)
+        kernels.expect(name, x, shape, dtype, dev)
     return Np, NC, _check_tiling(Np, n_tiles)
 
 
@@ -616,19 +551,13 @@ def candidates_cuda(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool,
     if NC > MAX_CHUNKS:
         raise ValueError(f"{NC} boxes: the prepass kernel takes at most "
                          f"MAX_CHUNKS = {MAX_CHUNKS} (group the chunks)")
-    if org.device.type != "cuda":
-        raise ValueError("candidates_cuda needs CUDA tensors")
-    lib = _load()
-    with torch.cuda.device(org.device):
-        cand = torch.empty(n_tiles, NC, dtype=torch.int32, device=org.device)
-        count = torch.empty(n_tiles, dtype=torch.int32, device=org.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.candidates_launch(
-            org.data_ptr(), inv.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            chunk_valid.data_ptr(), n_tiles, ray_tile, NC, int(tile),
-            float(t_min), cand.data_ptr(), count.data_ptr(), stream)
-    kernels.check(lib, err, "candidates")
-    counters.candidates_launches += 1
+    kernels.need_cuda("candidates_cuda", org)
+    cand = torch.empty(n_tiles, NC, dtype=torch.int32, device=org.device)
+    count = torch.empty(n_tiles, dtype=torch.int32, device=org.device)
+    kernels.launch("candidates", org, ("candidates_launches",), org=org,
+                   inv=inv, lo=lo, hi=hi, valid=chunk_valid, n_tiles=n_tiles,
+                   ray_tile=ray_tile, nc=NC, tile_mode=bool(tile),
+                   t_min=float(t_min), cand=cand, count=count)
     return cand, count
 
 
@@ -636,14 +565,8 @@ def candidates(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool,
                t_min: float = 0.0):
     """The prepass kernel on CUDA tensors, its plain version on CPU
     tensors."""
-    dev = org.device.type
-    if dev == "cuda":
-        return candidates_cuda(org, inv, lo, hi, chunk_valid, n_tiles,
-                               tile=tile, t_min=t_min)
-    if dev == "cpu":
-        return candidates_plain(org, inv, lo, hi, chunk_valid, n_tiles,
-                                tile=tile, t_min=t_min)
-    raise ValueError(f"candidates: unsupported device {org.device}")
+    return kernels.on_device(org, candidates_cuda, candidates_plain)(
+        org, inv, lo, hi, chunk_valid, n_tiles, tile=tile, t_min=t_min)
 
 
 def _candidates(ot, dt, lo_c, hi_c, chunk_valid, t_min=0.0):
@@ -707,8 +630,8 @@ def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
 
     group: chunks a candidate group, the prepass's boxes. None takes the
     least power of two that brings the mesh to MAX_CHUNKS groups (1 below
-    that), and for an incoherent query at least the group measured fastest
-    for the nearest mesh size (GROUP_TABLE). The chunk axis is padded
+    that), and for an incoherent query that is not one-origin at least
+    GROUP_INCOHERENT. The chunk axis is padded
     to a multiple of it with zero coefficients and the boxes of
     `_grouped_boxes`."""
     F, N = faces.shape[0], origins.shape[0]
@@ -720,8 +643,7 @@ def prepare_inputs(origins, dirs, vertices, faces, face_valid=None, *,
         if routed:
             g = max(g, GROUP_ONE_ORIGIN)
         elif not coherent:
-            # the group of the nearest measured mesh size; 1 unmeasured
-            g = max(g, nearest_measured(_group_table(), F, 1))
+            g = max(g, GROUP_INCOHERENT)
     else:
         g = int(group)
     if g < 1:
@@ -764,12 +686,10 @@ def _check_inputs(inp: KernelInputs):
         "coef": ((NC, N_COEF, TRI_CHUNK), torch.float32),
         "lo": ((NC, 3), torch.float32), "hi": ((NC, 3), torch.float32),
         "cand": ((T, NC // inp.group), torch.int32),
-        "count": ((T,), torch.int32),
+        "count": ((T,), torch.int32), "order": ((Np,), torch.int32),
     }
-    if inp.order is not None:
-        expect["order"] = ((Np,), torch.int32)
     for name, (shape, dtype) in expect.items():
-        _check(name, getattr(inp, name), shape, dtype, dev)
+        kernels.expect(name, getattr(inp, name), shape, dtype, dev)
     return Np, NC, T, _check_tiling(Np, T)
 
 
@@ -780,27 +700,21 @@ def closest_hit_cuda(inp: KernelInputs):
     warp; on the one-origin route (an order) BLOCK_RAYS_ONE_ORIGIN,
     RAY_LANES_ONE_ORIGIN a warp."""
     Np, NC, T, ray_tile = _check_inputs(inp)
-    if inp.phi.device.type != "cuda":
-        raise ValueError("closest_hit_cuda needs CUDA tensors")
+    kernels.need_cuda("closest_hit_cuda", inp.phi)
     if inp.order is None:
         block, lanes = math.gcd(ray_tile, BLOCK_RAYS), 32
     else:
         block = math.gcd(ray_tile, BLOCK_RAYS_ONE_ORIGIN)
         lanes = math.gcd(block, RAY_LANES_ONE_ORIGIN)
-    lib = _load()
-    with torch.cuda.device(inp.phi.device):
-        t_out = torch.empty(Np, dtype=torch.float32, device=inp.phi.device)
-        id_out = torch.empty(Np, dtype=torch.int32, device=inp.phi.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.closest_hit_launch(
-            inp.phi.data_ptr(), inp.inv.data_ptr(), inp.coef.data_ptr(),
-            inp.lo.data_ptr(), inp.hi.data_ptr(), inp.cand.data_ptr(),
-            inp.count.data_ptr(),
-            None if inp.order is None else inp.order.data_ptr(), T, ray_tile,
-            block, lanes, NC // inp.group, inp.group,
-            inp.t_min, t_out.data_ptr(), id_out.data_ptr(), stream)
-    kernels.check(lib, err, "closest_hit")
-    counters.launches += 1
+    t_out = torch.empty(Np, dtype=torch.float32, device=inp.phi.device)
+    id_out = torch.empty(Np, dtype=torch.int32, device=inp.phi.device)
+    kernels.launch(
+        "closest_hit", inp.phi, ("launches",), what="closest_hit",
+        phi=inp.phi, inv=inp.inv, coef=inp.coef, lo=inp.lo, hi=inp.hi,
+        cand=inp.cand, count=inp.count, order=inp.order, n_tiles=T,
+        ray_tile=ray_tile, block_rays=block, ray_lanes=lanes,
+        n_groups=NC // inp.group, group=inp.group, t_min=inp.t_min,
+        t_out=t_out, id_out=id_out)
     return t_out, id_out
 
 
@@ -884,12 +798,8 @@ def closest_hit_plain(inp: KernelInputs):
 
 def closest_hit(inp: KernelInputs):
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    dev = inp.phi.device.type
-    if dev == "cuda":
-        return closest_hit_cuda(inp)
-    if dev == "cpu":
-        return closest_hit_plain(inp)
-    raise ValueError(f"closest_hit: unsupported device {inp.phi.device}")
+    return kernels.on_device(inp.phi, closest_hit_cuda,
+                             closest_hit_plain)(inp)
 
 
 def intersect_cuda(origins, dirs, vertices, faces, face_valid=None, *,

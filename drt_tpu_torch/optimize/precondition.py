@@ -83,8 +83,8 @@ CG_THREADS = CG_CTAS * CG_BLOCK
 # p (each chunk's (CG_BLOCK - 1) // C + 2 vertex slots of 4 elements, and
 # 4 zeros), Ap and p's uint16 index of each own element (a chunk of
 # CG_BLOCK each) and CG_SHARED_ROW bytes a row, within CG_SHARED_BUDGET
-# bytes, the H100's opt-in shared memory a block (`_lib` checks that the
-# card gives it).
+# bytes, the H100's opt-in shared memory a block (`_check_lib` checks that
+# the card gives it).
 CG_ROUTES = ("global", "shared")
 CG_SHARED_MAX_D = 8
 CG_SHARED_MAX_VP = 65536
@@ -214,54 +214,22 @@ def cg_plain(b, neighbors, neighbor_valid, lam, tol: float = 1e-5,
 
 
 _INT32_MAX = 2 ** 31 - 1
-_cg_lib = None
 
 
 def _check(b, neighbors, neighbor_valid, x0):
-    if b.dim() != 2 or b.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"b: expected [Vp,C] float32 or float64, got "
-                         f"{tuple(b.shape)} {b.dtype}")
+    dev = b.device
+    kernels.expect("b", b, (None, None), kernels.FLOATS, dev)
     vp = b.shape[0]
-    if (neighbors.dim() != 2 or neighbors.shape[0] != vp
-            or neighbors.dtype != torch.int64):
-        raise ValueError(f"neighbors: expected [{vp},D] int64, got "
-                         f"{tuple(neighbors.shape)} {neighbors.dtype}")
-    if (neighbor_valid.shape != neighbors.shape
-            or neighbor_valid.dtype != torch.bool):
-        raise ValueError(f"neighbor_valid: expected {tuple(neighbors.shape)}"
-                         f" bool, got {tuple(neighbor_valid.shape)} "
-                         f"{neighbor_valid.dtype}")
-    if x0 is not None and (x0.shape != b.shape or x0.dtype != b.dtype):
-        raise ValueError(f"x0: expected {tuple(b.shape)} {b.dtype}, got "
-                         f"{tuple(x0.shape)} {x0.dtype}")
-    tensors = [b, neighbors, neighbor_valid] + ([x0] if x0 is not None
-                                                else [])
-    if any(t.device != b.device for t in tensors):
-        raise ValueError("b, neighbors, neighbor_valid and x0 must be on "
-                         "one device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("b, neighbors, neighbor_valid and x0 must be "
-                         "contiguous")
+    kernels.expect("neighbors", neighbors, (vp, None), torch.int64, dev)
+    kernels.expect("neighbor_valid", neighbor_valid, tuple(neighbors.shape),
+                   torch.bool, dev)
+    kernels.expect("x0", x0, tuple(b.shape), b.dtype, dev)
     if max(b.numel(), neighbors.numel()) > _INT32_MAX:
         raise ValueError(f"{tuple(b.shape)} with {neighbors.shape[1]} "
                          "neighbours: beyond the kernel's int32 sizes")
 
 
-def launch_args(b, neighbors, neighbor_valid, lam, tol, maxiter, x0, x,
-                trips, scratch, stream) -> dict:
-    """cg_launch's arguments by the names of csrc/cg.cu's cg_signature(),
-    which cg_shared_launch takes too."""
-    vp, c = b.shape
-    return {"b": b.data_ptr(), "x0": None if x0 is None else x0.data_ptr(),
-            "f64": int(b.dtype == torch.float64),
-            "nbr": neighbors.data_ptr(), "valid": neighbor_valid.data_ptr(),
-            "vp": vp, "c": c, "d": neighbors.shape[1], "lam": float(lam),
-            "tol2": float(tol) * float(tol), "maxiter": int(maxiter),
-            "x": x.data_ptr(), "trips": trips.data_ptr(),
-            "scratch": scratch.data_ptr(), "stream": stream}
-
-
-# Sizes at which `_lib` holds the library's cg_shared_bytes to
+# Sizes at which `_check_lib` holds the library's cg_shared_bytes to
 # `cg_shared_bytes`: (vp, c, d, f64).
 _SHARED_PROBES = ((0, 3, 8, 0), (1024, 3, 8, 0), (16384, 3, 8, 1),
                   (21845, 3, 8, 1), (21846, 3, 8, 1), (65536, 3, 8, 0),
@@ -269,37 +237,33 @@ _SHARED_PROBES = ((0, 3, 8, 0), (1024, 3, 8, 0), (16384, 3, 8, 1),
                   (1000, 5, 8, 0))
 
 
-def _lib():
-    """The kernels' library, checked once for csrc/cg.cu's summation order,
-    for a card that schedules both routes' clusters and gives the shared
-    route its budget, and for the shared route's sizes."""
-    global _cg_lib
-    if _cg_lib is None:
-        lib = kernels.load()
-        if (lib.cg_ctas(), lib.cg_block()) != (CG_CTAS, CG_BLOCK):
+@kernels.checks("cg", "cg_shared")
+def _check_lib(lib):
+    """csrc/cg.cu's summation order, a card that schedules both routes'
+    clusters and gives the shared route its budget, and the shared route's
+    sizes."""
+    if (lib.cg_ctas(), lib.cg_block()) != (CG_CTAS, CG_BLOCK):
+        raise RuntimeError(
+            f"csrc/cg.cu sums over {lib.cg_ctas()} CTAs of "
+            f"{lib.cg_block()} threads, the plain version over "
+            f"{CG_CTAS} of {CG_BLOCK}")
+    if not lib.cg_cluster_ready():
+        raise RuntimeError(f"cg: the card schedules no cluster of "
+                           f"{CG_CTAS} CTAs of {CG_BLOCK} threads")
+    if lib.cg_shared_budget() < CG_SHARED_BUDGET:
+        raise RuntimeError(
+            f"cg: the card gives the shared route's CTAs "
+            f"{lib.cg_shared_budget()} bytes of shared memory in a "
+            f"cluster of {CG_CTAS}, cg_route plans for "
+            f"{CG_SHARED_BUDGET}")
+    for vp, c, d, f64 in _SHARED_PROBES:
+        want = cg_shared_bytes(vp, c, d, torch.float64 if f64
+                               else torch.float32)
+        got = lib.cg_shared_bytes(vp, c, d, f64)
+        if got != (-1 if want is None else want):
             raise RuntimeError(
-                f"csrc/cg.cu sums over {lib.cg_ctas()} CTAs of "
-                f"{lib.cg_block()} threads, the plain version over "
-                f"{CG_CTAS} of {CG_BLOCK}")
-        if not lib.cg_cluster_ready():
-            raise RuntimeError(f"cg: the card schedules no cluster of "
-                               f"{CG_CTAS} CTAs of {CG_BLOCK} threads")
-        if lib.cg_shared_budget() < CG_SHARED_BUDGET:
-            raise RuntimeError(
-                f"cg: the card gives the shared route's CTAs "
-                f"{lib.cg_shared_budget()} bytes of shared memory in a "
-                f"cluster of {CG_CTAS}, cg_route plans for "
-                f"{CG_SHARED_BUDGET}")
-        for vp, c, d, f64 in _SHARED_PROBES:
-            want = cg_shared_bytes(vp, c, d, torch.float64 if f64
-                                   else torch.float32)
-            got = lib.cg_shared_bytes(vp, c, d, f64)
-            if got != (-1 if want is None else want):
-                raise RuntimeError(
-                    f"csrc/cg.cu's shared route takes {got} bytes for "
-                    f"{(vp, c, d, f64)}, cg_shared_bytes says {want}")
-        _cg_lib = lib
-    return _cg_lib
+                f"csrc/cg.cu's shared route takes {got} bytes for "
+                f"{(vp, c, d, f64)}, cg_shared_bytes says {want}")
 
 
 def cg_cuda(b, neighbors, neighbor_valid, lam, tol: float = 1e-5,
@@ -321,30 +285,24 @@ def cg_cuda(b, neighbors, neighbor_valid, lam, tol: float = 1e-5,
     if route == "shared" and fits != "shared":
         raise ValueError(f"the shared route does not take b {(vp, c)} "
                          f"{b.dtype} with {d} neighbours")
-    if b.device.type != "cuda":
-        raise ValueError("cg_cuda needs CUDA tensors")
+    kernels.need_cuda("cg_cuda", b)
     if maxiter < 0:
         raise ValueError(f"maxiter {maxiter} < 0")
-    lib = _lib()
+    name = "cg_shared" if route == "shared" else "cg"
+    lib = kernels.library(name)
     f64 = int(b.dtype == torch.float64)
-    with torch.cuda.device(b.device):
-        x = torch.empty_like(b)
-        trips = torch.empty((), dtype=torch.int64, device=b.device)
-        scratch = torch.empty(
-            lib.cg_shared_scratch_bytes(vp, f64) if route == "shared"
-            else lib.cg_scratch_bytes(vp, c, d, f64),
-            dtype=torch.uint8, device=b.device)
-        args = launch_args(b, neighbors, neighbor_valid, lam, tol, maxiter,
-                           x0, x, trips, scratch,
-                           torch.cuda.current_stream().cuda_stream)
-        launch = lib.cg_shared_launch if route == "shared" else lib.cg_launch
-        err = launch(*args.values())
-    kernels.check(lib, err, f"cg ({route} route)")
-    kernels.counters.cg_launches += 1
-    if route == "shared":
-        kernels.counters.cg_shared_launches += 1
-    else:
-        kernels.counters.cg_global_launches += 1
+    x = torch.empty_like(b)
+    trips = torch.empty((), dtype=torch.int64, device=b.device)
+    scratch = torch.empty(
+        lib.cg_shared_scratch_bytes(vp, f64) if route == "shared"
+        else lib.cg_scratch_bytes(vp, c, d, f64),
+        dtype=torch.uint8, device=b.device)
+    kernels.launch(
+        name, b, ("cg_launches", f"cg_{route}_launches"),
+        what=f"cg ({route} route)", b=b, x0=x0, f64=f64, nbr=neighbors,
+        valid=neighbor_valid, vp=vp, c=c, d=d, lam=float(lam),
+        tol2=float(tol) * float(tol), maxiter=int(maxiter), x=x, trips=trips,
+        scratch=scratch)
     return x, trips
 
 
@@ -377,15 +335,9 @@ def _solve(u, neighbors, neighbor_valid, lam, maxiter, tol, x0=None):
     u = u.detach().contiguous()
     if x0 is not None:
         x0 = x0.detach().contiguous()
-    if u.device.type == "cuda":
-        v, _ = cg_cuda(u, neighbors.long().contiguous(),
-                       neighbor_valid.contiguous(), lam, tol=tol,
-                       maxiter=maxiter, x0=x0)
-    elif u.device.type == "cpu":
-        v, _ = cg_plain(u, neighbors, neighbor_valid, lam, tol=tol,
-                        maxiter=maxiter, x0=x0)
-    else:
-        raise ValueError(f"sobolev_solve: unsupported device {u.device}")
+    v, _ = kernels.on_device(u, cg_cuda, cg_plain)(
+        u, neighbors.long().contiguous(), neighbor_valid.contiguous(), lam,
+        tol=tol, maxiter=maxiter, x0=x0)
     return v
 
 

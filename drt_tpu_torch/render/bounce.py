@@ -38,9 +38,10 @@ from __future__ import annotations
 import torch
 
 from drt_tpu_torch import kernels
-from drt_tpu_torch.geometry.vec import const_like, tree_sum
+from drt_tpu_torch.geometry.vec import (comp_cross as _cross, comp_dot as _dot,
+                                        comp_sub as _sub, components as _cols,
+                                        const_like, tree_sum)
 
-_DTYPES = (torch.float32, torch.float64)
 OFFSET_REL = 1e-4             # refract_ray's relative nudge
 DET_EPS = 1e-12               # moller_trumbore_verts' det guard
 PARK_DIRECTION = -0.57735027  # each component of a parked ray's direction
@@ -53,24 +54,6 @@ RAY_TAIL_THREADS = RAY_TAIL_BLOCK * RAY_TAIL_BLOCKS
 
 
 # -- the lanes' arithmetic, on tuples of [N] components -----------------------
-
-def _dot(a, b):
-    return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
-
-
-def _cross(a, b):
-    return (a[1] * b[2] - a[2] * b[1],
-            a[2] * b[0] - a[0] * b[2],
-            a[0] * b[1] - a[1] * b[0])
-
-
-def _sub(a, b):
-    return tuple(x - y for x, y in zip(a, b))
-
-
-def _cols(x):
-    return tuple(x.unbind(1))
-
 
 def _gate_max(x, c, g, zero, half):
     """The cotangent g of torch.maximum(x, c) taken into x: g, g / 2 at a
@@ -300,59 +283,28 @@ def ray_tail_plain_backward(origin, direction, screen_pixel, lane_valid,
 
 # -- the kernels' wrappers ----------------------------------------------------
 
-_lib_checked = None
-
-
-def _lib():
-    """The kernels' library, checked once for csrc/bounce.cu's launch
-    shapes, which fix the tail's summation order."""
-    global _lib_checked
-    if _lib_checked is None:
-        lib = kernels.load()
-        got = (lib.bounce_block(), lib.ray_tail_block(),
-               lib.ray_tail_blocks())
-        want = (BOUNCE_BLOCK, RAY_TAIL_BLOCK, RAY_TAIL_BLOCKS)
-        if got != want:
-            raise RuntimeError(f"csrc/bounce.cu launches (bounce block, tail "
-                               f"block, tail blocks) {got}, the plain "
-                               f"version sums as {want}")
-        _lib_checked = lib
-    return _lib_checked
+@kernels.checks("bounce", "bounce_backward", "ray_tail", "ray_tail_backward")
+def _check_lib(lib):
+    """csrc/bounce.cu's launch shapes, which fix the tail's summation
+    order."""
+    got = (lib.bounce_block(), lib.ray_tail_block(), lib.ray_tail_blocks())
+    want = (BOUNCE_BLOCK, RAY_TAIL_BLOCK, RAY_TAIL_BLOCKS)
+    if got != want:
+        raise RuntimeError(f"csrc/bounce.cu launches (bounce block, tail "
+                           f"block, tail blocks) {got}, the plain version "
+                           f"sums as {want}")
 
 
 def _check(what, like, **tensors):
-    """Raise unless like is [N,3] float32 or float64 and every other tensor
-    (name: (tensor or None, shape, dtype or None for like's)) has its shape
-    and dtype, is contiguous and lies on like's device."""
-    if like.dim() != 2 or like.shape[1] != 3 or like.dtype not in _DTYPES:
-        raise ValueError(f"{what}: expected [N,3] float32 or float64 rays, "
-                         f"got {tuple(like.shape)} {like.dtype}")
+    """Raise unless like is [N,3] float32 or float64 on a CUDA device and
+    each tensor (name: (tensor or None, shape, dtype or None for like's))
+    is as `kernels.expect` wants it on like's device."""
+    kernels.expect(f"{what}: rays", like, (None, 3), kernels.FLOATS,
+                   like.device)
     for name, (t, shape, dtype) in tensors.items():
-        if t is None:
-            continue
-        want = like.dtype if dtype is None else dtype
-        if tuple(t.shape) != shape or t.dtype != want:
-            raise ValueError(f"{what}: {name}: expected {shape} {want}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-        if t.device != like.device:
-            raise ValueError(f"{what}: {name} is on {t.device}, the rays on "
-                             f"{like.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
-    if like.device.type != "cuda":
-        raise ValueError(f"{what} needs CUDA tensors")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _f64(t):
-    return int(t.dtype == torch.float64)
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+        kernels.expect(f"{what}: {name}", t, shape,
+                       like.dtype if dtype is None else dtype, like.device)
+    kernels.need_cuda(what, like)
 
 
 def bounce_cuda(origin, direction, g9, hit, active, safe_id, park, int_ior,
@@ -364,22 +316,16 @@ def bounce_cuda(origin, direction, g9, hit, active, safe_id, park, int_ior,
            direction=(direction, (n, 3), None), g9=(g9, (n, 9), None),
            hit=(hit, (n,), torch.bool), active=(active, (n,), torch.bool),
            safe_id=(safe_id, (n,), torch.int64), park=(park, (3,), None))
-    lib = _lib()
-    with torch.cuda.device(origin.device):
-        o_out = torch.empty_like(origin)
-        d_out = torch.empty_like(direction)
-        alive = torch.empty(n, dtype=torch.bool, device=origin.device)
-        tri = torch.empty(n, dtype=torch.int64, device=origin.device)
-        err = lib.bounce_launch(
-            origin.data_ptr(), direction.data_ptr(), g9.data_ptr(),
-            hit.data_ptr(), active.data_ptr(), safe_id.data_ptr(),
-            park.data_ptr(), n, _f64(origin), float(int_ior),
-            float(ext_ior), float(offset_eps), int(compat),
-            o_out.data_ptr(), d_out.data_ptr(), alive.data_ptr(),
-            tri.data_ptr(), _stream(origin))
-    kernels.check(lib, err, "bounce")
-    if n:
-        kernels.counters.bounce_launches += 1
+    o_out, d_out = torch.empty_like(origin), torch.empty_like(direction)
+    alive = torch.empty(n, dtype=torch.bool, device=origin.device)
+    tri = torch.empty(n, dtype=torch.int64, device=origin.device)
+    kernels.launch(
+        "bounce", origin, ("bounce_launches",) if n else (), org=origin,
+        dir=direction, g9=g9, hit=hit, active=active, safe_id=safe_id,
+        park_o=park, n=n, f64=origin.dtype == torch.float64,
+        int_ior=float(int_ior), ext_ior=float(ext_ior),
+        offset_eps=float(offset_eps), compat=bool(compat), o_out=o_out,
+        d_out=d_out, act_out=alive, tri_out=tri)
     return o_out, d_out, alive, tri
 
 
@@ -396,27 +342,23 @@ def bounce_cuda_backward(origin, direction, g9, alive, go, gd, int_ior,
            direction=(direction, (n, 3), None), g9=(g9, (n, 9), None),
            alive=(alive, (n,), torch.bool), go=(go, (n, 3), None),
            gd=(gd, (n, 3), None))
-    lib = _lib()
     need_origin = need_origin and go is not None
-    with torch.cuda.device(origin.device):
-        d_origin = torch.empty_like(origin) if need_origin else None
-        d_direction = torch.empty_like(direction) if need_direction else None
-        dg9 = torch.empty_like(g9)
-        err = lib.bounce_backward_launch(
-            origin.data_ptr(), direction.data_ptr(), g9.data_ptr(),
-            alive.data_ptr(), _ptr(go), _ptr(gd), n, _f64(origin),
-            float(int_ior), float(ext_ior), float(offset_eps), int(compat),
-            _ptr(d_origin), _ptr(d_direction), dg9.data_ptr(),
-            _stream(origin))
-    kernels.check(lib, err, "bounce backward")
-    if n:
-        kernels.counters.bounce_launches += 1
-        kernels.counters.bounce_backward_launches += 1
+    d_origin = torch.empty_like(origin) if need_origin else None
+    d_direction = torch.empty_like(direction) if need_direction else None
+    dg9 = torch.empty_like(g9)
+    kernels.launch(
+        "bounce_backward", origin,
+        ("bounce_launches", "bounce_backward_launches") if n else (),
+        org=origin, dir=direction, g9=g9, alive=alive, go=go, gd=gd, n=n,
+        f64=origin.dtype == torch.float64, int_ior=float(int_ior),
+        ext_ior=float(ext_ior), offset_eps=float(offset_eps),
+        compat=bool(compat), d_org=d_origin, d_dir=d_direction, dg9=dg9)
     return d_origin, d_direction, dg9
 
 
-def _check_tail(what, origin, direction, screen_pixel, lane_valid, active,
-                exit_hit, g=None):
+def _tail_args(what, origin, direction, screen_pixel, lane_valid, active,
+               exit_hit, huber, g=None):
+    """The tail launches' inputs by their signature names, checked."""
     n = direction.shape[0]
     _check(what, direction, origin=(origin, (n, 3), None),
            direction=(direction, (n, 3), None),
@@ -424,29 +366,24 @@ def _check_tail(what, origin, direction, screen_pixel, lane_valid, active,
            lane_valid=(lane_valid, (n,), torch.bool),
            active=(active, (n,), torch.bool),
            exit_hit=(exit_hit, (n,), torch.bool), g=(g, (), None))
-    return n
+    return dict(org=origin, dir=direction, sp=screen_pixel,
+                lane_valid=lane_valid, active=active, exit_hit=exit_hit, n=n,
+                f64=direction.dtype == torch.float64, huber=float(huber))
 
 
 def ray_tail_cuda(origin, direction, screen_pixel, lane_valid, active,
                   exit_hit, huber: float = 0.0):
     """Launch csrc/bounce.cu's tail forward: the loss `ray_tail_plain`
     gives, bit for bit (a 0-d tensor on the card; nothing waits)."""
-    n = _check_tail("ray_tail_cuda", origin, direction, screen_pixel,
-                    lane_valid, active, exit_hit)
-    lib = _lib()
-    with torch.cuda.device(direction.device):
-        loss = torch.empty((), dtype=direction.dtype,
-                           device=direction.device)
-        partials = torch.empty(RAY_TAIL_BLOCKS, dtype=direction.dtype,
-                               device=direction.device)
-        counter = torch.zeros(1, dtype=torch.int32, device=direction.device)
-        err = lib.ray_tail_launch(
-            origin.data_ptr(), direction.data_ptr(), screen_pixel.data_ptr(),
-            lane_valid.data_ptr(), active.data_ptr(), exit_hit.data_ptr(), n,
-            _f64(direction), float(huber), loss.data_ptr(),
-            partials.data_ptr(), counter.data_ptr(), _stream(direction))
-    kernels.check(lib, err, "ray tail")
-    kernels.counters.ray_tail_launches += 1
+    args = _tail_args("ray_tail_cuda", origin, direction, screen_pixel,
+                      lane_valid, active, exit_hit, huber)
+    like = dict(dtype=direction.dtype, device=direction.device)
+    loss = torch.empty((), **like)
+    kernels.launch(
+        "ray_tail", direction, ("ray_tail_launches",), loss=loss,
+        partials=torch.empty(RAY_TAIL_BLOCKS, **like),
+        counter=torch.zeros(1, dtype=torch.int32, device=direction.device),
+        **args)
     return loss
 
 
@@ -454,31 +391,14 @@ def ray_tail_cuda_backward(origin, direction, screen_pixel, lane_valid,
                            active, exit_hit, huber, g):
     """Launch csrc/bounce.cu's tail backward: what
     `ray_tail_plain_backward` gives, bit for bit."""
-    n = _check_tail("ray_tail_cuda_backward", origin, direction,
-                    screen_pixel, lane_valid, active, exit_hit, g)
-    lib = _lib()
-    with torch.cuda.device(direction.device):
-        d_direction = torch.empty_like(direction)
-        err = lib.ray_tail_backward_launch(
-            origin.data_ptr(), direction.data_ptr(), screen_pixel.data_ptr(),
-            lane_valid.data_ptr(), active.data_ptr(), exit_hit.data_ptr(), n,
-            _f64(direction), float(huber), g.data_ptr(),
-            d_direction.data_ptr(), _stream(direction))
-    kernels.check(lib, err, "ray tail backward")
-    if n:
-        kernels.counters.ray_tail_launches += 1
-        kernels.counters.ray_tail_backward_launches += 1
+    args = _tail_args("ray_tail_cuda_backward", origin, direction,
+                      screen_pixel, lane_valid, active, exit_hit, huber, g)
+    d_direction = torch.empty_like(direction)
+    kernels.launch(
+        "ray_tail_backward", direction,
+        ("ray_tail_launches", "ray_tail_backward_launches")
+        if args["n"] else (), g=g, d_dir=d_direction, **args)
     return d_direction
-
-
-def _on(t, cuda, plain):
-    """The kernel's wrapper for a CUDA tensor, the plain version for a CPU
-    tensor."""
-    if t.device.type == "cuda":
-        return cuda
-    if t.device.type == "cpu":
-        return plain
-    raise ValueError(f"unsupported device {t.device}")
 
 
 # -- the autograd Functions ---------------------------------------------------
@@ -492,7 +412,7 @@ class _BounceChain(torch.autograd.Function):
     def forward(ctx, origin, direction, g9, hit, active, safe_id, park,
                 int_ior, ext_ior, offset_eps, compat):
         args = (int_ior, ext_ior, offset_eps, compat)
-        fn = _on(origin, bounce_cuda, bounce_plain)
+        fn = kernels.on_device(origin, bounce_cuda, bounce_plain)
         o_out, d_out, alive, tri = fn(origin, direction, g9, hit, active,
                                       safe_id, park, *args)
         ctx.mark_non_differentiable(alive, tri)
@@ -507,7 +427,8 @@ class _BounceChain(torch.autograd.Function):
         need_o, need_d, need_g = ctx.needs_input_grad[:3]
         if go is None and gd is None:
             return (None,) * 11
-        fn = _on(origin, bounce_cuda_backward, bounce_plain_backward)
+        fn = kernels.on_device(origin, bounce_cuda_backward,
+                               bounce_plain_backward)
         d_o, d_d, dg9 = fn(
             origin, direction, g9, alive,
             None if go is None else go.contiguous(),
@@ -537,7 +458,7 @@ class _RayLossTail(torch.autograd.Function):
     @staticmethod
     def forward(ctx, direction, origin, screen_pixel, lane_valid, active,
                 exit_hit, huber):
-        fn = _on(direction, ray_tail_cuda, ray_tail_plain)
+        fn = kernels.on_device(direction, ray_tail_cuda, ray_tail_plain)
         loss = fn(origin, direction, screen_pixel, lane_valid, active,
                   exit_hit, huber)
         ctx.save_for_backward(direction, origin, screen_pixel, lane_valid,
@@ -549,7 +470,8 @@ class _RayLossTail(torch.autograd.Function):
     def backward(ctx, g):
         direction, origin, screen_pixel, lane_valid, active, exit_hit = \
             ctx.saved_tensors
-        fn = _on(direction, ray_tail_cuda_backward, ray_tail_plain_backward)
+        fn = kernels.on_device(direction, ray_tail_cuda_backward,
+                               ray_tail_plain_backward)
         d_direction = fn(origin, direction, screen_pixel, lane_valid, active,
                          exit_hit, ctx.huber, g.contiguous())
         return (d_direction,) + (None,) * 6

@@ -47,11 +47,11 @@ import torch
 
 from drt_tpu_torch import kernels
 from drt_tpu_torch.geometry.scatter import scatter_rows
-from drt_tpu_torch.geometry.vec import const_like, tree_sum
+from drt_tpu_torch.geometry.vec import (comp_cross as _cross, comp_dot as _dot,
+                                        comp_sub as _sub, components as _cols,
+                                        const_like, tree_sum)
 from drt_tpu_torch.render import silhouette as _silhouette
-from drt_tpu_torch.render.bounce import _f64, _on, _stream
 
-_DTYPES = (torch.float32, torch.float64)
 # csrc/silhouette.cu's launch shapes: the post kernel's sum runs over
 # SUM_BLOCKS virtual blocks of BLOCK threads; the backward's threads a
 # block.
@@ -117,24 +117,6 @@ class PreOut(NamedTuple):
 
 
 # -- the arithmetic, on tuples of components -----------------------------------
-
-def _dot(a, b):
-    return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
-
-
-def _cross(a, b):
-    return (a[1] * b[2] - a[2] * b[1],
-            a[2] * b[0] - a[0] * b[2],
-            a[0] * b[1] - a[1] * b[0])
-
-
-def _sub(a, b):
-    return tuple(x - y for x, y in zip(a, b))
-
-
-def _cols(x):
-    return tuple(x.unbind(-1))
-
 
 def _project(R, K, V):
     """csrc/silhouette.cu's `project`: (x, y, p2) of rows V (components)."""
@@ -244,36 +226,19 @@ def silhouette_backward_plain(normal, coef, pix, cam: ViewCamera, g):
 
 # -- the kernels' wrappers ------------------------------------------------------
 
-_lib_checked = None
-
-
-def _lib():
-    """The kernels' library, checked once for csrc/silhouette.cu's launch
-    shapes, which fix the loss's summation order, and for a cluster."""
-    global _lib_checked
-    if _lib_checked is None:
-        lib = kernels.load()
-        got = (lib.silhouette_block(), lib.silhouette_sum_blocks(),
-               lib.silhouette_bwd_block())
-        if got != (BLOCK, SUM_BLOCKS, BWD_BLOCK):
-            raise RuntimeError(f"csrc/silhouette.cu launches (block, sum "
-                               f"blocks, backward block) {got}, the plain "
-                               f"version sums as {(BLOCK, SUM_BLOCKS)}")
-        if lib.silhouette_cluster_size() < 1:
-            raise RuntimeError("silhouette: the card schedules no cluster "
-                               "of the kernels' CTAs")
-        _lib_checked = lib
-    return _lib_checked
-
-
-def _need(what, t, shape, dtype, device):
-    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
-        raise ValueError(f"{what}: expected {tuple(shape)} {dtype}, got "
-                         f"{tuple(t.shape)} {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
+@kernels.checks("silhouette_pre", "silhouette_post", "silhouette_backward")
+def _check_lib(lib):
+    """csrc/silhouette.cu's launch shapes, which fix the loss's summation
+    order, and a card that schedules its cluster."""
+    got = (lib.silhouette_block(), lib.silhouette_sum_blocks(),
+           lib.silhouette_bwd_block())
+    if got != (BLOCK, SUM_BLOCKS, BWD_BLOCK):
+        raise RuntimeError(f"csrc/silhouette.cu launches (block, sum "
+                           f"blocks, backward block) {got}, the plain "
+                           f"version sums as {(BLOCK, SUM_BLOCKS)}")
+    if lib.silhouette_cluster_size() < 1:
+        raise RuntimeError("silhouette: the card schedules no cluster of "
+                           "the kernels' CTAs")
 
 
 def _check_cam(cam: ViewCamera, dtype, device, resy=None, resx=None):
@@ -281,7 +246,7 @@ def _check_cam(cam: ViewCamera, dtype, device, resy=None, resx=None):
     for name, t, shape in (("R", cam.R, (n, 4, 4)), ("K", cam.K, (n, 3, 3)),
                            ("R_inv", cam.R_inv, (n, 4, 4)),
                            ("K_inv", cam.K_inv, (n, 3, 3))):
-        _need(name, t, shape, dtype, device)
+        kernels.expect(name, t, shape, dtype, device)
     o = cam.origin
     if (tuple(o.shape) != (n, 3) or o.dtype != dtype or o.device != device
             or o.stride(1) != 1):
@@ -295,7 +260,7 @@ def _check_cam(cam: ViewCamera, dtype, device, resy=None, resx=None):
             raise ValueError(f"mask: expected [{n},>={resy},>={resx}] {dtype} "
                              f"rows on {device}, got {tuple(m.shape)} "
                              f"{m.dtype} on {m.device}")
-    _need("view", cam.view, (1,), torch.int64, device)
+    kernels.expect("view", cam.view, (1,), torch.int64, device)
 
 
 def silhouette_pre_cuda(vertices, faces, edge_faces, edge_valid, edges,
@@ -304,43 +269,37 @@ def silhouette_pre_cuda(vertices, faces, edge_faces, edge_valid, edges,
     `silhouette_pre_plain` gives, bit for bit. Nothing waits on the host."""
     v = vertices.detach()
     dev, dt = v.device, v.dtype
-    if v.dim() != 2 or v.shape[1] != 3 or dt not in _DTYPES:
-        raise ValueError(f"vertices: expected [V,3] float32 or float64, got "
-                         f"{tuple(v.shape)} {dt}")
-    if dev.type != "cuda":
-        raise ValueError("silhouette_pre_cuda needs CUDA tensors")
+    kernels.expect("vertices", v, (None, 3), kernels.FLOATS, dev)
+    kernels.need_cuda("silhouette_pre_cuda", v)
     nf, ne = faces.shape[0], edges.shape[0]
-    _need("vertices", v, v.shape, dt, dev)
-    _need("faces", faces, (nf, 3), torch.int64, dev)
-    _need("edge_faces", edge_faces, (ne, 2), torch.int64, dev)
-    _need("edge_valid", edge_valid, (ne,), torch.bool, dev)
-    _need("edges", edges, (ne, 2), torch.int64, dev)
+    kernels.expect("faces", faces, (nf, 3), torch.int64, dev)
+    kernels.expect("edge_faces", edge_faces, (ne, 2), torch.int64, dev)
+    kernels.expect("edge_valid", edge_valid, (ne,), torch.bool, dev)
+    kernels.expect("edges", edges, (ne, 2), torch.int64, dev)
     _check_cam(cam, dt, dev)
     if budget < 1 or nf < 1:
         raise ValueError(f"silhouette_pre_cuda: budget {budget}, {nf} faces")
-    lib = _lib()
-    if lib.silhouette_pre_smem(nf, ne, _f64(v)) > \
-            lib.silhouette_pre_smem_cap():
+    f64 = dt == torch.float64
+    lib = kernels.library("silhouette_pre")
+    if lib.silhouette_pre_smem(nf, ne, f64) > lib.silhouette_pre_smem_cap():
         raise ValueError(f"silhouette_pre_cuda: {nf} faces and {ne} edges "
                          "exceed the pre kernel's shared memory")
-    with torch.cuda.device(dev):
-        i64 = dict(dtype=torch.int64, device=dev)
-        fl = dict(dtype=dt, device=dev)
-        out = PreOut(torch.empty(budget, **i64), torch.empty((), **i64),
-                     torch.empty(3, **fl), torch.empty((2 * budget, 3), **fl),
-                     torch.empty((budget, 2), **fl),
-                     torch.empty((budget, 2), **fl),
-                     torch.empty((2 * budget, 3), **fl),
-                     torch.empty(2 * budget, **i64))
-        err = lib.silhouette_pre_launch(
-            v.data_ptr(), _f64(v), faces.data_ptr(), nf,
-            edge_faces.data_ptr(), edge_valid.data_ptr(), edges.data_ptr(),
-            ne, cam.R.data_ptr(), cam.K.data_ptr(), cam.R_inv.data_ptr(),
-            cam.K_inv.data_ptr(), cam.origin.data_ptr(),
-            cam.origin.stride(0), cam.view.data_ptr(), budget,
-            *(t.data_ptr() for t in out), _stream(v))
-    kernels.check(lib, err, "silhouette pre")
-    kernels.counters.silhouette_pre_launches += 1
+    i64 = dict(dtype=torch.int64, device=dev)
+    fl = dict(dtype=dt, device=dev)
+    out = PreOut(torch.empty(budget, **i64), torch.empty((), **i64),
+                 torch.empty(3, **fl), torch.empty((2 * budget, 3), **fl),
+                 torch.empty((budget, 2), **fl), torch.empty((budget, 2), **fl),
+                 torch.empty((2 * budget, 3), **fl),
+                 torch.empty(2 * budget, **i64))
+    kernels.launch(
+        "silhouette_pre", v, ("silhouette_pre_launches",), verts=v, f64=f64,
+        faces=faces, n_faces=nf, edge_faces=edge_faces,
+        edge_valid=edge_valid, edges=edges, n_edges=ne, R=cam.R, K=cam.K,
+        R_inv=cam.R_inv, K_inv=cam.K_inv, org=cam.origin,
+        org_stride=cam.origin.stride(0), view=cam.view, budget=budget,
+        edge_idx=out.edge_idx, count=out.count, org_out=out.origin,
+        ray_dir=out.ray_dir, sample=out.sample, normal=out.normal,
+        pix=out.pix, vidx=out.vidx)
     return out
 
 
@@ -350,25 +309,19 @@ def silhouette_post_cuda(tri_id, sample, count, cam: ViewCamera, resy: int,
     gives, bit for bit (the loss a 0-d tensor on the card; nothing
     waits)."""
     k, dev, dt = sample.shape[0], sample.device, sample.dtype
-    if dt not in _DTYPES or dev.type != "cuda":
-        raise ValueError(f"silhouette_post_cuda needs float32 or float64 "
-                         f"CUDA tensors, got {dt} on {dev}")
-    _need("tri_id", tri_id, (2 * k,), torch.int32, dev)
-    _need("sample", sample, (k, 2), dt, dev)
-    _need("count", count, (), torch.int64, dev)
+    kernels.expect("sample", sample, (k, 2), kernels.FLOATS, dev)
+    kernels.need_cuda("silhouette_post_cuda", sample)
+    kernels.expect("tri_id", tri_id, (2 * k,), torch.int32, dev)
+    kernels.expect("count", count, (), torch.int64, dev)
     _check_cam(cam, dt, dev, resy, resx)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        loss = torch.empty((), dtype=dt, device=dev)
-        coef = torch.empty(k, dtype=dt, device=dev)
-        err = lib.silhouette_post_launch(
-            tri_id.data_ptr(), sample.data_ptr(), count.data_ptr(),
-            cam.mask.data_ptr(), _f64(sample), cam.mask.stride(0),
-            cam.mask.stride(1), cam.view.data_ptr(), resy, resx,
-            int(bool(bilinear)), k,
-            loss.data_ptr(), coef.data_ptr(), _stream(sample))
-    kernels.check(lib, err, "silhouette post")
-    kernels.counters.silhouette_post_launches += 1
+    loss = torch.empty((), dtype=dt, device=dev)
+    coef = torch.empty(k, dtype=dt, device=dev)
+    kernels.launch(
+        "silhouette_post", sample, ("silhouette_post_launches",),
+        tri_id=tri_id, sample=sample, count=count, mask=cam.mask,
+        f64=dt == torch.float64, mask_stride=cam.mask.stride(0),
+        mask_row=cam.mask.stride(1), view=cam.view, resy=resy, resx=resx,
+        bilinear=bool(bilinear), budget=k, loss=loss, coef=coef)
     return loss, coef
 
 
@@ -376,23 +329,17 @@ def silhouette_backward_cuda(normal, coef, pix, cam: ViewCamera, g):
     """Launch csrc/silhouette.cu's backward: what
     `silhouette_backward_plain` gives, bit for bit."""
     k, dev, dt = coef.shape[0], coef.device, coef.dtype
-    if dt not in _DTYPES or dev.type != "cuda":
-        raise ValueError(f"silhouette_backward_cuda needs float32 or float64 "
-                         f"CUDA tensors, got {dt} on {dev}")
-    _need("normal", normal, (k, 2), dt, dev)
-    _need("pix", pix, (2 * k, 3), dt, dev)
-    _need("g", g, (), dt, dev)
+    kernels.expect("coef", coef, (k,), kernels.FLOATS, dev)
+    kernels.need_cuda("silhouette_backward_cuda", coef)
+    kernels.expect("normal", normal, (k, 2), dt, dev)
+    kernels.expect("pix", pix, (2 * k, 3), dt, dev)
+    kernels.expect("g", g, (), dt, dev)
     _check_cam(cam, dt, dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        dV = torch.empty((2 * k, 3), dtype=dt, device=dev)
-        err = lib.silhouette_backward_launch(
-            normal.data_ptr(), coef.data_ptr(), pix.data_ptr(),
-            cam.R.data_ptr(), cam.K.data_ptr(), _f64(coef),
-            cam.view.data_ptr(), g.data_ptr(), k, dV.data_ptr(),
-            _stream(coef))
-    kernels.check(lib, err, "silhouette backward")
-    kernels.counters.silhouette_backward_launches += 1
+    dV = torch.empty((2 * k, 3), dtype=dt, device=dev)
+    kernels.launch(
+        "silhouette_backward", coef, ("silhouette_backward_launches",),
+        normal=normal, coef=coef, pix=pix, R=cam.R, K=cam.K,
+        f64=dt == torch.float64, view=cam.view, g=g, budget=k, dV=dV)
     return dV
 
 
@@ -407,7 +354,8 @@ class _SilhouetteView(torch.autograd.Function):
     def forward(ctx, vertices, mesh, cam, intersect_fn, budget, resy, resx,
                 bilinear):
         v = vertices.detach()
-        pre = _on(v, silhouette_pre_cuda, silhouette_pre_plain)(
+        pre = kernels.on_device(v, silhouette_pre_cuda,
+                                silhouette_pre_plain)(
             v, mesh.faces, mesh.edge_faces, mesh.edge_valid, mesh.edges, cam,
             budget)
         # one origin row for every ray (stride 0): the cuda oracle sees that
@@ -415,7 +363,9 @@ class _SilhouetteView(torch.autograd.Function):
         hits = intersect_fn(pre.origin.expand(pre.ray_dir.shape),
                             pre.ray_dir, v, mesh.faces, mesh.face_valid,
                             coherent=False)
-        loss, coef = _on(v, silhouette_post_cuda, silhouette_post_plain)(
+        post = kernels.on_device(v, silhouette_post_cuda,
+                                 silhouette_post_plain)
+        loss, coef = post(
             hits.tri_id.contiguous(), pre.sample, pre.count, cam, resy, resx,
             bilinear)
         ctx.mark_non_differentiable(pre.count)
@@ -426,7 +376,8 @@ class _SilhouetteView(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_count):
         normal, coef, pix, vidx = ctx.saved_tensors
-        dV = _on(coef, silhouette_backward_cuda, silhouette_backward_plain)(
+        dV = kernels.on_device(coef, silhouette_backward_cuda,
+                               silhouette_backward_plain)(
             normal, coef, pix, ctx.cam, g.contiguous())
         return (scatter_rows(dV, vidx, ctx.num),) + (None,) * 7
 

@@ -71,12 +71,10 @@ def _emit(name: str, edge: str, device: torch.device):
     span `name` on `device`'s current stream; nothing on the CPU."""
     if device.type != "cuda":
         return
-    lib = kernels.load()
     node = ctypes.c_void_p()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    kind = _KIND[name] if edge == "begin" else _KIND["end"]
-    kernels.check(lib, lib.span_mark_launch(kind, stream, ctypes.byref(node)),
-                  f"span marker ({name}, {edge})")
+    kernels.launch("span_mark", device, what=f"span marker ({name}, {edge})",
+                   kind=_KIND[name if edge == "begin" else "end"],
+                   node=ctypes.byref(node))
     if node.value and _capture_nodes is not None:
         _capture_nodes.append(node.value)
 

@@ -111,8 +111,8 @@ def trace(cases, reps):
     lib.cg_trace_read.argtypes = [ctypes.c_void_p]
     slots = lib.cg_trace_slots()
     stamps = np.zeros(slots, dtype=np.int64)
-    real = PC._lib()
-    PC._cg_lib = lib                 # cg_cuda launches the traced library
+    real = kernels.load()
+    kernels._lib = lib               # cg_cuda launches the traced library
     out = {}
     try:
         for name, (b, nbr, valid, lam, tol, maxiter) in cases.items():
@@ -155,7 +155,7 @@ def trace(cases, reps):
                       + ", ".join(f"{k} {v:.0f}" for k, v in solve.items()),
                       flush=True)
     finally:
-        PC._cg_lib = real
+        kernels._lib = real
     return out
 
 

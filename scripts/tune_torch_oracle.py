@@ -33,9 +33,10 @@ resort  the two routes of an incoherent query, "ray" (the exact per-ray
         equal bit for bit, ms a query of both in turns (ray, resort, resort,
         ray; CUDA events), the group each route's query took, and the parts
         of the resorted route. Writes the winner for each mesh size into
-        reports/torch_resort_ab.json (or --table PATH), the table that
-        `get_intersect_fn(incoherent="auto")` reads. Not in the default
-        set: it rewrites a file of the repository.
+        reports/torch_resort_ab.json (or --table PATH), a record, and says
+        whether it would change `get_intersect_fn(incoherent="auto")`,
+        which is "ray". Not in the default set: it rewrites a file of the
+        repository.
 group   candidate groups of 1, 4 and 16 chunks (`intersect_cuda(group=)`)
         on the incoherent queries (ray mode) of dog_mid45k and dog_mid90k,
         bounce 2, exit and one silhouette view: hits against group 1
@@ -48,9 +49,11 @@ group   candidate groups of 1, 4 and 16 chunks (`intersect_cuda(group=)`)
         exit and 8 silhouette views) beat both of group 1's. Only where some
         group is faster on both meshes does a mesh take one: the least group
         faster on it; else every mesh takes 1. Writes
-        reports/torch_group_ab.json (or --group-out PATH), the table that
-        `intersect_cuda(group=None)` reads for incoherent queries. Not in
-        the default set either: it rewrites a file of the repository.
+        reports/torch_group_ab.json (or --group-out PATH), a record, and
+        says whether the verdict would change GROUP_INCOHERENT
+        (intersect/cuda_kernel.py), the least group of `group=None` on
+        incoherent queries. Not in the default set either: it rewrites a
+        file of the repository.
 pack    the packing kernel (csrc/pack.cu) against its plain version (the
         torch stages `pack_plain`, which the script swaps in for `pack`
         itself) on the four kinds of query of a train step (camera, bounce
@@ -95,7 +98,7 @@ scatter-trace  the cluster route built with -DSCATTER_TRACE=1 (a library
 silhouette  the one-origin route (the silhouette sampler's queries,
         sorted along the screen by csrc/order.cu) on 8 silhouette views of
         dog_mid{20k,45k,90k} at their budgets, against the parent's route
-        (the rays unsorted in rows, GROUP_TABLE's group, 32 rays a warp) in
+        (the rays unsorted in rows, GROUP_INCOHERENT, 32 rays a warp) in
         the shapes of SILHOUETTE_SHAPES: ray tiles of 32, 64 and 128 and
         groups of 1 and 4, rays a warp and warps a block, 8 key bits an
         axis against 5, and the parent's lanes with the route's warps. For
@@ -262,7 +265,7 @@ def prepass_blocks(queries, card, out):
     import chip_smoke as S
     from drt_tpu_torch import kernels as KN
     from drt_tpu_torch.intersect import cuda_kernel as CK
-    default = CK._load()
+    default = KN.library("candidates")
     libs = {b: KN.bind(KN.build(defines=(f"PREPASS_BLOCK={b}",)))
             for b in (128, 256)}
     for b, lib in libs.items():
@@ -366,12 +369,13 @@ def incoherent_queries(dev, meshes, silhouette=False, coherent=False):
 
 
 def resort_ab(dev, card, table=None):
-    """The A/B of the two incoherent routes; writes the port's table (to
-    `table`, or where `get_intersect_fn` reads it)."""
+    """The A/B of the two incoherent routes; writes the record to `table`,
+    and says whether its verdict would change `incoherent="auto"`, which
+    is "ray" (intersect/api.py)."""
     import torch
     import chip_smoke as S
     from drt_tpu_torch.intersect import cuda_kernel as CK
-    from drt_tpu_torch.intersect.api import RESORT_TABLE, get_intersect_fn
+    from drt_tpu_torch.intersect.api import get_intersect_fn
     from drt_tpu_torch.intersect.resort import morton_keys
 
     fn_ray = get_intersect_fn("cuda", incoherent="ray")
@@ -439,7 +443,6 @@ def resort_ab(dev, card, table=None):
               f"{total['ray']:.3f} ms, resort {total['resort']:.3f} ms -> "
               f"{row['winner']}", flush=True)
         rows.append(row)
-    table = table or RESORT_TABLE
     os.makedirs(os.path.dirname(os.path.abspath(table)), exist_ok=True)
     with open(table, "w") as fh:
         json.dump({"device": card, "script":
@@ -447,6 +450,11 @@ def resort_ab(dev, card, table=None):
                    "rows": rows}, fh, indent=1)
         fh.write("\n")
     print(f"wrote {table}")
+    won = sorted({r["winner"] for r in rows})
+    print("incoherent=\"auto\" is \"ray\" (intersect/api.py): "
+          + ("this verdict agrees" if won == ["ray"] else
+             f"this verdict names {won}: change get_intersect_fn's auto "
+             "route"))
 
 
 GROUPS = (1, 4, 16)
@@ -560,8 +568,11 @@ def group_ab(dev, card, out):
             if all(g in v["faster"] for v in verdict.values())]
     for mesh, v in verdict.items():
         v["group"] = v["faster"][0] if both else 1
-        print(f"{mesh}: group=None takes group {v['group']} for incoherent "
-              "queries")
+        print(f"{mesh}: group {v['group']} for incoherent queries")
+    new = sorted({v["group"] for v in verdict.values()})
+    print(f"cuda_kernel.GROUP_INCOHERENT is {CK.GROUP_INCOHERENT}: "
+          + ("this verdict agrees" if new == [CK.GROUP_INCOHERENT] else
+             f"this verdict would set it to {new}"))
     print(f"groups faster than group 1 on both meshes: {both or 'none'}")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as fh:
@@ -1275,7 +1286,7 @@ def silhouette_order(dev, card, out):
     """The one-origin route on the silhouette queries of dog_mid{20k,45k,
     90k} at their budgets (chip_smoke.silhouette_queries: 8 views of the
     ring around dog_mid90k): for each query the parent's route ("before":
-    the rays as separate rows, the group of GROUP_TABLE, ray tile
+    the rays as separate rows, group GROUP_INCOHERENT, ray tile
     RAY_TILE_INCOHERENT, 32 rays a warp) and the route in every launch
     shape of SILHOUETTE_SHAPES ("after"): the longest and mean candidate
     list in chunk entries (count * group), hits against the parent's
@@ -1475,9 +1486,10 @@ def main():
                     default=os.path.join(HERE, "reports",
                                          "torch_silhouette_order.json"),
                     help="where --what silhouette writes its table")
-    ap.add_argument("--table", default=None,
-                    help="where --what resort writes its table (default: "
-                         "reports/torch_resort_ab.json)")
+    ap.add_argument("--table",
+                    default=os.path.join(HERE, "reports",
+                                         "torch_resort_ab.json"),
+                    help="where --what resort writes its table")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():

@@ -14,6 +14,7 @@ total internal reflection, degenerate triangles (|det| <= 1e-12), cos_i =
 +-1 exactly (the clamps' ties, where the cotangent splits in halves), dead
 lanes to park, compat on and off, Huber 0 and 0.1, float32 and float64."""
 
+import glob
 import os
 import re
 
@@ -34,7 +35,10 @@ from drt_tpu_torch.geometry.mt import moller_trumbore_verts
 from drt_tpu_torch.intersect import get_intersect_fn as t_get_fn
 from drt_tpu_torch.mesh import build_mesh_state
 from drt_tpu_torch.optimize.losses import ray_loss as t_ray_loss
+from drt_tpu_torch.intersect import cuda_kernel as CK
+from drt_tpu_torch.optimize import precondition as TP
 from drt_tpu_torch.render import bounce as TB
+from drt_tpu_torch.render import silhouette_kernels as SK
 from drt_tpu_torch.render import trace as TT
 from tests.meshes import make_icosphere
 
@@ -540,42 +544,72 @@ def test_dispatch_by_device_and_refusals():
         TB.ray_tail_cuda_backward(*targs, 0.0, torch.ones(1))
 
 
-def test_without_nvcc_the_kernels_raise(monkeypatch, tmp_path):
+# A launch of each module that registers a library check (kernels.checks),
+# and a library the check refuses: (attribute, value).
+_CHECKED = {
+    "bounce": ("ray_tail_blocks", TB.RAY_TAIL_BLOCKS * 2, "tail blocks"),
+    "silhouette_pre": ("silhouette_sum_blocks", 8, "sum blocks"),
+    "cg": ("cg_shared_budget", 1024, "shared memory"),
+    "pack": ("pack_n_coef", 20, "pack_n_coef"),
+    "scatter": ("scatter_cluster_size", 0, "no cluster"),
+}
+
+
+@pytest.mark.parametrize("launch", sorted(_CHECKED))
+def test_without_nvcc_the_kernels_raise(monkeypatch, tmp_path, launch):
     """On a CUDA tensor the wrapper builds the kernels; where nvcc is
-    missing that raises, and nothing runs the plain version instead."""
+    missing that raises, before any module's check, and nothing runs the
+    plain version instead."""
     monkeypatch.setattr(kernels, "_lib", None)
-    monkeypatch.setattr(TB, "_lib_checked", None)
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
     exists = kernels.os.path.exists
     monkeypatch.setattr(kernels.os.path, "exists",
                         lambda p: not p.endswith("nvcc") and exists(p))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        TB._lib()
+        kernels.library(launch)
 
 
-def _source():
-    return open(os.path.join(os.path.dirname(kernels.__file__), "csrc",
-                             "bounce.cu")).read()
+def _sources():
+    """{signature function: the text of the csrc/*.cu that defines it}."""
+    out = {}
+    for path in glob.glob(os.path.join(os.path.dirname(kernels.__file__),
+                                       "csrc", "*.cu")):
+        src = open(path).read()
+        for name in re.findall(r"const char\* (\w+_signature)\(\)", src):
+            out[name] = src
+    return out
 
 
-@pytest.mark.parametrize("entry", ["bounce", "bounce_backward", "ray_tail",
-                                   "ray_tail_backward"])
-def test_signatures_follow_the_source(entry):
-    """Each `<entry>_signature()` of csrc/bounce.cu (read from the source)
-    is the wrapper's (kernels._SIGNATURES), typed with as many arguments
-    (kernels._ENTRIES); the launch shapes are the plain version's."""
-    src = _source()
-    m = re.search(rf'const char\* {entry}_signature\(\) \{{\s*return '
+def _source_names(src, sig):
+    m = re.search(rf'const char\* {sig}\(\) \{{\s*return '
                   r'((?:"[^"]*"\s*)+);', src)
-    assert m
-    names = "".join(re.findall(r'"([^"]*)"', m.group(1))).split()
-    assert " ".join(names) == kernels._SIGNATURES[f"{entry}_signature"]
-    assert len(kernels._ENTRIES[f"{entry}_launch"][0]) == len(names)
-    for name, value in (("BOUNCE_BLOCK", TB.BOUNCE_BLOCK),
-                        ("RAY_TAIL_BLOCK", TB.RAY_TAIL_BLOCK),
-                        ("RAY_TAIL_BLOCKS", TB.RAY_TAIL_BLOCKS)):
-        assert re.search(rf"#define {name} {value}\b", src)
+    assert m, sig
+    return "".join(re.findall(r'"([^"]*)"', m.group(1))).split()
+
+
+@pytest.mark.parametrize("entry", sorted(kernels.LAUNCHES))
+def test_signatures_follow_the_source(entry):
+    """Each launch's row in kernels.LAUNCHES names the arguments of its
+    source's `*_signature()` (read from the source), in order, with one
+    type each; csrc/bounce.cu's launch shapes are the plain version's."""
+    sig = kernels._SIGNATURE_OF.get(entry, f"{entry}_signature")
+    src = _sources()[sig]
+    names, types = kernels.ROWS[entry]
+    assert list(names) == _source_names(src, sig)
+    assert len(types) == len(names)
+    assert re.search(rf"\b{entry}_launch\(", src)
+    if entry in ("bounce", "bounce_backward", "ray_tail",
+                 "ray_tail_backward"):
+        for name, value in (("BOUNCE_BLOCK", TB.BOUNCE_BLOCK),
+                            ("RAY_TAIL_BLOCK", TB.RAY_TAIL_BLOCK),
+                            ("RAY_TAIL_BLOCKS", TB.RAY_TAIL_BLOCKS)):
+            assert re.search(rf"#define {name} {value}\b", src)
+
+
+def test_every_signature_is_checked():
+    """Every `*_signature()` of the sources is one `bind` checks."""
+    assert set(_sources()) == set(kernels.signatures())
 
 
 class _StubLib:
@@ -583,40 +617,73 @@ class _StubLib:
     each *_signature() answering `sigs`."""
 
     def __init__(self, sigs):
-        for name in kernels._ENTRIES:
+        for name in list(kernels._ENTRIES) + [f"{n}_launch"
+                                              for n in kernels.LAUNCHES]:
             setattr(self, name, lambda *a: 0)
         for name, text in sigs.items():
             setattr(self, name, lambda text=text: text.encode())
 
 
-@pytest.mark.parametrize("entry", ["bounce_signature",
-                                   "bounce_backward_signature",
-                                   "ray_tail_signature",
-                                   "ray_tail_backward_signature"])
+@pytest.mark.parametrize("entry", sorted(kernels.signatures()))
 def test_bind_checks_the_bounce_signatures(monkeypatch, entry):
-    sigs = dict(kernels._SIGNATURES)
+    """`bind` takes a library whose signatures are the rows', and refuses
+    one where a row's first two names (or kinds) are swapped."""
+    sigs = kernels.signatures()
     monkeypatch.setattr(kernels.ctypes, "CDLL", lambda path: _StubLib(sigs))
-    kernels.bind("libdrt_kernels.so")
+    lib = kernels.bind("libdrt_kernels.so")
+    for name, (_, types) in kernels.ROWS.items():
+        assert getattr(lib, f"{name}_launch").argtypes == list(types)
     words = sigs[entry].split()
-    words[1], words[2] = words[2], words[1]
+    words[0], words[1] = words[1], words[0]
     sigs[entry] = " ".join(words)
     with pytest.raises(RuntimeError, match=entry):
         kernels.bind("libdrt_kernels.so")
 
 
-def test_lib_checks_the_launch_shapes(monkeypatch):
-    """The library's launch shapes must be the plain version's, which fix
-    the tail's summation order."""
-    stub = _StubLib(kernels._SIGNATURES)
-    stub.bounce_block = lambda: TB.BOUNCE_BLOCK
-    stub.ray_tail_block = lambda: TB.RAY_TAIL_BLOCK
-    stub.ray_tail_blocks = lambda: TB.RAY_TAIL_BLOCKS * 2
+@pytest.mark.parametrize("launch", sorted(_CHECKED))
+def test_lib_checks_the_launch_shapes(monkeypatch, launch):
+    """Each module's registered check refuses a library whose launch
+    shapes, constants or cluster are not the module's (the bounce tail's
+    blocks, the silhouette sum's blocks, the CG shared route's budget, the
+    oracle's coefficients a triangle, the scatter's cluster), before the
+    module's first launch,
+    and passes the library once they are, once per bound library."""
+    sigs = kernels.signatures()
+    stub = _StubLib(sigs)
+    good = {"bounce_block": TB.BOUNCE_BLOCK,
+            "ray_tail_block": TB.RAY_TAIL_BLOCK,
+            "ray_tail_blocks": TB.RAY_TAIL_BLOCKS,
+            "silhouette_block": SK.BLOCK,
+            "silhouette_sum_blocks": SK.SUM_BLOCKS,
+            "silhouette_bwd_block": SK.BWD_BLOCK,
+            "silhouette_cluster_size": 16, "cg_ctas": TP.CG_CTAS,
+            "cg_block": TP.CG_BLOCK, "cg_cluster_ready": 1,
+            "cg_shared_budget": TP.CG_SHARED_BUDGET,
+            "closest_hit_tri_chunk": CK.TRI_CHUNK,
+            "closest_hit_max_ray_tile": CK.MAX_RAY_TILE,
+            "candidates_max_ray_tile": CK.MAX_RAY_TILE,
+            "candidates_max_chunks": CK.MAX_CHUNKS,
+            "pack_tri_chunk": CK.TRI_CHUNK, "pack_n_coef": CK.N_COEF,
+            "ray_order_axis_bits": CK.ORDER_AXIS_BITS,
+            "scatter_cluster_size": 16}
+    for name, value in good.items():
+        setattr(stub, name, lambda value=value: value)
+
+    def shared_bytes(vp, c, d, f64):
+        got = TP.cg_shared_bytes(vp, c, d, torch.float64 if f64
+                                 else torch.float32)
+        return -1 if got is None else got
+    stub.cg_shared_bytes = shared_bytes
+    attr, bad, match = _CHECKED[launch]
+    setattr(stub, attr, lambda: bad)
     monkeypatch.setattr(kernels, "load", lambda: stub)
-    monkeypatch.setattr(TB, "_lib_checked", None)
-    with pytest.raises(RuntimeError, match="tail blocks"):
-        TB._lib()
-    stub.ray_tail_blocks = lambda: TB.RAY_TAIL_BLOCKS
-    assert TB._lib() is stub
+    monkeypatch.setattr(kernels, "_checked", {})
+    with pytest.raises(RuntimeError, match=match):
+        kernels.library(launch)
+    setattr(stub, attr, lambda: good[attr])
+    assert kernels.library(launch) is stub
+    setattr(stub, attr, lambda: bad)          # checked once for this library
+    assert kernels.library(launch) is stub
 
 
 def test_counters_count_the_new_kernels():

@@ -232,46 +232,70 @@ def _source():
                              "cg.cu")).read()
 
 
-def test_launch_args_follow_the_kernel_signature():
-    """The wrapper's arguments, in the order of csrc/cg.cu's
-    cg_signature() (read from the source), which the binding checks
-    (kernels._SIGNATURES) and types (kernels._ENTRIES); the summation
-    order's constants are the source's."""
+def test_launch_args_follow_the_kernel_signature(monkeypatch):
+    """cg_cuda passes its arguments by the names of csrc/cg.cu's
+    cg_signature() (read from the source), which kernels.LAUNCHES types
+    and the binding checks: with the library a recorder and the card's
+    stream a stub, each launch's arguments are the wrapper's tensors and
+    numbers under their names, on either route; the summation order's
+    constants are the source's."""
+    import contextlib
+    import types
     src = _source()
     sig = re.search(r'cg_signature\(\) \{\s*return "([^"]*)"\s*"([^"]*)";',
                     src)
     assert sig
     names = (sig.group(1) + sig.group(2)).split()
-    assert " ".join(names) == kernels._SIGNATURES["cg_signature"]
-    argtypes = kernels._ENTRIES["cg_launch"][0]
+    assert list(kernels.ROWS["cg"][0]) == names
+    argtypes = kernels.ROWS["cg"][1]
     assert len(argtypes) == len(names)
     assert re.search(rf"#define CG_CTAS {TP.CG_CTAS}\b", src)
     assert re.search(rf"#define CG_BLOCK {TP.CG_BLOCK}\b", src)
+    calls = []
+    lib = types.SimpleNamespace(
+        cg_scratch_bytes=lambda vp, c, d, f64: 64,
+        cg_shared_scratch_bytes=lambda vp, f64: 32,
+        cg_launch=lambda *a: calls.append(("cg", a)) or 0,
+        cg_shared_launch=lambda *a: calls.append(("cg_shared", a)) or 0)
+    monkeypatch.setattr(kernels, "library", lambda name: lib)
+    monkeypatch.setattr(kernels, "need_cuda", lambda what, t: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=1234))
     vp, c, d = 5, 3, 4
     b = torch.zeros((vp, c), dtype=torch.float64)
     x0 = torch.ones((vp, c), dtype=torch.float64)
     nbr = torch.zeros((vp, d), dtype=torch.int64)
     valid = torch.ones((vp, d), dtype=torch.bool)
-    x, trips = torch.empty_like(b), torch.empty((), dtype=torch.int64)
-    scratch = torch.empty(64, dtype=torch.uint8)
-    for given in (None, x0):
-        args = TP.launch_args(b, nbr, valid, 29.0, 1e-3, 17, given, x,
-                              trips, scratch, 1234)
-        assert list(args) == names
-        assert args["x0"] == (None if given is None else x0.data_ptr())
-        assert (args["b"], args["nbr"], args["valid"], args["x"],
-                args["trips"], args["scratch"]) == (
-            b.data_ptr(), nbr.data_ptr(), valid.data_ptr(), x.data_ptr(),
-            trips.data_ptr(), scratch.data_ptr())
-        assert (args["f64"], args["vp"], args["c"], args["d"],
-                args["maxiter"], args["stream"]) == (1, vp, c, d, 17, 1234)
-        assert args["lam"] == 29.0 and args["tol2"] == 1e-3 * 1e-3
-        # ctypes takes each value as its declared type
-        for value, kind in zip(args.values(), argtypes):
-            if value is not None:
-                kind(value)
-    assert TP.launch_args(b.float(), nbr, valid, 1.0, 0.5, 1, None, x,
-                          trips, scratch, 0)["f64"] == 0
+    before = kernels.counters.snapshot()
+    for route in ("global", "shared"):
+        for given in (None, x0):
+            x, trips = TP.cg_cuda(b, nbr, valid, 29.0, tol=1e-3, maxiter=17,
+                                  x0=given, route=route)
+            name, got = calls.pop()
+            assert name == ("cg_shared" if route == "shared" else "cg")
+            args = dict(zip(names, got))
+            assert list(args) == names
+            assert args["x0"] == (None if given is None else x0.data_ptr())
+            assert (args["b"], args["nbr"], args["valid"], args["x"],
+                    args["trips"]) == (
+                b.data_ptr(), nbr.data_ptr(), valid.data_ptr(),
+                x.data_ptr(), trips.data_ptr())
+            assert (args["f64"], args["vp"], args["c"], args["d"],
+                    args["maxiter"], args["stream"]) == (1, vp, c, d, 17,
+                                                         1234)
+            assert args["lam"] == 29.0 and args["tol2"] == 1e-3 * 1e-3
+            # ctypes takes each value as its declared type
+            for value, kind in zip(got, argtypes):
+                if value is not None:
+                    kind(value)
+    after = kernels.counters.snapshot()
+    for name, n in (("cg_launches", 4), ("cg_shared_launches", 2),
+                    ("cg_global_launches", 2)):
+        assert after[name] == before[name] + n
+    TP.cg_cuda(b.float(), nbr, valid, 1.0, tol=0.5, maxiter=1)
+    assert dict(zip(names, calls.pop()[1]))["f64"] == 0
 
 
 class _StubLib:
@@ -279,18 +303,19 @@ class _StubLib:
     each *_signature() answering `sigs`."""
 
     def __init__(self, sigs):
-        for name in kernels._ENTRIES:
+        for name in list(kernels._ENTRIES) + [f"{n}_launch"
+                                              for n in kernels.LAUNCHES]:
             setattr(self, name, lambda *a: 0)
         for name, text in sigs.items():
             setattr(self, name, lambda text=text: text.encode())
 
 
 def test_bind_checks_the_cg_signature(monkeypatch):
-    sigs = dict(kernels._SIGNATURES)
+    sigs = kernels.signatures()
     monkeypatch.setattr(kernels.ctypes, "CDLL", lambda path: _StubLib(sigs))
     lib = kernels.bind("libdrt_kernels.so")
-    assert lib.cg_signature() == kernels._SIGNATURES["cg_signature"].encode()
-    assert lib.cg_launch.argtypes == kernels._ENTRIES["cg_launch"][0]
+    assert lib.cg_signature() == " ".join(kernels.ROWS["cg"][0]).encode()
+    assert lib.cg_launch.argtypes == list(kernels.ROWS["cg"][1])
     sigs["cg_signature"] = sigs["cg_signature"].replace("lam tol2",
                                                         "tol2 lam")
     with pytest.raises(RuntimeError, match="cg_signature"):
@@ -415,17 +440,15 @@ def test_cg_cuda_refuses_a_route_it_cannot_take():
 
 def test_shared_launch_follows_the_kernel_signature():
     """csrc/cg.cu's cg_shared_launch takes cg_launch's arguments (read from
-    the source), which `launch_args` builds; the binding types and checks
-    them; the source's shared-route constants are the wrapper's."""
+    the source), one row each in kernels.LAUNCHES; the binding types and
+    checks them; the source's shared-route constants are the wrapper's."""
     src = _source()
     sig = re.search(r'cg_shared_signature\(\) \{\s*return "([^"]*)"\s*'
                     r'"([^"]*)";', src)
     assert sig
     names = (sig.group(1) + sig.group(2)).split()
-    assert " ".join(names) == kernels._SIGNATURES["cg_shared_signature"]
-    assert names == kernels._SIGNATURES["cg_signature"].split()
-    assert (kernels._ENTRIES["cg_shared_launch"]
-            == kernels._ENTRIES["cg_launch"])
+    assert list(kernels.ROWS["cg_shared"][0]) == names
+    assert kernels.ROWS["cg_shared"] == kernels.ROWS["cg"]
     for name, value in (("CG_SHARED_MAX_D", TP.CG_SHARED_MAX_D),
                         ("CG_SHARED_MAX_VP", TP.CG_SHARED_MAX_VP),
                         ("CG_SHARED_MAX_C", TP.CG_SHARED_MAX_C),
@@ -438,11 +461,11 @@ def test_shared_launch_follows_the_kernel_signature():
 
 
 def test_bind_checks_the_shared_signature(monkeypatch):
-    sigs = dict(kernels._SIGNATURES)
+    sigs = kernels.signatures()
     monkeypatch.setattr(kernels.ctypes, "CDLL", lambda path: _StubLib(sigs))
     lib = kernels.bind("libdrt_kernels.so")
     assert (lib.cg_shared_launch.argtypes
-            == kernels._ENTRIES["cg_shared_launch"][0])
+            == list(kernels.ROWS["cg_shared"][1]))
     sigs["cg_shared_signature"] = sigs["cg_shared_signature"].replace(
         "x trips", "trips x")
     with pytest.raises(RuntimeError, match="cg_shared_signature"):

@@ -1316,8 +1316,9 @@ def test_cg_routes_in_a_cuda_graph(dev, dogs, route):
 def test_cg_shared_bytes_agree_with_the_source(dev):
     """csrc/cg.cu's cg_shared_bytes against `cg_shared_bytes` over sizes
     and types, and the card's budget against CG_SHARED_BUDGET."""
+    from drt_tpu_torch import kernels
     from drt_tpu_torch.optimize import precondition as PC
-    lib = PC._lib()
+    lib = kernels.library("cg")
     assert lib.cg_shared_budget() >= PC.CG_SHARED_BUDGET
     for vp in (0, 1, 5, 1023, 1024, 5461, 16384, 16385, 21845, 21846,
                32768, 49152, 65536, 65537):

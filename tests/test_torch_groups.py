@@ -204,10 +204,10 @@ def test_auto_group_at_and_around_the_cap(nc, want):
 
 
 def test_group_none_groups_meshes_above_the_cap(monkeypatch):
-    """Without a measured table group=None is 1 below the cap and the auto
-    group above it: with the cap lowered to 3 boxes the icosphere's 16
+    """With GROUP_INCOHERENT at 1 group=None is 1 below the cap and the
+    auto group above it: with the cap lowered to 3 boxes the icosphere's 16
     chunks take groups of 8, and the hits are the group-1 hits."""
-    monkeypatch.setattr(CK, "_group_table", lambda: ())
+    monkeypatch.setattr(CK, "GROUP_INCOHERENT", 1)
     jms, tms = _meshes("icosphere")
     o, d = _rays()
     args = (torch.from_numpy(o), torch.from_numpy(d), tms.vertices,
@@ -225,34 +225,28 @@ def test_group_none_groups_meshes_above_the_cap(monkeypatch):
                            inp.count.shape[0], tile=False)
 
 
-def test_group_none_reads_the_measured_table(tmp_path, monkeypatch):
-    """group=None takes, for an incoherent query, the group of the nearest
-    measured mesh size in GROUP_TABLE (and the auto group where that is
-    larger); coherent queries keep 1; no table, or a broken one, gives 1."""
-    import json
+def test_group_none_takes_the_incoherent_constant(monkeypatch):
+    """group=None: GROUP_INCOHERENT (4) for an incoherent query, 1 for a
+    coherent one, GROUP_ONE_ORIGIN (1) for a one-origin one, and the auto
+    group wherever that is larger; no file is read for it."""
     _, tms = _meshes("icosphere")
     o, d = (torch.from_numpy(x) for x in _rays(256))
-    args = (o, d, tms.vertices, tms.faces, tms.face_valid)
-    table = tmp_path / "groups.json"
-    monkeypatch.setattr(CK, "GROUP_TABLE", str(table))
+    geom = (tms.vertices, tms.faces, tms.face_valid)
+    assert CK.GROUP_INCOHERENT == 4 and CK.GROUP_ONE_ORIGIN == 1
 
-    def group(coherent, cap=CK.MAX_CHUNKS):
-        CK._group_table.cache_clear()
+    def group(coherent, cap=CK.MAX_CHUNKS, origins=o):
         with monkeypatch.context() as m:
             m.setattr(CK, "MAX_CHUNKS", cap)
-            return CK.prepare_inputs(*args, coherent=coherent).group
+            return CK.prepare_inputs(origins, d, *geom,
+                                     coherent=coherent).group
 
-    assert group(False) == 1                       # no table
-    table.write_text("{not json")
-    assert group(False) == 1
-    table.write_text(json.dumps({"verdict": {
-        "small": {"faces_padded": 1024, "group": 2},
-        "large": {"faces_padded": 65536, "group": 4}}}))
-    assert tms.faces.shape[0] == 2048              # nearer to 1024
-    assert group(False) == 2 and group(True) == 1
+    assert group(False) == 4 and group(True) == 1
+    assert group(False, origins=o[:1].expand(o.shape)) == 1
+    assert tms.faces.shape[0] == 2048              # 16 chunks
     assert group(False, cap=2) == 8                # the cap needs more
     assert group(True, cap=2) == 8
-    CK._group_table.cache_clear()
+    assert group(False, cap=8) == 4                # the cap needs 2
+    assert group(False, cap=2, origins=o[:1].expand(o.shape)) == 8
 
 
 def test_group_padding_boxes_are_never_entered():

@@ -6,14 +6,11 @@ coherent rays and with parked and unnormalised incoherent rays; `morton_keys`
 equal as integers; the resorted route equal to the direct call bit for bit;
 and the `incoherent=` selection of `get_intersect_fn`."""
 
-import json
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import drt_tpu_torch.intersect.api as TAPI
 import drt_tpu_torch.intersect.cuda_kernel as CK
 from drt_tpu.intersect.brute import intersect_brute as j_brute
 from drt_tpu.intersect.culled import intersect_culled as j_culled
@@ -151,20 +148,37 @@ def test_resorted_route_equals_direct_call(mesh_pair):  # noqa: F811
     np.testing.assert_array_equal(seen["o"].numpy(), seen["jo"])
 
 
-def test_auto_route_reads_the_ports_own_table(tmp_path, monkeypatch):
-    """`incoherent="auto"`: the nearest measured mesh size's winner from
-    the port's table, "ray" where the table is absent or has no rows."""
-    table = tmp_path / "torch_resort_ab.json"
-    monkeypatch.setattr(TAPI, "RESORT_TABLE", str(table))
-    TAPI._resort_ab_table.cache_clear()
-    assert TAPI._auto_incoherent(65536) == "ray"
-    table.write_text(json.dumps({"rows": []}))
-    TAPI._resort_ab_table.cache_clear()
-    assert TAPI._auto_incoherent(65536) == "ray"
-    table.write_text(json.dumps({"device": "x", "rows": [
-        {"faces_padded": 32768, "winner": "ray"},
-        {"faces_padded": 131072, "winner": "resort"}]}))
-    TAPI._resort_ab_table.cache_clear()
-    assert TAPI._auto_incoherent(20000) == "ray"
-    assert TAPI._auto_incoherent(100000) == "resort"
-    TAPI._resort_ab_table.cache_clear()
+def test_auto_route_is_the_ray_route(monkeypatch):
+    """`incoherent="auto"` takes the exact per-ray route at every mesh size
+    (icospheres of 80 to 5,120 faces), reading no file: with every open of
+    a path under reports/ refused and the resorted route unreachable, its
+    hits are the "ray" route's, bit for bit."""
+    import builtins
+
+    from drt_tpu_torch.intersect import resort
+    from drt_tpu_torch.mesh import build_mesh_state
+    from tests.meshes import make_icosphere
+    real_open = builtins.open
+
+    def no_reports(path, *a, **k):
+        if "reports" in str(path).replace("\\", "/").split("/"):
+            raise OSError(f"reports/ is unreadable: {path}")
+        return real_open(path, *a, **k)
+    monkeypatch.setattr(builtins, "open", no_reports)
+    fn_auto = get_intersect_fn("cuda")
+    fn_ray = get_intersect_fn("cuda", incoherent="ray")
+
+    def no_resort(*a, **k):
+        raise AssertionError("the auto route took the resorted route")
+    monkeypatch.setattr(resort, "resorted_intersect", no_resort)
+    for subdivisions in (1, 2, 3, 4):
+        v, f = make_icosphere(subdivisions)
+        ms = build_mesh_state(v, f, device="cpu")
+        o, d = (torch.from_numpy(x) for x in _mesh_rays(np.asarray(v),
+                                                        "inside"))
+        geom = (ms.vertices, ms.faces, ms.face_valid)
+        h = fn_auto(o, d, *geom, coherent=False)
+        h_ray = fn_ray(o, d, *geom, coherent=False)
+        assert torch.equal(h.tri_id, h_ray.tri_id)
+        assert torch.equal(h.t, h_ray.t)
+        assert int(h.hit.sum()) > 0

@@ -426,17 +426,16 @@ def test_scatter_route_at_and_above_the_cap():
 
 def test_scatter_signature_and_routes_match_the_source():
     """csrc/scatter.cu read as text: its scatter_signature() is the
-    argument list the binding passes (kernels._SIGNATURES, one ctypes type
-    an argument in kernels._ENTRIES), its route numbers are the wrapper's
+    argument list of its row in kernels.LAUNCHES (one ctypes type an
+    argument), its route numbers are the wrapper's
     ROUTES in order, and MAX_COLS is 16."""
     import re
     from drt_tpu_torch import kernels
     src = open(os.path.join(os.path.dirname(kernels.__file__), "csrc",
                             "scatter.cu")).read()
     sig = re.search(r'scatter_signature\(\) \{\s*return "([^"]*)";', src)
-    assert sig and sig.group(1) == kernels._SIGNATURES["scatter_signature"]
-    assert len(sig.group(1).split()) == len(
-        kernels._ENTRIES["scatter_launch"][0])
+    assert sig and sig.group(1).split() == list(kernels.ROWS["scatter"][0])
+    assert len(sig.group(1).split()) == len(kernels.ROWS["scatter"][1])
     for i, route in enumerate(ROUTES):
         assert re.search(rf"#define ROUTE_{route.upper()} {i}\b", src)
     assert re.search(r"#define MAX_COLS 16\b", src)

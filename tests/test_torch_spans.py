@@ -247,7 +247,7 @@ def test_markers_follow_the_table():
     `tracing.port_kernels` finds each, so `torch_ops_ms` leaves them
     out."""
     src = _source()
-    kinds = kernels._SIGNATURES["span_kinds_signature"].split()
+    kinds = kernels.SPAN_KINDS.split()
     assert kinds == list(spans.NAMES) + ["end"]
     m = re.search(r'span_kinds_signature\(\) \{\s*return ((?:"[^"]*"\s*)+);',
                   src)
@@ -260,8 +260,8 @@ def test_markers_follow_the_table():
         assert PS.marker(f"void span_{k}_kernel()") == k
         assert re.search(rf"__global__ void span_{k}_kernel\(\) \{{\}}", src)
     m = re.search(r'span_signature\(\) \{ return "([^"]*)"', src)
-    assert m.group(1) == kernels._SIGNATURES["span_signature"]
-    assert len(kernels._ENTRIES["span_mark_launch"][0]) == 3
+    assert m.group(1).split() == list(kernels.ROWS["span_mark"][0])
+    assert len(kernels.ROWS["span_mark"][1]) == 3
 
 
 # -- port_bench/spans.py on synthetic device traces -------------------------
