@@ -628,25 +628,32 @@ def kernel_bound(inp, C, t_hit):
             else "bytes", visits, pairs_all * C, nbytes, t_ops, tile_pairs)
 
 
-def prepass_bound(n_rays, n_tiles, n_chunks, n_valid, tile, count):
+def prepass_bound(n_rays, n_tiles, n_chunks, n_valid, tile, count,
+                  kept=None, n_tested=0):
     """Least time for one launch of the prepass kernel. Operations (unfused,
-    at half the FP32 FLOP/s peak): ray mode, every ray against every valid
-    chunk, 20 a pair: 6 subtractions and 6 multiplies for the three planes
-    the ray meets first and the three it meets last (its direction octant
-    says which), 4 min/max for the entry and the exit, 2 compares and a
-    select for the overlap test, 1 min for the running minimum; tile mode,
-    the tile's 12 interval ends (12 min/max a ray) and, per (tile, valid
-    chunk), 12 subtractions, 24 multiplies and 36 min/max for the interval
-    products, then 10 min/max for the entry and the exit, 2 compares and a
-    select for the test and 1 max for the score; both, F log2 F compares to
-    sort the F candidates of each tile (`count` [T], this run's). Bytes:
-    origins, inverse directions and the boxes read once, the T x NC lists
-    and T counts written."""
+    at half the FP32 FLOP/s peak): ray mode, every ray against every box its
+    tile scores, 20 a pair: 6 subtractions and 6 multiplies for the three
+    planes the ray meets first and the three it meets last (its direction
+    octant says which), 4 min/max for the entry and the exit, 2 compares and
+    a select for the overlap test, 1 min for the running minimum; the boxes
+    a tile scores are `kept` [T] (the kernel's, this run's), which its cull
+    by the tile's frustum took from the valid ones at 12 min/max a ray and
+    86 operations a (tile, valid box) on the `n_tested` tiles it tested
+    (None: every valid box, no cull); tile mode, the tile's 12 interval ends
+    (12 min/max a ray) and, per (tile, valid chunk), 12 subtractions, 24
+    multiplies and 36 min/max for the interval products, then 10 min/max
+    for the entry and the exit, 2 compares and a select for the test and 1
+    max for the score; both, F log2 F compares to sort the F candidates of
+    each tile (`count` [T], this run's). Bytes: origins, inverse directions
+    and the boxes read once, the T x NC lists and T counts written."""
     import torch
     if tile:
         ops = n_rays * 12 + n_tiles * n_valid * 86
-    else:
+    elif kept is None:
         ops = n_rays * n_valid * 20
+    else:
+        ops = (n_rays * 12 + n_rays // n_tiles * int(kept.sum()) * 20
+               + n_tested * n_valid * 86)
     f = count.double()
     ops += float((f * torch.log2(f.clamp(min=1))).sum())
     ops *= 2
@@ -654,6 +661,23 @@ def prepass_bound(n_rays, n_tiles, n_chunks, n_valid, tile, count):
     t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes")
+
+
+def prepass_kept(args, t_min=0.0):
+    """The ray mode's cull on one query's prepass inputs `args` (as
+    `prepass_args` gives them): the kernel's `kept` [T], checked against
+    `frustum_kept_plain`'s row sums (the run fails where they differ), and
+    the tiles it tested (those not straddling every axis sign)."""
+    import torch
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    org, inv, _, _, _, T = args
+    kept = torch.empty(T, dtype=torch.int32, device=org.device)
+    CK.candidates_cuda(*args, tile=False, t_min=t_min, kept=kept)
+    want = CK.frustum_kept_plain(*args, t_min).sum(dim=1).int()
+    if not torch.equal(kept, want):
+        fail("the prepass kernel's kept differs from frustum_kept_plain on "
+             f"{int((kept != want).sum())} of {T} tiles")
+    return kept, T - int(CK.tile_straddles(inv, T).sum())
 
 
 def pack_bound(n_rays, n_pad, faces, vertices, face_valid, pk, rbytes):
@@ -830,8 +854,10 @@ def check_prepass(name, o, geom, inp, coherent, mode=None, timed=True):
     if not same:
         fail(f"{name}: the prepass kernel differs from its plain version")
     n_valid = int(cv.sum())
+    kept, n_tested = (None, 0) if tile else prepass_kept(args, inp.t_min)
     bound, bound_by = prepass_bound(org.shape[1], T, NC, n_valid, tile,
-                                    count_k)
+                                    count_k, kept, n_tested)
+    kept_share = None if tile else float(kept.sum()) / (T * n_valid)
     if not timed:
         return dict(plain_ms=ms_p, bound_ms=bound, bound_by=bound_by,
                     err=err, mode=mode)
@@ -851,9 +877,11 @@ def check_prepass(name, o, geom, inp, coherent, mode=None, timed=True):
           f"memory {smem} B a block), bound {bound:.4f} ms "
           f"({bound_by}, {bound / ms_k:.0%} of it); replaced torch stages "
           f"({replaced}) {ms_r:.4f} ms; plain version {ms_p:.3f} ms; "
-          f"candidates/tile mean {float(count_k.float().mean()):.1f}")
+          f"candidates/tile mean {float(count_k.float().mean()):.1f}"
+          + ("" if tile else f"; the cull kept {kept_share:.1%} of the "
+             f"tiles' valid boxes ({n_tested} of {T} tiles tested)"))
     return dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound, bound_by=bound_by,
-                err=err, replaced_ms=ms_r, mode=mode)
+                err=err, replaced_ms=ms_r, mode=mode, kept_share=kept_share)
 
 
 def check_query(name, o, d, geom, coherent, gen, plain_reps=0,

@@ -21,15 +21,33 @@
 // stable sort of the scores gives, and count is the number of finite
 // scores.
 //
-// Design. One block per tile; the tile's rays are staged once into shared
-// memory as float4 pairs, and a block prefix over `valid` lists the valid
-// chunks (about 40% of the chunks are power-of-two padding, never scored).
-// - ray mode: lanes sit on chunks, not rays. A warp takes units of two
-//   columns of 32 valid chunks against a share of the tile's rays, each
+// Design. One block per tile. One pass over the tile's rays gives its
+// per-axis intervals of origin and inverse direction (min and max, exact)
+// and, in ray mode, its rays a direction octant. A block prefix over the
+// chunks then lists the boxes the tile scores in `vidx` (about 40% of the
+// chunks are power-of-two padding, never scored):
+// - tile mode: every valid box;
+// - ray mode: every valid box that the tile's frustum enters (the tile
+//   mode's interval slab test, below), or every valid box where the tile's
+//   inverse directions straddle 0 on all three axes, since the test then
+//   keeps every box but those that all rays leave by t_min. The cull is
+//   exact: rounding is monotone, so each ray's rn(plane - o) lies between
+//   rn(plane - o_hi) and rn(plane - o_lo), each ray's rounded slab value
+//   between the interval's four rounded corner products, and min/max are
+//   exact; a box the test drops is entered by no ray's own slab test, so
+//   its score is +inf and it takes the same place in the tail as it would.
+//   A parked lane's ray (render/trace.py `_park_rays`) leaves the mesh's
+//   box, so a tile of parked lanes lists no box, and a one-origin tile
+//   (a thin cone of sorted silhouette rays) lists the boxes near its cone.
+// A tile that lists no box writes its list (the chunks in order) and a
+// count of 0 at once.
+// - ray mode: the rays are staged once into shared memory as float4 pairs,
+//   and lanes sit on listed boxes, not rays. A warp takes units of two
+//   columns of 32 listed boxes against a share of the tile's rays, each
 //   lane holds its two boxes and running minima in registers and walks the
 //   rays with broadcast shared loads: no warp reduction and no branch per
 //   pair. The rays are split so that every warp gets as many units, and
-//   two columns (not more) keep the registers (73) low enough for 6 blocks
+//   two columns (not more) keep the registers (64) low enough for 8 blocks
 //   of 128 threads on an SM; the latency-bound phases of one block (the
 //   scans, the staging, the sort) hide behind the others' pairs. The rays
 //   are staged grouped by direction octant, mirrored into the positive
@@ -42,9 +60,8 @@
 //   max(t_entry, 0) is taken once per chunk, at the end: the minimum
 //   commutes with it. The partial minima of a chunk's ray shares merge by
 //   a shared 64-bit atomicMin on its key, once per (chunk, share).
-// - tile mode: a block reduction gives the tile's per-axis min and max of
-//   origin and inverse direction (exact, so equal to amin/amax); then one
-//   thread per chunk does the eight interval products and the test.
+// - tile mode: one thread per listed box does the eight interval products
+//   and the test, and its entry is the score.
 // Every subtraction and product is rounded on its own (__fsub_rn,
 // __fmul_rn) as torch rounds it; min/max are exact; a score of -0 is
 // written as +0. Scores are then +0 or more, or +inf, so the key
@@ -61,26 +78,31 @@
 // is finite or +-inf and min/max are exact. Padding chunks (inverted
 // +-3e38 boxes) are never scored.
 //
-// What bounds it: operations. Ray mode needs 20 a (ray, valid chunk) pair:
+// What bounds it: operations. Ray mode needs 20 a (ray, listed box) pair:
 // 6 subtractions and 6 multiplies for the slab values of the three planes a
 // ray meets first and the three it meets last in its direction octant, 4
 // min/max for the entry and the exit, 2 compares and a select for the
 // overlap test, and 1 min for the running minimum (the plain form takes 10
-// min/max where this takes 4). On an H100 it stands at about half of that
-// bound on a full view's incoherent rays; reckoned, not measured, each
-// tile's latency-bound phases (the scans, the octant staging, the count
-// and the sort, about 20 barriers) hold it there. The sort needs about
-// F log2 F compares a tile. The kernel reads the rays and boxes once and
-// writes T x NC + T int32; the tile mode stands at about a fifth of its
-// bytes bound, held by the same per-tile phases.
+// min/max where this takes 4); the cull adds 12 min/max a ray and 86
+// operations a (tile, valid box) where it tests. So the pairs it does not
+// list are work it no longer does: in a step's bounce-2 and exit queries
+// about 9 tiles in 10 hold only parked lanes and list nothing, and a
+// silhouette query's tiles list a part of the mesh (PERF.md section 6 has
+// the measured shares). A tile that lists nothing costs its scan of the
+// chunks, one box test a valid chunk and the write of its list; one that
+// lists few boxes is held by the latency-bound phases (the scans, the
+// octant staging, the count and the sort, about 20 barriers). The sort
+// needs about F log2 F compares a tile. The kernel reads the rays and boxes
+// once and writes T x NC + T int32; the tile mode stands at about a fifth
+// of its bytes bound, held by the same per-tile phases.
 
 #include <cuda_runtime.h>
 
 #define MAX_RAY_TILE 256
-#define MAX_BLOCK 256               // __launch_bounds__: 73 registers
+#define MAX_BLOCK 256               // __launch_bounds__: 64 registers
 // Threads a tile: 128 beat 256 on the six queries of
-// `scripts/tune_torch_oracle.py --what prepass`, which builds this source
-// with -DPREPASS_BLOCK=256 as well (reports/torch_prepass_blocks.json).
+// `scripts/tune_torch_oracle.py --what prepass-blocks`, which builds this
+// source with -DPREPASS_BLOCK=256 as well (reports/torch_prepass_blocks.json).
 #ifndef PREPASS_BLOCK
 #define PREPASS_BLOCK 128
 #endif
@@ -132,7 +154,40 @@ __device__ __forceinline__ int block_scan(int v, int* s_warp, int* total) {
     return before + inc - v;
 }
 
-// K columns of 32 valid chunks (from column `col0`) against share
+// The interval slab test of a tile's frustum against box c: b holds the
+// tile's per-axis olo[3], ilo[3], ohi[3], ihi[3] (origins and inverse
+// directions). True where the frustum enters the box, leaving it beyond
+// t_min; *entry gets the least entry, a lower bound of every ray's.
+__device__ __forceinline__ bool frustum_enters(
+    const float* b, const float* __restrict__ lo,
+    const float* __restrict__ hi, int c, float t_min, float* entry) {
+    float en = -f_inf(), ex = f_inf();
+    #pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        const float olo = b[a], ilo = b[3 + a];
+        const float ohi = b[6 + a], ihi = b[9 + a];
+        float tlo[2], thi[2];
+        #pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const float plane = e ? hi[3 * (size_t)c + a]
+                                  : lo[3 * (size_t)c + a];
+            const float alo = __fsub_rn(plane, ohi);
+            const float ahi = __fsub_rn(plane, olo);
+            const float p1 = __fmul_rn(alo, ilo);
+            const float p2 = __fmul_rn(alo, ihi);
+            const float p3 = __fmul_rn(ahi, ilo);
+            const float p4 = __fmul_rn(ahi, ihi);
+            tlo[e] = fminf(fminf(p1, p2), fminf(p3, p4));
+            thi[e] = fmaxf(fmaxf(p1, p2), fmaxf(p3, p4));
+        }
+        en = fmaxf(en, fminf(tlo[0], tlo[1]));
+        ex = fminf(ex, fmaxf(thi[0], thi[1]));
+    }
+    *entry = en;
+    return en <= ex && ex > t_min;
+}
+
+// K columns of 32 listed boxes (from column `col0`) against share
 // `split` of `nsplit` of the octant-sorted rays.
 template <int K>
 __device__ __forceinline__ void score_rays(
@@ -201,13 +256,14 @@ __global__ void __launch_bounds__(MAX_BLOCK) candidates_kernel(
     const unsigned char* __restrict__ valid,   // [NC] 0 for padding chunks
     int np_, int ray_tile, int nc, int tile_mode, float t_min,
     int* __restrict__ cand,            // [T, NC] nearest first
-    int* __restrict__ count)           // [T]
+    int* __restrict__ count,           // [T]
+    int* __restrict__ kept)            // [T] boxes listed, or null
 {
     extern __shared__ float4 smem[];
     float4* s_org = smem;                          // [ray_tile]
     float4* s_inv = smem + ray_tile;               // [ray_tile]
     u64* keys = (u64*)(smem + 2 * ray_tile);       // [nc rounded up to 2^k]
-    int* vidx = (int*)(keys + pow2_at_least(nc));  // [nc] valid chunks
+    int* vidx = (int*)(keys + pow2_at_least(nc));  // [nc] listed boxes
     __shared__ int s_warp[MAX_BLOCK / 32];
     __shared__ int s_oct[9], s_cur[8], s_nfin;
     __shared__ float s_box[MAX_BLOCK / 32][12];
@@ -219,7 +275,58 @@ __global__ void __launch_bounds__(MAX_BLOCK) candidates_kernel(
     const size_t r_base = (size_t)tile * ray_tile;
     const size_t out = (size_t)tile * nc;
 
-    // the valid chunks' indices, in order; every key starts at +inf. Each
+    // one pass over the tile's rays: its per-axis origin and
+    // inverse-direction intervals and (ray mode) its rays an octant
+    if (!tile_mode) {
+        if (tid < 8) s_cur[tid] = 0;
+        __syncthreads();
+    }
+    float b[12];                       // olo[3], ilo[3], ohi[3], ihi[3]
+    #pragma unroll
+    for (int q = 0; q < 6; ++q) {
+        b[q] = f_inf();
+        b[6 + q] = -f_inf();
+    }
+    for (int r = tid; r < ray_tile; r += nthreads) {
+        const size_t i = r_base + r;
+        const float x[6] = {org[i], org[np + i], org[2 * np + i],
+                            inv[i], inv[np + i], inv[2 * np + i]};
+        #pragma unroll
+        for (int q = 0; q < 6; ++q) {
+            b[q] = fminf(b[q], x[q]);
+            b[6 + q] = fmaxf(b[6 + q], x[q]);
+        }
+        if (!tile_mode)
+            atomicAdd(&s_cur[(x[3] < 0.f) | ((x[4] < 0.f) << 1)
+                             | ((x[5] < 0.f) << 2)], 1);
+    }
+    #pragma unroll
+    for (int q = 0; q < 6; ++q) {
+        #pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            b[q] = fminf(b[q], __shfl_xor_sync(FULL_MASK, b[q], off));
+            b[6 + q] = fmaxf(b[6 + q],
+                             __shfl_xor_sync(FULL_MASK, b[6 + q], off));
+        }
+    }
+    if (lane == 0) {
+        #pragma unroll
+        for (int q = 0; q < 12; ++q) s_box[warp][q] = b[q];
+    }
+    __syncthreads();
+    #pragma unroll
+    for (int q = 0; q < 6; ++q) {
+        for (int w = 0; w < nwarps; ++w) {
+            b[q] = fminf(b[q], s_box[w][q]);
+            b[6 + q] = fmaxf(b[6 + q], s_box[w][6 + q]);
+        }
+    }
+    // ray mode culls by the frustum unless every axis straddles 0
+    const bool cull = !tile_mode
+                      && !(b[3] < 0.f && b[9] > 0.f && b[4] < 0.f
+                           && b[10] > 0.f && b[5] < 0.f && b[11] > 0.f);
+
+    // the listed boxes' indices, in order; every key starts at +inf. Each
     // thread takes a run of RUN consecutive chunks a round.
     int nv = 0;
     for (int base = 0; base < nc; base += nthreads * RUN) {
@@ -229,7 +336,10 @@ __global__ void __launch_bounds__(MAX_BLOCK) candidates_kernel(
         for (int i = 0; i < RUN; ++i) {
             const int j = j0 + i;
             if (j < nc) {
-                bits |= (unsigned)(valid[j] != 0) << i;
+                float entry;
+                bits |= (unsigned)(valid[j] != 0
+                                   && (!cull || frustum_enters(
+                                       b, lo, hi, j, t_min, &entry))) << i;
                 keys[j] = ((u64)INF_BITS << 32) | (unsigned)j;
             }
         }
@@ -241,18 +351,16 @@ __global__ void __launch_bounds__(MAX_BLOCK) candidates_kernel(
         nv += total;
     }
     __syncthreads();
+    if (kept != nullptr && tid == 0) kept[tile] = nv;
+    if (nv == 0) {
+        // nothing to score: the chunks in order, none a candidate
+        for (int j = tid; j < nc; j += nthreads) cand[out + j] = j;
+        if (tid == 0) count[tile] = 0;
+        return;
+    }
 
     if (!tile_mode) {
         // stage the rays grouped by octant, mirrored into the positive one
-        if (tid < 8) s_cur[tid] = 0;
-        __syncthreads();
-        for (int r = tid; r < ray_tile; r += nthreads) {
-            const size_t i = r_base + r;
-            const int oct = (inv[i] < 0.f) | ((inv[np + i] < 0.f) << 1)
-                            | ((inv[2 * np + i] < 0.f) << 2);
-            atomicAdd(&s_cur[oct], 1);
-        }
-        __syncthreads();
         if (tid == 0) {
             int acc = 0;
             for (int q = 0; q < 8; ++q) {
@@ -296,69 +404,10 @@ __global__ void __launch_bounds__(MAX_BLOCK) candidates_kernel(
                               split, nsplit, ray_tile, lo, hi, t_min, lane);
         }
     } else {
-        // the tile's per-axis origin and inverse-direction intervals
-        float b[12];                   // olo[3], ilo[3], ohi[3], ihi[3]
-        #pragma unroll
-        for (int q = 0; q < 6; ++q) {
-            b[q] = f_inf();
-            b[6 + q] = -f_inf();
-        }
-        for (int r = tid; r < ray_tile; r += nthreads) {
-            const size_t i = r_base + r;
-            const float x[6] = {org[i], org[np + i], org[2 * np + i],
-                                inv[i], inv[np + i], inv[2 * np + i]};
-            #pragma unroll
-            for (int q = 0; q < 6; ++q) {
-                b[q] = fminf(b[q], x[q]);
-                b[6 + q] = fmaxf(b[6 + q], x[q]);
-            }
-        }
-        #pragma unroll
-        for (int q = 0; q < 6; ++q) {
-            #pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-                b[q] = fminf(b[q], __shfl_xor_sync(FULL_MASK, b[q], off));
-                b[6 + q] = fmaxf(b[6 + q],
-                                 __shfl_xor_sync(FULL_MASK, b[6 + q], off));
-            }
-        }
-        if (lane == 0) {
-            #pragma unroll
-            for (int q = 0; q < 12; ++q) s_box[warp][q] = b[q];
-        }
-        __syncthreads();
-        #pragma unroll
-        for (int q = 0; q < 6; ++q) {
-            for (int w = 0; w < nwarps; ++w) {
-                b[q] = fminf(b[q], s_box[w][q]);
-                b[6 + q] = fmaxf(b[6 + q], s_box[w][6 + q]);
-            }
-        }
         for (int p = tid; p < nv; p += nthreads) {
             const int c = vidx[p];
-            float entry = -f_inf(), exit_ = f_inf();
-            #pragma unroll
-            for (int a = 0; a < 3; ++a) {
-                const float olo = b[a], ilo = b[3 + a];
-                const float ohi = b[6 + a], ihi = b[9 + a];
-                float tlo[2], thi[2];
-                #pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const float plane = e ? hi[3 * (size_t)c + a]
-                                          : lo[3 * (size_t)c + a];
-                    const float alo = __fsub_rn(plane, ohi);
-                    const float ahi = __fsub_rn(plane, olo);
-                    const float p1 = __fmul_rn(alo, ilo);
-                    const float p2 = __fmul_rn(alo, ihi);
-                    const float p3 = __fmul_rn(ahi, ilo);
-                    const float p4 = __fmul_rn(ahi, ihi);
-                    tlo[e] = fminf(fminf(p1, p2), fminf(p3, p4));
-                    thi[e] = fmaxf(fmaxf(p1, p2), fmaxf(p3, p4));
-                }
-                entry = fmaxf(entry, fminf(tlo[0], tlo[1]));
-                exit_ = fminf(exit_, fmaxf(thi[0], thi[1]));
-            }
-            if (entry <= exit_ && exit_ > t_min)
+            float entry;
+            if (frustum_enters(b, lo, hi, c, t_min, &entry))
                 keys[c] = make_key(fmaxf(entry, 0.f), c);
         }
     }
@@ -369,8 +418,9 @@ __global__ void __launch_bounds__(MAX_BLOCK) candidates_kernel(
     // the front of `keys` (a key moves only to a lower place, read before)
     if (tid == 0) s_nfin = 0;
     __syncthreads();
-    int mine = 0;
-    for (int j = tid; j < nc; j += nthreads) mine += finite_key(keys[j]);
+    int mine = 0;                      // only a listed box can be finite
+    for (int p = tid; p < nv; p += nthreads)
+        mine += finite_key(keys[vidx[p]]);
     #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
         mine += __shfl_xor_sync(FULL_MASK, mine, off);
@@ -421,7 +471,7 @@ __global__ void __launch_bounds__(MAX_BLOCK) candidates_kernel(
 }
 
 // Dynamic shared memory of a launch: the tile's rays staged twice, the
-// sort keys and the list of valid chunks.
+// sort keys and the list of the boxes it scores.
 static size_t prepass_smem(int ray_tile, int nc) {
     return 2 * (size_t)ray_tile * sizeof(float4)
            + (size_t)pow2_at_least(nc) * sizeof(u64) + (size_t)nc * sizeof(int);
@@ -441,15 +491,18 @@ int candidates_block() { return PREPASS_BLOCK; }
 // The arguments of candidates_launch, for the wrapper's interface check.
 const char* candidates_signature() {
     return "org inv lo hi valid n_tiles ray_tile nc tile_mode t_min cand "
-           "count stream";
+           "count kept stream";
 }
 
 // Launches on `stream` and returns cudaGetLastError(); does not synchronise.
-// tile_mode 0: the per-ray prepass; 1: the tile-frustum prepass.
+// tile_mode 0: the per-ray prepass; 1: the tile-frustum prepass. kept
+// (null, or [n_tiles]): each tile's listed boxes, the valid boxes that ray
+// mode's cull keeps (every valid box in tile mode).
 int candidates_launch(const float* org, const float* inv, const float* lo,
                       const float* hi, const unsigned char* valid,
                       int n_tiles, int ray_tile, int nc, int tile_mode,
-                      float t_min, int* cand, int* count, void* stream) {
+                      float t_min, int* cand, int* count, int* kept,
+                      void* stream) {
     static_assert(PREPASS_BLOCK % 32 == 0 && PREPASS_BLOCK <= MAX_BLOCK,
                   "PREPASS_BLOCK: a multiple of 32 threads, at most 256");
     if (ray_tile < 1 || ray_tile > MAX_RAY_TILE || nc > MAX_CHUNKS)
@@ -467,7 +520,7 @@ int candidates_launch(const float* org, const float* inv, const float* lo,
         candidates_kernel<<<n_tiles, PREPASS_BLOCK, smem,
                             (cudaStream_t)stream>>>(
             org, inv, lo, hi, valid, n_tiles * ray_tile, ray_tile, nc,
-            tile_mode, t_min, cand, count);
+            tile_mode, t_min, cand, count, kept);
     }
     return (int)cudaGetLastError();
 }

@@ -26,8 +26,11 @@ Stages:
    the kernel csrc/candidates.cu scores, sorts and counts for every tile;
    its plain version `candidates_plain` runs on CPU tensors. Incoherent
    queries slab-test every (ray, box) pair exactly (`_candidates` is the
-   plain version); coherent queries bound a whole tile by interval
-   arithmetic (`_candidates_tile`: a superset, cheap for camera rays);
+   plain version) over the boxes the tile's frustum enters
+   (`frustum_kept_plain`: a superset of the boxes any of its rays enters,
+   so the lists are the same); coherent queries bound a whole tile by
+   interval arithmetic (`_candidates_tile`: a superset, cheap for camera
+   rays);
 4. `closest_hit`: the kernel (csrc/closest_hit.cu) on CUDA tensors, its
    plain version `closest_hit_plain` on CPU tensors. A listed group stands
    for its `group` chunks, visited in order; the per-ray gate drops those a
@@ -541,23 +544,56 @@ def candidates_plain(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool,
     return _sorted_candidates(score)
 
 
+def tile_straddles(inv, n_tiles):
+    """[n_tiles] bool: the tiles whose inverse directions inv [3,Np] take
+    both signs on all three axes, where csrc/candidates.cu's ray mode keeps
+    every valid box without testing it."""
+    it = inv.reshape(3, n_tiles, -1)
+    return ((it.amin(dim=2) < 0) & (it.amax(dim=2) > 0)).all(dim=0)
+
+
+@torch.no_grad()
+def frustum_kept_plain(org, inv, lo, hi, chunk_valid, n_tiles,
+                       t_min: float = 0.0):
+    """[n_tiles, NC] bool: the boxes that csrc/candidates.cu's ray mode
+    scores ray by ray, its cull by each tile's frustum: the valid boxes with
+    a finite `_tile_scores` score, or every valid box of a tile that
+    `tile_straddles` (the kernel skips the test there). A box some ray of
+    the tile enters is always among them (rounding is monotone:
+    tests/test_torch_prepass_cull.py), so the cull leaves the lists as they
+    are. The kernel's `kept` is the row sums.
+    Inputs as in `candidate_scores_plain`."""
+    _, _, RT = _check_prepass_inputs(org, inv, lo, hi, chunk_valid, n_tiles)
+    enters = torch.isfinite(_tile_scores(
+        org.reshape(3, n_tiles, RT).permute(1, 0, 2),
+        inv.reshape(3, n_tiles, RT).permute(1, 0, 2), lo, hi, chunk_valid,
+        t_min))
+    return enters | (tile_straddles(inv, n_tiles)[:, None]
+                     & chunk_valid[None])
+
+
 def candidates_cuda(org, inv, lo, hi, chunk_valid, n_tiles, *, tile: bool,
-                    t_min: float = 0.0):
+                    t_min: float = 0.0, kept=None):
     """Launch csrc/candidates.cu on the current stream; inputs and result
     as in `candidates_plain`. Takes at most MAX_CHUNKS boxes (chunks, or
-    groups of them)."""
+    groups of them). kept ([n_tiles] int32, or None): where given, the
+    kernel writes each tile's boxes it scored there, in ray mode the row
+    sums of `frustum_kept_plain`, in tile mode the valid boxes."""
     _, NC, ray_tile = _check_prepass_inputs(org, inv, lo, hi, chunk_valid,
                                             n_tiles)
     if NC > MAX_CHUNKS:
         raise ValueError(f"{NC} boxes: the prepass kernel takes at most "
                          f"MAX_CHUNKS = {MAX_CHUNKS} (group the chunks)")
+    kernels.expect("kept", kept, (n_tiles,), torch.int32, org.device)
     kernels.need_cuda("candidates_cuda", org)
     cand = torch.empty(n_tiles, NC, dtype=torch.int32, device=org.device)
     count = torch.empty(n_tiles, dtype=torch.int32, device=org.device)
-    kernels.launch("candidates", org, ("candidates_launches",), org=org,
-                   inv=inv, lo=lo, hi=hi, valid=chunk_valid, n_tiles=n_tiles,
+    counts = ("candidates_launches",) if tile else (
+        "candidates_launches", "prepass_cull_launches")
+    kernels.launch("candidates", org, counts, org=org, inv=inv, lo=lo,
+                   hi=hi, valid=chunk_valid, n_tiles=n_tiles,
                    ray_tile=ray_tile, nc=NC, tile_mode=bool(tile),
-                   t_min=float(t_min), cand=cand, count=count)
+                   t_min=float(t_min), cand=cand, count=count, kept=kept)
     return cand, count
 
 

@@ -67,8 +67,10 @@ class LaunchCounter:
     `one_origin_queries` took the one-origin route, each launching
     csrc/order.cu once on the card), and the kernels' launches: the closest
     hit's (`launches`), the candidate prepass's and the packing kernel's,
-    one each a query; the row scatter-add's (one a `scatter_rows` call, by
-    route in `scatter_cluster_launches` and `scatter_grid_launches`); the
+    one each a query (the prepass's ray-mode launches, which cull each
+    tile's boxes by its frustum, also in `prepass_cull_launches`); the row
+    scatter-add's (one a `scatter_rows` call, by route in
+    `scatter_cluster_launches` and `scatter_grid_launches`); the
     CG solve's (one a solve, by route in `cg_shared_launches` and
     `cg_global_launches`, the adjoint solves of `sobolev_solve`'s backward
     in `cg_adjoint_launches`); csrc/bounce.cu's, a bounce's chain
@@ -82,7 +84,8 @@ class LaunchCounter:
              "cg_global_launches cg_adjoint_launches bounce_launches "
              "bounce_backward_launches ray_tail_launches "
              "ray_tail_backward_launches silhouette_pre_launches "
-             "silhouette_post_launches silhouette_backward_launches").split()
+             "silhouette_post_launches silhouette_backward_launches "
+             "prepass_cull_launches").split()
 
     def __init__(self):
         self.reset()
@@ -180,7 +183,7 @@ LAUNCHES = {
                    "n_groups:i group:i t_min:f t_out:p id_out:p stream:p",
     # candidates.cu
     "candidates": "org:p inv:p lo:p hi:p valid:p n_tiles:i ray_tile:i nc:i "
-                  "tile_mode:i t_min:f cand:p count:p stream:p",
+                  "tile_mode:i t_min:f cand:p count:p kept:p stream:p",
     # pack.cu
     "pack": "vertices:p vert_f64:i faces:p faces_i64:i face_valid:p "
             "n_faces:i shift:p origins:p org_f64:i org_stride:i dirs:p "

@@ -2,7 +2,8 @@
 """Measurements behind the constants of the port's oracle, on one CUDA GPU.
 
     python3 scripts/tune_torch_oracle.py [--what tiles blocks gate prepass
-                                          resort group pack scatter
+                                          prepass-blocks resort group pack
+                                          scatter
                                           scatter-routes scatter-trace
                                           silhouette defaults]
 
@@ -20,12 +21,21 @@ blocks  the tiles as the package sets them, BLOCK_RAYS set to 256, 128, 64,
 gate    the per-ray gate of the kernel against the tile-wide gate of the
         JAX package's `_kernel` (the plain version with its gate widened to
         "any ray of the tile enters"): rays whose tri_id or t differ.
-prepass the prepass kernel (csrc/candidates.cu) built with blocks of 128
+prepass with --parent DIR (an unpacked tree of another commit): that
+        tree's prepass kernel (its csrc/candidates.cu) against this one's,
+        whose ray mode culls each tile's boxes by the tile's frustum, in
+        turns, on a step's 11 queries (camera, bounce 2, exit, 8 silhouette
+        views) on each of dog_mid{20k,45k,90k} (`prepass_cull`): lists equal
+        to the plain version's, device times, the ms a step by query kind,
+        the share of the valid boxes kept and the bounds. Writes
+        reports/torch_prepass_cull.json (or --prepass-cull-out PATH).
+prepass-blocks  the prepass kernel built with blocks of 128
         and of 256 threads a tile (-DPREPASS_BLOCK), in turns (128, 256,
         256, 128; CUDA events), on each query in its own mode, the lists
         equal to the plain version's at both sizes. Writes
         reports/torch_prepass_blocks.json (or --prepass-out PATH); the
-        source's PREPASS_BLOCK is the winner over the six.
+        source's PREPASS_BLOCK is the winner over the six (measured before
+        the cull).
 resort  the two routes of an incoherent query, "ray" (the exact per-ray
         prepass kernel) against "resort" (Morton sort of the rays, tile
         prepass, scatter back), on the bounce-2 and exit queries of a
@@ -313,9 +323,167 @@ def prepass_blocks(queries, card, out):
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as fh:
         json.dump({"device": card, "script":
-                   "scripts/tune_torch_oracle.py --what prepass",
+                   "scripts/tune_torch_oracle.py --what prepass-blocks",
                    "rows": rows, "total_ms": total, "winner": winner}, fh,
                   indent=1)
+        fh.write("\n")
+    print(f"wrote {out}")
+
+
+def parent_prepass(parent):
+    """The prepass kernel of the tree at `parent` (an unpacked commit): its
+    csrc/candidates.cu built alone with this tree's nvcc flags, its
+    `candidates_launch` typed by the names its own `candidates_signature()`
+    gives (each name's type from this tree's row). Returns
+    call(org, inv, lo, hi, valid, T, tile, t_min) -> (cand, count), launched
+    on the current stream."""
+    import ctypes
+    import subprocess
+    import torch
+    from drt_tpu_torch import kernels as KN
+    src = os.path.join(parent, "drt_tpu_torch", "csrc", "candidates.cu")
+    os.makedirs(KN.BUILD_DIR, exist_ok=True)
+    path = os.path.join(KN.BUILD_DIR, "libparent_candidates.so")
+    run = subprocess.run([KN._nvcc(), *KN.NVCC_FLAGS, "-shared", "-o", path,
+                          src], capture_output=True, text=True)
+    if run.returncode != 0:
+        sys.exit(f"tune_torch_oracle: nvcc failed on {src}:\n"
+                 f"{run.stdout}{run.stderr}")
+    lib = ctypes.CDLL(path)
+    lib.candidates_signature.argtypes = []
+    lib.candidates_signature.restype = ctypes.c_char_p
+    names = lib.candidates_signature().decode().split()
+    types = dict(zip(*KN.ROWS["candidates"]))
+    unknown = [n for n in names if n not in types]
+    if unknown:
+        sys.exit(f"tune_torch_oracle: the parent's candidates_launch takes "
+                 f"{unknown}, which this tree's does not")
+    fn = lib.candidates_launch
+    fn.argtypes, fn.restype = [types[n] for n in names], ctypes.c_int
+
+    def call(org, inv, lo, hi, valid, T, tile, t_min):
+        nc = lo.shape[0]
+        cand = torch.empty(T, nc, dtype=torch.int32, device=org.device)
+        count = torch.empty(T, dtype=torch.int32, device=org.device)
+        args = dict(org=org, inv=inv, lo=lo, hi=hi, valid=valid, n_tiles=T,
+                    ray_tile=org.shape[1] // T, nc=nc, tile_mode=int(tile),
+                    t_min=float(t_min), cand=cand, count=count,
+                    stream=torch.cuda.current_stream().cuda_stream)
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in map(args.get, names)))
+        if err != 0:
+            sys.exit(f"tune_torch_oracle: the parent's prepass launch failed "
+                     f"({err})")
+        return cand, count
+    return call
+
+
+# A step's queries by kind, in the step's order: the camera query, the ray
+# view's bounce 2 and exit, and its silhouette views.
+PREPASS_KINDS = ("camera", "bounce2", "exit", "silhouette")
+
+
+def prepass_cull(dev, card, out, parent):
+    """The prepass kernel of the tree at `parent` (`parent_prepass`) against
+    this tree's, whose ray mode culls each tile's boxes by the tile's
+    frustum, in turns (parent, this, this, parent) on a step's 11 queries on
+    each of dog_mid{20k,45k,90k} at the groups and ray tiles the step takes:
+    the camera query (tile mode, which the cull bypasses), the bounce-2 and
+    exit queries of one 1280x960 view (`incoherent_queries`) and 8
+    silhouette views on their one-origin route
+    (chip_smoke.silhouette_queries). For each query: both sides' lists and
+    counts equal to the plain version's, each side's device time of
+    `candidates_kernel` (torch.profiler), the share of the tiles' valid
+    boxes this tree's cull kept (its `kept`, held to `frustum_kept_plain`),
+    the tiles that list nothing and the bound with and without the cull;
+    for each mesh, both sides' device ms a step by query kind (the means of
+    each side's two turns). Writes reports/torch_prepass_cull.json (or
+    --prepass-cull-out PATH)."""
+    import torch
+    import chip_smoke as S
+    from drt_tpu_torch.config import POINTGRAY_RES as RES
+    from drt_tpu_torch.intersect import cuda_kernel as CK
+    old = parent_prepass(parent)
+    meshes = ("dog_mid20k", "dog_mid45k", "dog_mid90k")
+    rows, steps = [], {}
+    ray_view = incoherent_queries(dev, meshes, coherent=True)
+    silhouettes = S.silhouette_queries(
+        {m: ms for m, (ms, _, _) in ray_view.items()}, RES)
+    for mesh, (_, geom, qs) in ray_view.items():
+        kinds = dict(zip(("bounce1", "bounce2", "exit"), PREPASS_KINDS))
+        queries = [(kinds[qn], qn, o, d, coh) for qn, o, d, coh in qs
+                   if qn in kinds]
+        queries += [("silhouette", f"silhouette view {v}", o, d, False)
+                    for v, o, d in silhouettes[mesh][2]]
+        step = {side: {k: 0.0 for k in PREPASS_KINDS}
+                for side in ("parent", "this")}
+        for kind, qn, o, d, coh in queries:
+            inp = CK.prepare_inputs(o, d, *geom, coherent=coh)
+            args = S.prepass_args(o, geom, inp)
+            org, inv, lo, hi, cv, T = args
+            want = CK.candidates_plain(*args, tile=coh, t_min=inp.t_min)
+            calls = {"parent": lambda: old(*args, coh, inp.t_min),
+                     "this": lambda: CK.candidates_cuda(
+                         *args, tile=coh, t_min=inp.t_min)}
+            ms = {"parent": [], "this": []}
+            for side in ("parent", "this", "this", "parent"):
+                got = calls[side]()
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    sys.exit(f"tune_torch_oracle: {mesh} {qn}: the {side} "
+                             "tree's prepass kernel differs from the plain "
+                             "version")
+                ms[side].append(kernel_profile(calls[side], 10)[2].get(
+                    "candidates_kernel", float("nan")))
+            for side in ms:
+                step[side][kind] += sum(ms[side]) / 2
+            n_valid = int(cv.sum())
+            if coh:
+                kept, n_tested = None, 0
+            else:
+                kept, n_tested = S.prepass_kept(args, inp.t_min)
+            bound = S.prepass_bound(org.shape[1], T, lo.shape[0], n_valid,
+                                    coh, want[1], kept, n_tested)
+            bound_all = S.prepass_bound(org.shape[1], T, lo.shape[0],
+                                        n_valid, coh, want[1])
+            row = {"mesh": mesh, "query": qn, "kind": kind,
+                   "mode": "tile" if coh else "ray", "tiles": T,
+                   "ray_tile": org.shape[1] // T, "group": inp.group,
+                   "boxes": lo.shape[0], "valid_boxes": n_valid,
+                   "kept_share": (None if coh else
+                                  float(kept.sum()) / (T * n_valid)),
+                   "tiles_listing_nothing": (None if coh else
+                                             int((kept == 0).sum())),
+                   "tiles_tested": None if coh else n_tested,
+                   "entered_share": float(want[1].sum()) / (T * n_valid),
+                   "device_ms_parent": ms["parent"],
+                   "device_ms_this": ms["this"],
+                   "bound_ms": bound[0], "bound_by": bound[1],
+                   "bound_ms_no_cull": bound_all[0]}
+            rows.append(row)
+            share = ("" if coh else
+                     f"; kept {row['kept_share']:.1%} of the valid boxes, "
+                     f"{row['tiles_listing_nothing']} of {T} tiles list "
+                     f"nothing, {n_tested} tested")
+            print(f"{mesh} {qn} ({row['mode']} mode, {T} tiles of "
+                  f"{row['ray_tile']} x {lo.shape[0]} boxes, group "
+                  f"{inp.group}): device ms parent {_fmt(ms['parent'])}, "
+                  f"this {_fmt(ms['this'])}; entered "
+                  f"{row['entered_share']:.1%}{share}; bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}), without the cull "
+                  f"{bound_all[0]:.4f}", flush=True)
+        for side in step:
+            step[side]["all"] = sum(step[side].values())
+        steps[mesh] = step
+        print(f"{mesh}: device ms a step, parent -> this: " + ", ".join(
+            f"{k} {step['parent'][k]:.4f} -> {step['this'][k]:.4f}"
+            for k in (*PREPASS_KINDS, "all")), flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as fh:
+        json.dump({"device": card, "script":
+                   "scripts/tune_torch_oracle.py --what prepass --parent DIR",
+                   "parent": parent, "rows": rows,
+                   "step_device_ms": steps}, fh, indent=1)
         fh.write("\n")
     print(f"wrote {out}")
 
@@ -1457,14 +1625,20 @@ def _fmt(xs):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--what", nargs="+", default=["tiles", "blocks", "gate"],
-                    choices=["tiles", "blocks", "gate", "prepass", "resort",
-                             "group", "pack", "scatter", "scatter-routes",
-                             "scatter-trace", "silhouette", "defaults"])
+                    choices=["tiles", "blocks", "gate", "prepass",
+                             "prepass-blocks", "resort", "group", "pack",
+                             "scatter", "scatter-routes", "scatter-trace",
+                             "silhouette", "defaults"])
     ap.add_argument("--parent", default=None,
-                    help="--what defaults: the unpacked tree to compare with")
+                    help="--what defaults and prepass: the unpacked tree "
+                    "to compare with")
     ap.add_argument("--prepass-out",
                     default=os.path.join(HERE, "reports",
                                          "torch_prepass_blocks.json"),
+                    help="where --what prepass-blocks writes its table")
+    ap.add_argument("--prepass-cull-out",
+                    default=os.path.join(HERE, "reports",
+                                         "torch_prepass_cull.json"),
                     help="where --what prepass writes its table")
     ap.add_argument("--group-out",
                     default=os.path.join(HERE, "reports",
@@ -1515,9 +1689,14 @@ def main():
     if "silhouette" in args.what:
         silhouette_order(torch.device("cuda", 0), smi.stdout.strip(),
                          args.silhouette_out)
+    if "prepass" in args.what:
+        if not args.parent:
+            sys.exit("tune_torch_oracle: --what prepass needs --parent DIR")
+        prepass_cull(torch.device("cuda", 0), smi.stdout.strip(),
+                     args.prepass_cull_out, args.parent)
     if not set(args.what) - {"group", "resort", "pack", "scatter",
                              "scatter-routes", "scatter-trace",
-                             "silhouette"}:
+                             "silhouette", "prepass"}:
         return
     queries = recorded_queries(torch.device("cuda", 0))
     if "defaults" in args.what:
@@ -1541,7 +1720,7 @@ def main():
         sweep(queries, ("BLOCK_RAYS",), (256, 128, 64, 32))
     if "gate" in args.what:
         gate(queries)
-    if "prepass" in args.what:
+    if "prepass-blocks" in args.what:
         prepass_blocks(queries, smi.stdout.strip(), args.prepass_out)
 
 

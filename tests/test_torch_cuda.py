@@ -23,7 +23,12 @@ three kernels (a silhouette view's chain before and after its query and
 its backward) against their plain versions bit for bit on three views of
 dog_mid20k, 45k and 90k at the step's budget and below the edge count,
 float32 and float64, the mask read truncated and bilinear; a view with no
-silhouette edge; and silhouette_loss on the card launching them."""
+silhouette edge; and silhouette_loss on the card launching them.
+Between them, the ray-mode prepass's cull by each tile's frustum: its
+lists against the plain version's and its `kept` against
+`frustum_kept_plain` on the step's bounce-2, exit and silhouette queries of
+the three dog meshes, and on tiles of parked lanes, of every direction and
+of one origin's cone."""
 
 import os
 
@@ -900,7 +905,8 @@ def test_graphed_steps_equal_eager_steps(dev, sphere_capture, case):
     replays) against 4 eager steps from the same state and views: params,
     m, v and the loss equal bit for bit after every step, and each replay
     adds one step's launches to the counters (11 of each oracle kernel in
-    the unchunked step: 3 ray queries and 8 silhouette views)."""
+    the unchunked step: 3 ray queries and 8 silhouette views, of which 10
+    prepasses in ray mode, counted in `prepass_cull_launches`)."""
     from drt_tpu_torch.optimize.loop import GraphedTrainStep
     pair, _, chunked = case.partition(" ")
     optimizer, precond = pair.split("+")
@@ -927,6 +933,8 @@ def test_graphed_steps_equal_eager_steps(dev, sphere_capture, case):
             per_step = launched
             if not chunked:
                 assert launched["launches"] == 11
+                # the ray mode's, culled: bounce 2, exit, 8 silhouettes
+                assert launched["prepass_cull_launches"] == 10
             # csrc/silhouette.cu: one of each kernel a silhouette view
             for k in ("silhouette_pre_launches", "silhouette_post_launches",
                       "silhouette_backward_launches"):
@@ -1722,6 +1730,120 @@ def test_closest_hit_rays_a_warp_match_plain(dev, silhouette_rays,
     assert int((id_k >= 0).sum()) > 1000
     assert torch.equal(id_k, id_p)
     assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+
+
+# --- the ray-mode prepass's cull by each tile's frustum --------------------
+
+# The capture each mesh's ray-view queries are made under: never the mesh's
+# own, so the exit rays still hit the queried one.
+_CAPTURE_OF = {"dog_mid20k": "dog_mid90k", "dog_mid45k": "dog_mid90k",
+               "dog_mid90k": "dog_mid45k"}
+
+
+@pytest.fixture(scope="module")
+def step_queries(dev, silhouette_rays):
+    """{mesh: (mesh state, [(kind, origins, dirs)])}: the bounce-2 and exit
+    queries of one 1280x960 view, recorded from `ray_loss` under a capture
+    of another mesh, and the three silhouette views' one-origin queries."""
+    from drt_tpu_torch.config import POINTGRAY_RES as RES, HyperParams
+    from drt_tpu_torch.data.synthetic import synthesize_capture
+    from drt_tpu_torch.intersect.api import get_intersect_fn
+    from drt_tpu_torch.optimize.losses import ray_loss
+    hp, caps, out = HyperParams(), {}, {}
+    oracle = get_intersect_fn("cuda")
+    for mesh, (ms, silhouettes) in silhouette_rays.items():
+        src = _CAPTURE_OF[mesh]
+        if src not in caps:
+            caps[src] = synthesize_capture(
+                *load_ply(_tuning_mesh(src)), name="dog", num_views=1,
+                resy=RES[0], resx=RES[1], ior=hp.ior, ext_ior=hp.ext_ior,
+                num_view_used=1, device=dev)
+        queries = []
+
+        def record(o, d, *geom, coherent):
+            queries.append((o.detach().clone(), d.detach().clone(),
+                            coherent))
+            return oracle(o, d, *geom, coherent=coherent)
+        with torch.no_grad():
+            ray_loss(ms, caps[src].views.take(0), record, hp.ior, hp.ext_ior)
+        kinds = ["bounce2", "exit"]
+        ray_view = [(k, o, d) for k, (o, d, coh) in zip(kinds, queries[1:])]
+        assert [coh for _, _, coh in queries] == [True, False, False]
+        out[mesh] = (ms, ray_view + [("silhouette", o, d)
+                                     for o, d in silhouettes])
+    return out
+
+
+@pytest.mark.parametrize("mesh", ["dog_mid20k", "dog_mid45k", "dog_mid90k"])
+def test_culled_prepass_on_step_queries(dev, step_queries, mesh):
+    """The ray mode's lists and counts on the step's bounce-2, exit and
+    silhouette queries, at the groups and ray tiles the step takes, equal
+    `candidates_plain(tile=False)` bit for bit, and its `kept` the row sums
+    of `frustum_kept_plain`; the cull leaves out most boxes of the bounce-2
+    and exit queries (their tiles of parked lanes list nothing) and some of
+    every silhouette query's."""
+    ms, queries = step_queries[mesh]
+    geom = (ms.vertices, ms.faces, ms.face_valid)
+    for kind, o, d in queries:
+        inp = CK.prepare_inputs(o, d, *geom, coherent=False)
+        T = inp.count.shape[0]
+        lo, hi, cv = CK._chunk_aabbs(*geom, o.float().mean(dim=0),
+                                     CK.TRI_CHUNK)
+        _, _, boxes = CK._grouped_boxes(lo, hi, cv, inp.group)
+        args = (inp.phi[6:9], inp.inv, *boxes, T)
+        cand, count = CK.candidates_plain(*args, tile=False)
+        assert torch.equal(inp.cand, cand), kind
+        assert torch.equal(inp.count, count), kind
+        kept = torch.empty(T, dtype=torch.int32, device=dev)
+        cand_k, count_k = CK.candidates_cuda(*args, tile=False, kept=kept)
+        assert torch.equal(cand_k, cand) and torch.equal(count_k, count)
+        want = CK.frustum_kept_plain(*args).sum(dim=1).int()
+        assert torch.equal(kept, want), kind
+        assert bool((kept >= count).all()), kind
+        share = float(kept.sum()) / (T * int(boxes[2].sum()))
+        assert share < (0.2 if kind != "silhouette" else 0.9), (kind, share)
+
+
+def test_kept_on_parked_and_straddling_tiles(dev, dog20k):
+    """`kept` of one tile of parked lanes (`_park_rays`, PARK_DIRECTION)
+    reads 0, and its list is the chunks in order with a count of 0; one
+    tile of rays in every direction, which straddles every axis sign,
+    reads every valid box; a tile of one origin's thin cone reads some."""
+    from drt_tpu_torch.render.bounce import PARK_DIRECTION
+    from drt_tpu_torch.render.trace import _park_rays
+    ms = dog20k
+    RT = CK.RAY_TILE_INCOHERENT
+    rng = np.random.default_rng(5)
+    v = ms.vertices[ms.vert_valid]
+    c = v.mean(dim=0)
+    park = _park_rays(ms, torch.float32).expand(RT, 3)
+    inside = c + torch.tensor(rng.uniform(-5, 5, (RT, 3)),
+                              dtype=torch.float32, device=dev)
+    cam = c + torch.tensor([0.0, -300.0, 40.0], device=dev)
+    o = torch.cat([park, inside, cam.expand(RT, 3)])
+    cone = c + torch.tensor(rng.uniform(-3, 3, (RT, 3)), dtype=torch.float32,
+                            device=dev) - cam
+    d = torch.cat([torch.full((RT, 3), PARK_DIRECTION, device=dev),
+                   torch.tensor(rng.normal(size=(RT, 3)),
+                                dtype=torch.float32, device=dev), cone])
+    shift = o.mean(dim=0)
+    lo, hi, cv = CK._chunk_aabbs(ms.vertices, ms.faces, ms.face_valid, shift,
+                                 CK.TRI_CHUNK)
+    args = ((o - shift).t().contiguous(), CK._safe_inv(d).t().contiguous(),
+            lo, hi, cv, 3)
+    assert CK.tile_straddles(args[1], 3).tolist() == [False, True, False]
+    kept = torch.full((3,), -1, dtype=torch.int32, device=dev)
+    cand, count = CK.candidates_cuda(*args, tile=False, kept=kept)
+    n_valid = int(cv.sum())
+    assert kept.tolist()[:2] == [0, n_valid]
+    assert 0 < int(kept[2]) < n_valid
+    assert torch.equal(kept, CK.frustum_kept_plain(*args).sum(dim=1).int())
+    assert int(count[0]) == 0
+    assert torch.equal(cand[0], torch.arange(cand.shape[1], device=dev,
+                                             dtype=torch.int32))
+    want = CK.candidates_plain(*args, tile=False)
+    assert torch.equal(cand, want[0]) and torch.equal(count, want[1])
+    assert int(count[1]) > 0 and int(count[2]) > 0
 
 
 # --- csrc/silhouette.cu: a silhouette view's chain around its query -------
