@@ -204,7 +204,8 @@ def reference_steps(cfg, ref, views, mesh_np, ray_rows, silh_rows, device,
     module ref (`reference_of`), as `first_steps` reads the program's, the
     change taken from its own `init_state`'s parameters. `control` (a key
     of CONTROLS) runs it one precision lower; `fault` (one of FAULTS)
-    plants that fault (reference/step.py)."""
+    plants that fault (reference/step.py). A row of one ray view passes
+    the reference its int, a row of more the whole list."""
     kw = CONTROLS[control] if control else {}
     with ref.precision(kw.get("tf32", False)):
         mesh = ref_mesh(*mesh_np, device)
@@ -216,7 +217,8 @@ def reference_steps(cfg, ref, views, mesh_np, ray_rows, silh_rows, device,
         losses, parts, states = [], [], []
         for r, s in zip(ray_rows, silh_rows):
             state, loss, part = ref.step(state, cfg["lr"], mesh, views,
-                                         r[0], list(s), cfg, fault=fault,
+                                         r[0] if len(r) == 1 else list(r),
+                                         list(s), cfg, fault=fault,
                                          ray_dtype=kw.get("ray_dtype"))
             losses.append(loss)
             parts.append(part)

@@ -5,6 +5,13 @@ silhouette mask: the semantics of the port's `synthesize_capture`, made
 here in plain PyTorch with the yardstick's own oracle, so that a change to
 the program cannot move the inputs it is judged on.
 
+A rig may state `"supersample": s` (an integer of at least 1; a rig
+without the key takes 1): each pixel then gets an s x s grid of sub-pixel
+rays, the layout of the port's `generate_rays(supersample=)`, and each
+valid sub-ray keeps its own screen point. The mask stays one a pixel, the
+hit of the ray through the pixel's centre, so the silhouette views are
+those of the same rig at s = 1.
+
 The capture depends on the configuration alone. It is made once per
 checkout and kept in a cache directory (the harness gives
 port_bench/.cache/): each view's matting-valid lanes and their screen
@@ -31,12 +38,14 @@ from port_bench.reference.oracle import Scene, closest_hit
 from port_bench.reference.step import trace_exit
 
 FORMAT = 1
+TRACE_BLOCK = 2 ** 21   # rays a block of `make`'s traces
 
 
 class Views(NamedTuple):
     """The capture on the device, one row per view, with the fields of the
     port's ViewBatch."""
-    screen_pixel: torch.Tensor  # [V,N,3] float32, 0 where not valid
+    screen_pixel: torch.Tensor  # [V,N,3] float32, 0 where not valid;
+                                # N = s^2 resy resx (`supersample`)
     valid: torch.Tensor         # [V,N] bool
     mask: torch.Tensor          # [V,resy,resx] float32 soft mask
     origin: torch.Tensor        # [V,1,3] the pinhole
@@ -83,12 +92,26 @@ def ring(gt_vertices: np.ndarray, rig: dict):
     return out
 
 
-def camera_rays(resy, resx, K_inv, R_inv):
-    """(origin [3], unit directions [resy*resx, 3]) through the integer
-    pixel centres, row-major."""
+def supersample(rig: dict) -> int:
+    """The rig's sub-pixel rays along each axis: its "supersample", 1
+    where it states none."""
+    s = rig.get("supersample", 1)
+    if isinstance(s, bool) or not isinstance(s, int) or s < 1:
+        raise ValueError(f"rig {rig.get('name')!r}: supersample {s!r} is "
+                         "not an integer of at least 1")
+    return s
+
+
+def camera_rays(resy, resx, K_inv, R_inv, s=1):
+    """(origin [3], unit directions [s^2 resy resx, 3]): each pixel's s x s
+    sub-pixel rays at (i + 0.5)/s - 0.5 along each axis, row-major over the
+    fine (resy s x resx s) grid, so that the sub-rays of pixel (y, x) sit
+    at fine rows s y .. s y + s - 1 and columns s x .. s x + s - 1. With
+    s = 1 the rays go through the integer pixel centres, row-major."""
     kw = dict(dtype=K_inv.dtype, device=K_inv.device)
-    py, px = torch.meshgrid(torch.arange(resy, **kw),
-                            torch.arange(resx, **kw), indexing="ij")
+    py, px = torch.meshgrid((torch.arange(resy * s, **kw) + 0.5) / s - 0.5,
+                            (torch.arange(resx * s, **kw) + 0.5) / s - 0.5,
+                            indexing="ij")
     pix = torch.stack([px, py, torch.ones_like(py)], dim=2).reshape(-1, 3)
     world = (pix @ K_inv.T) @ R_inv[:3, :3].T + R_inv[:3, 3]
     origin = R_inv[:3, 3]
@@ -132,11 +155,19 @@ def _cameras(R, K, device):
             torch.as_tensor(np.linalg.inv(K), **f32))
 
 
+def _blocks(n: int):
+    """The slices of n rays that `make` traces at a time."""
+    return [slice(b, min(b + TRACE_BLOCK, n))
+            for b in range(0, n, TRACE_BLOCK)]
+
+
 @torch.no_grad()
 def make(gt_vertices: np.ndarray, gt_faces: np.ndarray, cfg: dict, device):
     """Render the capture: per view (valid lane indices int64, their screen
-    points [n,3] float32, binary mask [resy*resx] bool), on the host."""
+    points [n,3] float32, binary mask [resy*resx] bool), on the host. The
+    rays are traced in blocks of TRACE_BLOCK."""
     rig = cfg["rig"]
+    resy, resx, s = rig["resy"], rig["resx"], supersample(rig)
     mesh = ref_mesh(gt_vertices, gt_faces, device)
     scene = Scene(mesh.vertices, mesh.faces)
     out = []
@@ -147,20 +178,27 @@ def make(gt_vertices: np.ndarray, gt_faces: np.ndarray, cfg: dict, device):
             print(f"capture: view {i} of {rig['num_views']}, "
                   f"{time.time() - t0:.1f} s", file=sys.stderr, flush=True)
         _, _, R_inv, K_inv = _cameras(R, K, device)
-        origin, d = camera_rays(rig["resy"], rig["resx"], K_inv, R_inv)
-        o = origin.expand(d.shape)
-        _, first = closest_hit(o, d, scene)
-        o2, d2, lanes, esc, _ = trace_exit(o, d, mesh.vertices, mesh.faces,
-                                           scene, cfg["ior"], cfg["ext_ior"])
+        origin, d = camera_rays(resy, resx, K_inv, R_inv, s)
+        centre = d if s == 1 else camera_rays(resy, resx, K_inv, R_inv)[1]
+        first = torch.cat([closest_hit(origin.expand(centre[b].shape),
+                                       centre[b], scene)[1]
+                           for b in _blocks(centre.shape[0])])
         sn_t = torch.as_tensor(sn, dtype=torch.float32, device=device)
         sp_t = torch.as_tensor(spt, dtype=torch.float32, device=device)
-        denom = (d2 * sn_t).sum(-1)
-        safe = torch.where(torch.abs(denom) > 1e-9, denom,
-                           torch.full_like(denom, 1e-9))
-        t = ((sp_t - o2) * sn_t).sum(-1) / safe
-        pt = o2 + t[:, None] * d2
-        ok = esc & (t > 0) & (torch.abs(denom) > 1e-9)
-        out.append((lanes[ok].cpu().numpy(), pt[ok].cpu().numpy(),
+        lanes, points = [], []
+        for b in _blocks(d.shape[0]):
+            o2, d2, kept, esc, _ = trace_exit(
+                origin.expand(d[b].shape), d[b], mesh.vertices, mesh.faces,
+                scene, cfg["ior"], cfg["ext_ior"])
+            denom = (d2 * sn_t).sum(-1)
+            safe = torch.where(torch.abs(denom) > 1e-9, denom,
+                               torch.full_like(denom, 1e-9))
+            t = ((sp_t - o2) * sn_t).sum(-1) / safe
+            ok = esc & (t > 0) & (torch.abs(denom) > 1e-9)
+            lanes.append(kept[ok] + b.start)
+            points.append((o2 + t[:, None] * d2)[ok])
+        out.append((torch.cat(lanes).cpu().numpy(),
+                    torch.cat(points).cpu().numpy(),
                     (first >= 0).cpu().numpy()))
     return out
 
@@ -194,15 +232,17 @@ def build_or_read(gt_vertices, gt_faces, cfg: dict, device, cache_dir: str):
 
 
 def load(gt_vertices, gt_faces, cfg: dict, device, cache_dir: str) -> Views:
-    """The capture as device tensors (see `Views`), in float32, the one
-    precision it is made in; a configuration that states another is
-    refused."""
+    """The capture as device tensors (see `Views`): N = s^2 resy resx lanes
+    a view (s the rig's `supersample`), the mask [V,resy,resx]; in float32,
+    the one precision it is made in; a configuration that states another
+    is refused."""
     if cfg["dtype"] != "float32":
         raise ValueError(f"configuration {cfg['name']!r} states "
                          f"{cfg['dtype']}; the capture is float32")
     rig = cfg["rig"]
     resy, resx, nv = rig["resy"], rig["resx"], rig["num_views"]
-    n = resy * resx
+    s = supersample(rig)
+    n = s * s * resy * resx
     arr = build_or_read(gt_vertices, gt_faces, cfg, device, cache_dir)
     cams = [_cameras(R, K, device)
             for R, K, _, _ in ring(np.asarray(gt_vertices, np.float64), rig)]
@@ -219,11 +259,14 @@ def load(gt_vertices, gt_faces, cfg: dict, device, cache_dir: str) -> Views:
     sp[flat] = points
     bits = torch.as_tensor(arr["masks"], device=device)
     shifts = torch.arange(7, -1, -1, device=device, dtype=torch.uint8)
-    hit = ((bits[:, :, None] >> shifts) & 1).reshape(nv, -1)[:, :n] > 0
+    hit = ((bits[:, :, None] >> shifts) & 1).reshape(nv, -1)[
+        :, :resy * resx] > 0
     masks = torch.stack([soft_mask(h.reshape(resy, resx)) for h in hit])
-    origin, ray_dir = zip(*(camera_rays(resy, resx, K_inv[i], R_inv[i])
-                            for i in range(nv)))
+    origin = torch.empty((nv, 1, 3), dtype=torch.float32, device=device)
+    ray_dir = torch.empty((nv, n, 3), dtype=torch.float32, device=device)
+    for i in range(nv):
+        origin[i, 0], ray_dir[i] = camera_rays(resy, resx, K_inv[i],
+                                               R_inv[i], s)
     return Views(screen_pixel=sp.reshape(nv, n, 3), valid=valid.reshape(nv, n),
-                 mask=masks, origin=torch.stack(origin)[:, None, :],
-                 ray_dir=torch.stack(ray_dir), R=R, K=K, R_inv=R_inv,
-                 K_inv=K_inv)
+                 mask=masks, origin=origin, ray_dir=ray_dir, R=R, K=K,
+                 R_inv=R_inv, K_inv=K_inv)

@@ -9,10 +9,12 @@ t and face written once (8 bytes), and each vertex (12 bytes) and face
 FP32 operations for each (ray, triangle) pair that a culled search must
 test, depend on the search and bound no time below the bytes' here. The
 queries of a step: 3 on every lane of each ray view (two bounces and the
-exit; the view's resy x resx lanes) and, for each of the step's
-silhouette views, one of 2 rays for each of the budget's edges. So the
-share reads the same work whatever implements the query."""
+exit; the view's s^2 x resy x resx lanes, s the rig's `supersample`) and,
+for each of the step's silhouette views, one of 2 rays for each of the
+budget's edges. So the share reads the same work whatever implements the
+query."""
 
+from port_bench.capture import supersample
 from port_bench.peaks import H100_HBM_BYTES_PER_S
 from port_bench.tracing import kernel_ms
 
@@ -20,7 +22,8 @@ from port_bench.tracing import kernel_ms
 def step_bytes(config, mix, vertices, faces):
     rig = config["rig"]
     mesh = 12 * vertices + 12 * faces
-    rays = (3 * mix["ray_views"] * [rig["resy"] * rig["resx"]]
+    lanes = supersample(rig) ** 2 * rig["resy"] * rig["resx"]
+    rays = (3 * mix["ray_views"] * [lanes]
             + mix["silh_views"] * [2 * config["silhouette_budget"]])
     return sum(32 * n + mesh for n in rays)
 

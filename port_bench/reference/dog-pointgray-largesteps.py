@@ -53,9 +53,10 @@ def init_state(mesh):
 
 def step(state, lr, mesh, views, ray_view, silh_views, cfg, fault=None,
          ray_dtype=None):
-    """One train step: (new state, loss, parts). ray_view an int,
-    silh_views a list of ints; `fault` one of FAULTS or None; `ray_dtype`
-    runs the ray path in that type (a control)."""
+    """One train step: (new state, loss, parts). ray_view an int or a
+    list of ints (`step.ray_views_loss`), silh_views a list of ints;
+    `fault` one of FAULTS or None; `ray_dtype` runs the ray path in that
+    type (a control)."""
     if cfg["precond_lambda"] != LAMBDA:
         raise ValueError(f"this reference solves with lambda {LAMBDA}, the "
                          f"configuration states {cfg['precond_lambda']}")

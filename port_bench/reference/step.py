@@ -29,8 +29,11 @@ mesh.py and oracle.py, and provides, as this one does:
   from its "params";
 - `step(state, lr, mesh, views, ray_view, silh_views, cfg, fault=None,
   ray_dtype=None)`: one train step, (new state, loss, parts), parts
-  holding "ray", "vh", "sm" and "lanes"; `fault` is None, "half" or
-  "frozen", `ray_dtype` None or the control's bfloat16 (below);
+  holding "ray", "vh", "sm" and "lanes"; `ray_view` is an int, or a list
+  of ints where the mix draws more than one ray view a step, whose ray
+  terms are then averaged and whose lanes summed, as the program does;
+  `fault` is None, "half" or "frozen", `ray_dtype` None or the control's
+  bfloat16 (below);
 - `update(state, g, lr, cfg)`: the optimizer's update of the state by the
   limited gradient g;
 - `first_grad(m1, optimizer)`: the first step's gradient from the
@@ -243,14 +246,30 @@ def smooth_loss(verts, mesh: RefMesh):
     return -torch.log(torch.clamp(1.0 + cos, min=1e-12)).sum()
 
 
+def ray_views_loss(verts, mesh, scene, views, ray_view, cfg, half=False,
+                   evidence=False, ray_dtype=None):
+    """`ray_loss` of the ray view ray_view (an int) or of each of the ray
+    views ray_view (a list of ints): the mean of the views' ray terms, the
+    sum of their evidence and of their lanes."""
+    if isinstance(ray_view, int):
+        return ray_loss(verts, mesh, scene, views, ray_view, cfg, half,
+                        evidence, ray_dtype)
+    rls, evs, lanes = zip(*(ray_loss(verts, mesh, scene, views, i, cfg, half,
+                                     evidence, ray_dtype)
+                            for i in ray_view))
+    return (torch.stack(rls).mean(), sum(evs) if evidence else None,
+            sum(lanes))
+
+
 def total_loss(verts, mesh, views, ray_view, silh_views, cfg, w,
                half=False, evidence=False, ray_dtype=None):
-    """(loss, parts, evidence) under weights w = (ray_w, vh_w, sm_w)."""
+    """(loss, parts, evidence) under weights w = (ray_w, vh_w, sm_w);
+    ray_view an int or a list of ints (`ray_views_loss`)."""
     scene = Scene(verts.detach(), mesh.faces)
     resy = views.mask.shape[1]
     zero = verts.new_zeros(())
-    rl, ev, lanes = (ray_loss(verts, mesh, scene, views, ray_view, cfg,
-                              half, evidence, ray_dtype)
+    rl, ev, lanes = (ray_views_loss(verts, mesh, scene, views, ray_view,
+                                    cfg, half, evidence, ray_dtype)
                      if w[0] else (zero, None, 0))
     vh, edges = zero, 0
     if w[1]:
@@ -308,11 +327,12 @@ def init_state(mesh: RefMesh):
 
 def step(state, lr, mesh: RefMesh, views, ray_view, silh_views, cfg,
          fault=None, ray_dtype=None):
-    """One train step: (new state, loss, parts). ray_view an int,
-    silh_views a list of ints. `fault` plants one: "half" (every second
-    matting-valid lane of the ray view left out, the sum scaled back) or
-    "frozen" (the parameters left unwritten while the momentum updates);
-    `ray_dtype` runs the ray path in that type (a control)."""
+    """One train step: (new state, loss, parts). ray_view an int or a
+    list of ints (`ray_views_loss`), silh_views a list of ints. `fault`
+    plants one: "half" (every second matting-valid lane of each ray view
+    left out, the sum scaled back) or "frozen" (the parameters left
+    unwritten while the momentum updates); `ray_dtype` runs the ray path
+    in that type (a control)."""
     opt, pre = cfg["optimizer"], cfg["precond"]
     w = (cfg["ray_w"], cfg["vh_w"], cfg["sm_w"])
 
